@@ -1,0 +1,462 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout.  Phases, each of which raises (and so
+exits nonzero, with no result line) when a check fails:
+
+  1. device  — the card's name, count and power limit; TF32 off
+  2. build   — nvcc builds both CUDA kernels from the checkout's sources,
+               all at once; ptxas register/spill lines and seconds
+  3. kernels — each kernel against its plain PyTorch version on the card,
+               f32 and bf16, at the main-path shapes and ragged ones, at
+               STREAM_PARITY_TOL["kernel_vs_ref"] (2e-4 rtol and atol)
+  4. main    — the port's quickstart (greedy, DASH over 6 OPT guesses
+               × 8 samples, TOP-K, RANDOM) on the paper's D1 protocol at
+               d = n = 8192, k = 128, with the kernels' launch counters
+               set to 0 just before and read just after
+  5. parity  — greedy and DASH on the small D1 (600 × 200, k = 40), card
+               against the CPU plain path, DASH noise drawn on the CPU
+  6. timing  — CUDA-event times per call of each kernel, its plain
+               version and a cuBLAS product, beside the kernel's bound
+               from its shapes and the H100 SXM peaks
+  7. profile — greedy and DASH of the main phase once more under
+               torch.profiler: device busy time by kernel and the
+               device's busy share of the host wall time
+
+The last three lines of output: the kernels JSON, the card's name and
+power limit as nvidia-smi prints them, and the result JSON.  Imports
+nothing of JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM data-sheet peaks: non-tensor f32 FMA rate and HBM3 bandwidth.
+F32_PEAK_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+MAIN = dict(d=8192, n=8192, k=128, support=256, n_guesses=6, n_samples=8)
+# DashConfig.resolve at n = 8192, k = 128: r = 13 rounds, block b = 10.
+MAIN_BLOCK = 10
+
+REPLACES = {
+    "regression_gains": "src/repro/kernels/marginal_gains/kernel.py:62",
+    "filter_gains": "src/repro/kernels/filter_gains/kernel.py:86",
+}
+# Device kernels per counted wrapper call: the filter engine is a base
+# pass over the G guess bases plus a sample pass over the G*m states.
+LAUNCHES_PER_CALL = {"regression_gains": 1, "filter_gains": 2}
+SOURCES = {
+    "regression_gains": "src/repro_torch/kernels/csrc/marginal_gains.cu",
+    "filter_gains": "src/repro_torch/kernels/csrc/filter_gains.cu",
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def need(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# 1-2. device and build
+# ---------------------------------------------------------------------------
+
+def phase_device(torch):
+    need(torch.cuda.is_available(), "no CUDA device")
+    from repro_torch.kernels.common import set_full_f32_matmul
+
+    set_full_f32_matmul()
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    log(f"[device] {name}  count={torch.cuda.device_count()}  "
+        f"nvidia-smi: {smi}  torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    return name, smi
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    info = _build.build("marginal_gains", "filter_gains")
+    for name, bi in info.items():
+        log(f"[build] {name}: {bi.seconds:.1f} s -> {bi.library.name}")
+        for line in bi.ptxas.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
+    log(f"[build] total {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# 3. kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def make_operands(torch, d, n, k, b, m, g, seed):
+    """X (d, n), per-guess orthonormal Q (g, d, k), deltas D (g, m, d, b)
+    ⊥ Q_g, residuals R (g, m, d) and col_sq, made on the card."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    X = randn(d, n)
+    Q = torch.zeros((g, d, k), device=dev)
+    if k:
+        Q = torch.linalg.qr(randn(g, d, k)).Q
+    Dr = randn(g, m, d, b)
+    Dr = Dr - Q[:, None] @ (Q[:, None].transpose(-1, -2) @ Dr)
+    D = torch.linalg.qr(Dr).Q
+    R = randn(g, m, d)
+    return (X, Q.contiguous(), D.contiguous(), R,
+            torch.sum(X * X, dim=0))
+
+
+def _errs(got, want):
+    """Max absolute and max relative (|want| floored at 1e-6) error."""
+    diff = (got - want).abs()
+    return (float(diff.max()),
+            float((diff / want.abs().clamp(min=1e-6)).max()))
+
+
+def phase_kernels(torch, cases):
+    from repro_torch.kernels.common import STREAM_PARITY_TOL, quantize
+    from repro_torch.kernels.filter_gains import (
+        filter_gains,
+        filter_gains_lattice_ref,
+    )
+    from repro_torch.kernels.marginal_gains import (
+        regression_gains,
+        regression_gains_ref,
+    )
+
+    worst = {"regression_gains": 0.0, "filter_gains": 0.0}
+    for (d, n, k, b, m, g) in cases:
+        X, Q, D, R, csq = make_operands(torch, d, n, k, b, m, g, seed=d + n)
+        r = R[:, 0].contiguous()
+        for prec in ("f32", "bf16"):
+            tol = STREAM_PARITY_TOL[prec]["kernel_vs_ref"]
+            Xq = quantize(X, prec)
+            for name, got, want in (
+                ("regression_gains",
+                 regression_gains(X, Q, r, csq, precision=prec),
+                 regression_gains_ref(Xq, Q, r, csq)),
+                ("filter_gains",
+                 filter_gains(X, Q, D, R, csq, precision=prec),
+                 filter_gains_lattice_ref(Xq, Q, D, R, csq)),
+            ):
+                torch.cuda.synchronize()
+                need(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+                abs_err, rel_err = _errs(got, want)
+                ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+                log(f"[kernels] {name:16s} {prec:4s} d={d} n={n} k={k} "
+                    f"b={b} m={m} G={g}: max_abs_err={abs_err:.3e} "
+                    f"max_rel_err={rel_err:.3e} "
+                    f"{'ok' if ok else 'FAIL'}")
+                need(ok, f"{name} {prec} disagrees with its plain version "
+                         f"at d={d} n={n} k={k} b={b} m={m} G={g}")
+                if prec == "f32":
+                    worst[name] = max(worst[name], abs_err)
+            del Xq
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# 4. the main path
+# ---------------------------------------------------------------------------
+
+def phase_main(torch):
+    from repro_torch import quickstart
+    from repro_torch.kernels.filter_gains import filter_gains
+    from repro_torch.kernels.marginal_gains import regression_gains
+
+    k = MAIN["k"]
+    torch.cuda.reset_peak_memory_stats()
+    regression_gains.launches = 0
+    filter_gains.launches = 0
+    out = quickstart.main(device="cuda", verbose=False, seed=0, **MAIN)
+    launches = {"regression_gains": regression_gains.launches,
+                "filter_gains": filter_gains.launches}
+    peak = torch.cuda.max_memory_allocated()
+    dash = out["dash"]
+    log(f"[main] D1 d={MAIN['d']} n={MAIN['n']} support={MAIN['support']} "
+        f"k={k} G={MAIN['n_guesses']} m={MAIN['n_samples']} (no cut)")
+    for algo in ("greedy", "dash", "topk", "random"):
+        extra = ""
+        if algo == "dash":
+            extra = (f"rounds={out['dash_rounds']} "
+                     f"selected={out['dash_selected']} ")
+        elif algo == "greedy":
+            extra = f"rounds={k} "
+        log(f"[main] {algo:7s} value={out[algo + '_value']:.6f} {extra}"
+            f"host_s={out[algo + '_s']:.3f} "
+            f"launches={out['launches'][algo]}")
+    log(f"[main] planted-support recovery {out['recovered']}/{k}")
+    log(f"[main] dash filter iterations per round (best guess): "
+        f"{dash.trace.filter_iters.tolist()}")
+    log(f"[main] max_memory_allocated={peak} bytes  launches={launches}")
+
+    need(launches["regression_gains"] > 0 and launches["filter_gains"] > 0,
+         f"a kernel of the main path never launched: {launches}")
+    need(out["launches"]["greedy"]["regression_gains"] >= k,
+         "greedy launched regression_gains fewer than k times")
+    need(out["launches"]["dash"]["filter_gains"] > 0,
+         "DASH never launched filter_gains")
+    for algo in ("greedy", "dash", "topk", "random"):
+        v = out[algo + "_value"]
+        need(v == v and 0.0 <= v <= 1.0, f"{algo} value {v} not in [0, 1]")
+    need(out["dash_value"] > out["random_value"],
+         "DASH does not beat RANDOM")
+    need(out["dash_selected"] <= k, "DASH selected more than k")
+    return out, launches, peak
+
+
+# ---------------------------------------------------------------------------
+# 5. card against the CPU plain path on the small D1
+# ---------------------------------------------------------------------------
+
+def phase_parity(torch):
+    from repro_torch.core import RegressionObjective, dash_auto, greedy
+    from repro_torch.core.random import SeedKey
+    from repro_torch.data.synthetic import make_d1_regression
+
+    X, y, _ = make_d1_regression(seed=0, n_samples=600, n_features=200,
+                                 support=40)
+    objs, runs = {}, {}
+    for dev in ("cpu", "cuda"):
+        obj = objs[dev] = RegressionObjective(X, y, 40, device=dev)
+        runs[dev] = (greedy(obj, 40, device=dev),
+                     dash_auto(obj, 40, SeedKey(0, host=True), eps=0.25,
+                               alpha=0.6, n_samples=8, n_guesses=6,
+                               device=dev))
+    (gc, dc), (gg, dg) = runs["cpu"], runs["cuda"]
+    pc, pg = gc.sel_idx.tolist(), gg.sel_idx.cpu().tolist()
+    if pc == pg:
+        log(f"[parity] greedy: identical picks (k=40), values "
+            f"cpu={float(gc.value):.6f} cuda={float(gg.value):.6f}")
+    else:
+        i = next(j for j, (a, b) in enumerate(zip(pc, pg)) if a != b)
+        obj = objs["cpu"]
+        st = obj.add_set(obj.init(), torch.tensor([pc[:i]]),
+                         torch.ones((1, i), dtype=torch.bool))
+        top = torch.topk(obj.gains(st)[0], 2).values.tolist()
+        gap = (top[0] - top[1]) / top[0]
+        log(f"[parity] greedy: first difference at step {i}, top-two "
+            f"relative gap {gap:.3e}")
+        need(gap < 2e-4, "greedy picks differ beyond a near-tie")
+    same = bool(torch.equal(dc.sel_mask, dg.sel_mask.cpu()))
+    dv = abs(float(dc.value) - float(dg.value))
+    log(f"[parity] dash: same set={same} value cpu={float(dc.value):.6f} "
+        f"cuda={float(dg.value):.6f} |diff|={dv:.3e}")
+    need(same or dv < 1e-3, "DASH on the card disagrees with the CPU")
+
+
+# ---------------------------------------------------------------------------
+# 6. timing
+# ---------------------------------------------------------------------------
+
+def time_ms(torch, fn, iters=10, warmup=2):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops, nbytes):
+    t_ops = flops / F32_PEAK_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_timing(torch, worst, launches):
+    from repro_torch.kernels.common import quantize
+    from repro_torch.kernels.filter_gains import (
+        filter_gains,
+        filter_gains_lattice_ref,
+    )
+    from repro_torch.kernels.marginal_gains import (
+        regression_gains,
+        regression_gains_ref,
+    )
+
+    d, n, k = MAIN["d"], MAIN["n"], MAIN["k"]
+    G, m, b = MAIN["n_guesses"], MAIN["n_samples"], MAIN_BLOCK
+    X, Q, D, R, csq = make_operands(torch, d, n, k, b, m, G, seed=7)
+    q1, r1 = Q[:1].contiguous(), R[:1, 0].contiguous()
+    rows = []
+    for prec in ("f32", "bf16"):
+        xb = 4 if prec == "f32" else 2
+        Xs = X.to(torch.float32 if prec == "f32" else torch.bfloat16)
+        Xq = quantize(X, prec)
+        # regression_gains at greedy's shape (one lane, full kcap basis).
+        b1, by1 = bound(2.0 * d * n * (k + 1),
+                        xb * d * n + 4 * (d * k + d + 2 * n))
+        t1 = time_ms(torch, lambda: regression_gains(Xs, q1, r1, csq,
+                                                     precision=prec))
+        p1 = time_ms(torch, lambda: regression_gains_ref(Xq, q1, r1, csq))
+        # filter_gains at DASH's lattice shape.
+        b2, by2 = bound(2.0 * d * n * (G * k + G * m * (b + 1)),
+                        xb * d * n + 4 * (G * d * k + G * m * d * b
+                                          + G * m * d + n + G * m * n))
+        t2 = time_ms(torch, lambda: filter_gains(Xs, Q, D, R, csq,
+                                                 precision=prec))
+        p2 = time_ms(torch, lambda: filter_gains_lattice_ref(Xq, Q, D, R,
+                                                             csq))
+        lib1 = lib2 = None
+        if prec == "f32":
+            # cuBLAS f32 products that dominate each kernel (no epilogue):
+            # only part of the function, timed as a yardstick.
+            qt = q1[0].t().contiguous()
+            lib1 = time_ms(torch, lambda: qt @ X)
+            stacked = torch.cat([Q.permute(0, 2, 1).reshape(-1, d),
+                                 D.permute(0, 1, 3, 2).reshape(-1, d),
+                                 R.reshape(-1, d)]).contiguous()
+            lib2 = time_ms(torch, lambda: stacked @ X)
+        for name, t, p, bd, by, lib in (
+            ("regression_gains", t1, p1, b1, by1, lib1),
+            ("filter_gains", t2, p2, b2, by2, lib2),
+        ):
+            log(f"[timing] {name:16s} {prec:4s} kernel_ms={t:.4f} "
+                f"plain_ms={p:.4f} bound_ms={bd:.4f} ({by}) "
+                f"library_ms={'n/a' if lib is None else f'{lib:.4f}'}"
+                f"{' (cuBLAS product only)' if lib is not None else ''} "
+                f"bound/kernel={bd / t:.3f}")
+            if prec == "f32":
+                rows.append({
+                    "name": name, "route": "cuda", "source": SOURCES[name],
+                    "replaces": REPLACES[name], "launches": launches[name],
+                    "launches_per_call": LAUNCHES_PER_CALL[name],
+                    "max_abs_err": worst[name], "ms": t, "plain_ms": p,
+                    "bound_ms": bd, "bound_by": by, "library_ms": lib,
+                })
+        del Xs, Xq
+    log(f"[timing] shapes: d={d} n={n} kcap={k} G={G} m={m} b={b}; "
+        f"regression_gains at G=1, filter_gains over G*m={G * m} states")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# 7. where the time goes
+# ---------------------------------------------------------------------------
+
+def _device_us(event):
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, attr):
+            return float(getattr(event, attr))
+    return 0.0
+
+
+def phase_profile(torch, out):
+    """Replay the main phase's greedy and DASH under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import SeedKey, dash_auto, greedy
+
+    obj, k = out["objective"], MAIN["k"]
+    runs = {
+        "greedy": lambda: greedy(obj, k, device="cuda"),
+        "dash": lambda: dash_auto(obj, k, SeedKey(0), eps=0.25, alpha=0.6,
+                                  n_samples=MAIN["n_samples"],
+                                  n_guesses=MAIN["n_guesses"],
+                                  device="cuda"),
+    }
+    for algo, fn in runs.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # Device-side entries only (kernels, copies): the CPU operators
+        # that launched them carry the same device time a second time.
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+        busy = sum(_device_us(e) for e in events) / 1e6
+        if not events:
+            log(f"[profile] {algo}: wall_s={wall:.4f}; device time not "
+                f"measured (the profiler saw no device activity)")
+            continue
+        log(f"[profile] {algo}: wall_s={wall:.4f} device_busy_s={busy:.4f} "
+            f"busy_share={busy / wall:.4f} (under the profiler)")
+        for e in sorted(events, key=_device_us, reverse=True)[:8]:
+            log(f"[profile]   {_device_us(e) / 1e3:10.3f} ms  "
+                f"{e.count:6d} calls  {e.key[:90]}")
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py: src/repro_torch is missing; run it from the "
+              "root of a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 3
+    t0 = time.perf_counter()
+    name, smi = phase_device(torch)
+    phase_build()
+    d, n, k = MAIN["d"], MAIN["n"], MAIN["k"]
+    G, m = MAIN["n_guesses"], MAIN["n_samples"]
+    worst = phase_kernels(torch, [
+        (d, n, k, MAIN_BLOCK, m, G),    # the main path's lattice shapes
+        (d, n, k, MAIN_BLOCK, 1, 1),    # greedy's one-lane shape
+        (1000, 1537, 37, 1, 3, 2),      # ragged n, b = 1, G > 1, m > 1
+        (257, 513, 0, 3, 4, 2),         # odd d, k = 0
+        (513, 777, 130, 17, 2, 3),      # k, b above one basis tile
+    ])
+    log(f"[kernels] done at {time.perf_counter() - t0:.1f} s")
+    out, launches, _ = phase_main(torch)
+    log(f"[main] done at {time.perf_counter() - t0:.1f} s")
+    phase_parity(torch)
+    rows = phase_timing(torch, worst, launches)
+    phase_profile(torch, out)
+    log(f"[smoke] total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

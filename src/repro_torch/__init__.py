@@ -1,0 +1,23 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro`` for NVIDIA Hopper.
+
+A second package beside the JAX reference package ``repro``.  It never
+imports JAX or ``repro``; its tests hold it against the reference on the
+same numpy inputs.  Slice 1 carries the paper's main path: DASH feature
+selection for sparse regression on one device.
+
+Layers:
+  repro_torch.kernels  — hand-written CUDA C++ kernels for sm_90a (the
+                         singleton-gain sweep and the sample-batched
+                         filter engine), their plain PyTorch versions and
+                         the nvcc/ctypes build
+  repro_torch.core     — the regression objective, estimators, the
+                         lane-batched DASH selection loop, greedy and the
+                         §5 one-shot baselines
+  repro_torch.data     — the paper's synthetic D1 data (numpy only)
+  repro_torch.convert  — numpy state in, port state out (parity tests)
+
+Entry points run on the card (``device=None`` means ``"cuda"``) and raise
+when there is none, unless the caller asks for ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

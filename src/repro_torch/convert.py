@@ -1,0 +1,50 @@
+"""Carry regression objectives and states across from numpy.
+
+The parity tests start the JAX reference and the port from the same
+state: they export the reference's ``RegressionObjective`` inputs and
+``RegressionState`` fields as numpy arrays and rebuild them here.  A
+state without a leading lane axis becomes a one-lane state; with one
+(Q (G, d, k), count (G,), resid (G, d), sel_mask (G, n), value (G,)) it
+becomes a G-lane state.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.objectives.regression import (
+    RegressionObjective,
+    RegressionState,
+)
+from repro_torch.kernels.common import resolve_device
+
+
+def objective_from_numpy(X, y, kmax: int, *, span_tol: float = 1e-6,
+                         jitter: float = 1e-8, precision: str | None = None,
+                         device=None) -> RegressionObjective:
+    """The port's objective over the numpy X (d, n) and y (d,)."""
+    return RegressionObjective(np.array(X, np.float32),
+                               np.array(y, np.float32), kmax,
+                               span_tol=span_tol, jitter=jitter,
+                               precision=precision, device=device)
+
+
+def state_from_numpy(Q, count, resid, sel_mask, value, *,
+                     device=None) -> RegressionState:
+    """The port's RegressionState from numpy fields (lane axis optional)."""
+    dev = resolve_device(device)
+    Q = np.asarray(Q, np.float32)
+    lanes = Q.ndim == 3
+
+    def t(x, dtype, nd):
+        x = torch.as_tensor(np.array(x, copy=True)).to(dtype=dtype, device=dev)
+        return x if lanes else x.reshape((1,) + tuple(x.shape[:nd]))
+
+    return RegressionState(
+        Q=t(Q, torch.float32, 2),
+        count=t(count, torch.int32, 0),
+        resid=t(resid, torch.float32, 1),
+        sel_mask=t(sel_mask, torch.bool, 1),
+        value=t(value, torch.float32, 0),
+    )

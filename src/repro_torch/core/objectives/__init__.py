@@ -1,0 +1,15 @@
+from repro_torch.core.objectives.base import (
+    Objective,
+    SupportsFilterEngine,
+    SupportsSubsetGains,
+    normalize_columns,
+)
+from repro_torch.core.objectives.regression import RegressionObjective
+
+__all__ = [
+    "Objective",
+    "SupportsFilterEngine",
+    "SupportsSubsetGains",
+    "normalize_columns",
+    "RegressionObjective",
+]

@@ -1,0 +1,70 @@
+"""The port's PRNG key: explicit, splittable, never a global generator.
+
+The selection loop calls ``split`` with the same counts, in the same
+order, as the JAX reference calls ``jax.random.split``, and draws every
+Gumbel vector through ``gumbel``.  Any object with these two methods is a
+key, which is how a test replays the reference's exact noise: it passes a
+key class that wraps ``jax.random`` (defined in the test, so this package
+never imports JAX).
+
+    split(num) -> list[key]
+    gumbel(n, device) -> (n,) f32 tensor on ``device``, i.i.d. Gumbel
+
+:class:`SeedKey` is the default: children derive deterministically from
+an integer seed (splitmix64), and each draw seeds a fresh
+``torch.Generator``.  CPU and CUDA generators give different streams for
+one seed; ``host=True`` draws on the CPU and moves the noise to the
+device, so a CPU run and a card run see the same noise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Protocol
+
+import torch
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+class Key(Protocol):
+    def split(self, num: int) -> list["Key"]:
+        """``num`` independent child keys."""
+
+    def gumbel(self, n: int, device) -> torch.Tensor:
+        """(n,) f32 i.i.d. Gumbel noise on ``device``."""
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Gumbel noise from uniforms, clamped to [1e-9, 1 − 1e-9) as the
+    reference's ``gumbel_noise`` does."""
+    lo = 1e-9
+    u = torch.clamp(u * ((1.0 - lo) - lo) + lo, min=lo)
+    return -torch.log(-torch.log(u))
+
+
+@dataclass(frozen=True)
+class SeedKey:
+    """Default key: an integer seed; ``host`` draws on the CPU."""
+
+    seed: int
+    host: bool = False
+
+    def split(self, num: int) -> list["SeedKey"]:
+        base = _splitmix64(self.seed & _MASK64)
+        return [SeedKey(_splitmix64(base ^ _splitmix64(i + 1)), self.host)
+                for i in range(int(num))]
+
+    def gumbel(self, n: int, device) -> torch.Tensor:
+        dev = torch.device("cpu" if self.host else device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(self.seed & (_MASK64 >> 1))
+        u = torch.rand(int(n), generator=gen, device=dev, dtype=torch.float32)
+        return gumbel_from_uniform(u).to(device)

@@ -1,0 +1,194 @@
+"""The DASH round/filter control flow, run in lockstep over guess lanes.
+
+Ports the single-device core of ``repro/core/selection_loop.py``.  Per
+round (t = (1−ε)(OPT − f(S)), block b = ⌈k/r⌉):
+
+    est ← Ê_{R~U(X)}[f_S(R)]
+    while est < α²·t/r and iterations < ⌈log_{1+ε/2} n⌉ and |X| > 0:
+        X ← X \\ { a : Ê_R[f_{S∪R}(a)] < α(1+ε/2)·t/k }       (filter)
+        est ← Ê_{R~U(X)}[f_S(R)]
+    S ← S ∪ R,  R ~ U(X)                                      (commit)
+
+The JAX reference vmaps this loop over the (OPT, α) lattice, so its
+inner ``lax.while_loop`` runs while any lane is active and freezes the
+carry of finished lanes.  Here the lanes are an explicit leading axis and
+the inner loop is a host loop with the same semantics: each lane keeps
+its own active flag, a finished lane's alive mask, key, estimate and
+iteration count are frozen with ``torch.where``, and the loop runs while
+any lane is active — one host sync per filter iteration.  The outer
+rounds are a plain ``for`` loop.  Keys are split with the same counts,
+in the same order, as the reference: 3 per round, 3 per filter
+iteration.  Checkpointed and straggler-tolerant drivers wait for the
+resilience slice.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+
+class DashTrace(NamedTuple):
+    values: torch.Tensor        # (G, r) f(S) after each round
+    alive: torch.Tensor         # (G, r) surviving |X| after each round
+    filter_iters: torch.Tensor  # (G, r) inner-loop iterations used
+    est_set_gain: torch.Tensor  # (G, r) final Ê[f_S(R)] per round
+
+
+class SelectionCarry(NamedTuple):
+    """The between-round loop state of all lanes."""
+
+    state: Any
+    alive: torch.Tensor         # (G, n) bool
+    count: torch.Tensor         # (G,) int32
+    key: list                   # one key per lane
+    trace: DashTrace
+
+
+@dataclass(frozen=True)
+class DashConfig:
+    k: int                     # cardinality constraint
+    r: int = 0                 # outer rounds (0 → ⌈log2 n⌉, clipped to k)
+    eps: float = 0.2
+    alpha: float = 0.5         # differential-submodularity parameter guess
+    n_samples: int = 8         # Monte-Carlo sets per estimate
+    trim_frac: float = 0.0     # outlier trimming per side
+    max_filter_iters: int = 0  # 0 → ⌈log_{1+ε/2} n⌉ (Lemma 21 cap)
+
+    def resolve(self, n: int) -> "DashConfig":
+        r = self.r or max(1, min(self.k, int(math.ceil(math.log2(max(n, 2))))))
+        cap = self.max_filter_iters or (
+            int(math.ceil(math.log(max(n, 2)) / math.log1p(self.eps / 2.0))) + 1
+        )
+        return DashConfig(
+            k=self.k, r=r, eps=self.eps, alpha=self.alpha,
+            n_samples=self.n_samples, trim_frac=self.trim_frac,
+            max_filter_iters=cap,
+        )
+
+    @property
+    def block(self) -> int:
+        """⌈k/r⌉ — elements committed per outer round (resolved cfg only)."""
+        return max(1, -(-self.k // max(self.r, 1)))
+
+
+def _count_alive(alive: torch.Tensor) -> torch.Tensor:
+    return torch.sum(alive.to(torch.int32), dim=-1)
+
+
+@dataclass(frozen=True)
+class SelectionHooks:
+    """Oracle bundle binding the loop to a runtime; all lane-batched.
+
+      value(state) -> (G,) f(S)
+      sel_mask(state) -> (G, n) bool
+      estimate_set_gain(state, alive, allowed, keys) -> (G,) Ê[f_S(R)]
+      estimate_elem_gains(state, alive, allowed, keys) -> (G, n)
+      pick_and_add(state, alive, allowed, keys) -> (state, (G,) #added)
+      count_alive(alive) -> (G,) survivor counts
+
+    ``allowed`` (G,) is the remaining capacity k − |S|; ``keys`` holds one
+    key per lane.
+    """
+
+    value: Callable[[Any], torch.Tensor]
+    sel_mask: Callable[[Any], torch.Tensor]
+    estimate_set_gain: Callable[..., torch.Tensor]
+    estimate_elem_gains: Callable[..., torch.Tensor]
+    pick_and_add: Callable[..., tuple]
+    count_alive: Callable[[torch.Tensor], torch.Tensor] = _count_alive
+
+
+def initial_carry(cfg: DashConfig, keys: list, state0: Any,
+                  alive0: torch.Tensor) -> SelectionCarry:
+    """Round-0 carry for a ``resolve``-d config (zeroed trace/count)."""
+    g, dev = alive0.shape[0], alive0.device
+    zf = torch.zeros((g, cfg.r), device=dev)
+    zi = torch.zeros((g, cfg.r), dtype=torch.int32, device=dev)
+    return SelectionCarry(
+        state=state0, alive=alive0,
+        count=torch.zeros((g,), dtype=torch.int32, device=dev),
+        key=list(keys),
+        trace=DashTrace(values=zf, alive=zi, filter_iters=zi.clone(),
+                        est_set_gain=zf.clone()),
+    )
+
+
+def _set_column(x: torch.Tensor, rho: int, v: torch.Tensor) -> torch.Tensor:
+    x = x.clone()
+    x[:, rho] = v.to(x.dtype)
+    return x
+
+
+def make_round_body(hooks: SelectionHooks, cfg: DashConfig):
+    """One DASH round over all lanes:
+    ``round_body(rho, carry, opt (G,), alpha (G,)) -> SelectionCarry``."""
+    k, r = cfg.k, cfg.r
+
+    def round_body(rho: int, carry: SelectionCarry, opt, alpha):
+        state, alive, count, keys, trace = carry
+        alpha = torch.as_tensor(alpha, dtype=torch.float32, device=alive.device)
+        opt = torch.as_tensor(opt, dtype=torch.float32, device=alive.device)
+        alpha2 = alpha * alpha
+        splits = [key.split(3) for key in keys]
+        keys = [s[0] for s in splits]
+        value = hooks.value(state)
+        t = torch.clamp((1.0 - cfg.eps) * (opt - value), min=0.0)
+        thr_set = alpha2 * t / r
+        thr_elem = alpha * (1.0 + cfg.eps / 2.0) * t / k
+        allowed = torch.clamp(k - count, min=0)
+
+        est = hooks.estimate_set_gain(state, alive, allowed,
+                                      [s[1] for s in splits])
+        iters = torch.zeros_like(count)
+        sel = hooks.sel_mask(state)
+        while True:
+            active = ((est < thr_set) & (iters < cfg.max_filter_iters)
+                      & (hooks.count_alive(alive) > 0))
+            act = active.tolist()          # the one host sync per iteration
+            if not any(act):
+                break
+            sub = [key.split(3) for key in keys]
+            eg = hooks.estimate_elem_gains(state, alive, allowed,
+                                           [s[1] for s in sub])
+            alive_new = alive & (eg >= thr_elem[:, None]) & ~sel
+            est_new = hooks.estimate_set_gain(state, alive_new, allowed,
+                                              [s[2] for s in sub])
+            alive = torch.where(active[:, None], alive_new, alive)
+            est = torch.where(active, est_new, est)
+            iters = iters + active.to(iters.dtype)
+            keys = [s[0] if a else key for s, a, key in zip(sub, act, keys)]
+
+        state, added = hooks.pick_and_add(state, alive, allowed,
+                                          [s[2] for s in splits])
+        alive = alive & ~hooks.sel_mask(state)
+        trace = DashTrace(
+            values=_set_column(trace.values, rho, hooks.value(state)),
+            alive=_set_column(trace.alive, rho, hooks.count_alive(alive)),
+            filter_iters=_set_column(trace.filter_iters, rho, iters),
+            est_set_gain=_set_column(trace.est_set_gain, rho, est),
+        )
+        return SelectionCarry(state=state, alive=alive,
+                              count=count + added.to(count.dtype), key=keys,
+                              trace=trace)
+
+    return round_body
+
+
+def run_selection_rounds(hooks: SelectionHooks, cfg: DashConfig, opt, keys,
+                         state0: Any, alive0: torch.Tensor,
+                         alpha=None) -> SelectionCarry:
+    """Drive the r DASH rounds for all lanes.  ``cfg`` must already be
+    ``resolve``-d; ``opt`` and ``alpha`` are (G,) per-lane guesses
+    (``alpha=None`` uses ``cfg.alpha`` on every lane)."""
+    g = alive0.shape[0]
+    if alpha is None:
+        alpha = torch.full((g,), cfg.alpha, dtype=torch.float32)
+    body = make_round_body(hooks, cfg)
+    carry = initial_carry(cfg, keys, state0, alive0)
+    for rho in range(cfg.r):
+        carry = body(rho, carry, opt, alpha)
+    return carry

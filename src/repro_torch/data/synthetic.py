@@ -1,0 +1,39 @@
+"""Synthetic data of the paper's App. I.2 protocol, numpy only.
+
+A copy of the D1 regression generator of ``repro/data/synthetic.py``:
+the same seed gives byte-identical arrays (the tests check it).  The
+other datasets come with the slices that use them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _correlated_normal(rng, n_rows: int, n_cols: int, rho: float):
+    """Columns ~ N(0,1) with pairwise correlation ≈ rho (one-factor)."""
+    common = rng.normal(size=(n_rows, 1))
+    eps = rng.normal(size=(n_rows, n_cols))
+    x = np.sqrt(rho) * common + np.sqrt(1.0 - rho) * eps
+    return x
+
+
+def _normalize_cols(X):
+    X = X - X.mean(axis=0, keepdims=True)
+    X = X / np.maximum(np.linalg.norm(X, axis=0, keepdims=True), 1e-12)
+    return X
+
+
+def make_d1_regression(seed: int = 0, n_samples: int = 1000,
+                       n_features: int = 500, support: int = 100,
+                       rho: float = 0.4, noise: float = 0.1):
+    """Paper D1: correlated features (cov 0.4), β ~ U(−2,2) on a random
+    support, small additive noise.  Returns (X (d, n) f32 with unit,
+    zero-mean columns, y (d,) f32, support indices)."""
+    rng = np.random.default_rng(seed)
+    X = _correlated_normal(rng, n_samples, n_features, rho)
+    beta = np.zeros(n_features)
+    sup = rng.choice(n_features, size=support, replace=False)
+    beta[sup] = rng.uniform(-2, 2, size=support)
+    y = X @ beta + noise * rng.normal(size=n_samples)
+    return _normalize_cols(X).astype(np.float32), y.astype(np.float32), sup

@@ -1,0 +1,18 @@
+"""Hand-written CUDA kernels (sm_90a) for the port's hot spots.
+
+Each kernel package has two modules:
+  ops.py — the wrapper: checks, allocation, launch on the current stream
+           through ``_build`` (nvcc + ctypes) for a CUDA tensor; the plain
+           version for a CPU tensor
+  ref.py — the plain PyTorch version, a transliteration of the JAX
+           reference; the CPU path and the kernel's parity oracle
+
+Kernels:
+  marginal_gains — fused batched regression singleton-gain sweep
+                   (greedy's oracle, DASH's current-state fallback)
+  filter_gains   — sample-batched filter engine with the regression
+                   epilogue (DASH's inner-loop hot spot)
+
+The CUDA sources live in ``csrc/``; ``common`` holds the precision policy
+and the device rule.
+"""

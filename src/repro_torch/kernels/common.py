@@ -1,0 +1,115 @@
+"""Shared policy of the port's kernel wrappers (the ops.py layer).
+
+Every kernel package splits into ``ref.py`` (the plain PyTorch version,
+a transliteration of the JAX reference) and ``ops.py`` (the wrapper over
+the hand-written CUDA kernel in ``repro_torch/kernels/csrc``).  Each
+wrapper follows one device rule instead of the JAX package's TPU
+tiling heuristics:
+
+  * a CUDA tensor goes to the kernel; a shape, dtype or layout the
+    kernel cannot take raises, and so does a build or launch failure —
+    there is no size threshold above which the plain version takes over;
+  * a CPU tensor goes to the plain version;
+  * any other device raises.
+
+Precision policy (as in the JAX package): ``precision="bf16"`` stores
+the streamed operand X in bf16; every accumulation and output is f32.
+The plain versions apply the same bf16 round trip (``quantize``) so
+kernel and plain version compute the same function per precision.
+"""
+
+from __future__ import annotations
+
+import torch
+
+PRECISIONS = ("f32", "bf16")
+_STREAM_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+# Asserted parity tolerances per streamed-operand precision — the same
+# values as the JAX package.  ``kernel_vs_ref`` bounds the kernel against
+# the same-precision plain version (rtol and atol); ``vs_f32`` bounds the
+# bf16 result against the f32 result as max-abs error over max f32 gain.
+STREAM_PARITY_TOL = {
+    "f32": {"kernel_vs_ref": 2e-4, "vs_f32": 0.0},
+    "bf16": {"kernel_vs_ref": 2e-4, "vs_f32": 5e-2},
+}
+
+
+def round_up(x: int, m: int) -> int:
+    """Smallest multiple of ``m`` that is ≥ ``x``."""
+    return ((x + m - 1) // m) * m
+
+
+def resolve_precision(precision: str | None) -> str:
+    """``None`` means f32 streaming."""
+    p = "f32" if precision is None else str(precision)
+    if p not in PRECISIONS:
+        raise ValueError(
+            f"unknown precision {precision!r}; expected one of {PRECISIONS}"
+        )
+    return p
+
+
+def stream_dtype(precision: str | None) -> torch.dtype:
+    """Storage dtype for streamed operands under ``precision``."""
+    return _STREAM_DTYPES[resolve_precision(precision)]
+
+
+def quantize(x: torch.Tensor, precision: str | None) -> torch.Tensor:
+    """Round-trip ``x`` through the streamed storage dtype, back to f32.
+
+    The kernel upcasts bf16 storage right after load, so the values it
+    computes with are exactly ``f32(bf16(x))``; the plain version applies
+    the same round trip.  f32 is the identity.
+    """
+    dt = stream_dtype(precision)
+    if dt == torch.float32:
+        return x.to(torch.float32)
+    return x.to(dt).to(torch.float32)
+
+
+def resolve_device(device) -> torch.device:
+    """The port's entry-point rule: ``None`` means the card.
+
+    Raises when ``"cuda"`` is asked for (explicitly or by default) and no
+    card is present, so a run never lands on the CPU by accident.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    return dev
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """The wrapper's route: True for a CUDA tensor (launch the kernel),
+    False for a CPU tensor (plain version); anything else raises."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain route for device {t.device}")
+
+
+def set_full_f32_matmul() -> None:
+    """The reference is full f32: turn TF32 off for matmul and cuDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def check_tensor(name: str, t: torch.Tensor, shape: tuple, dtypes,
+                 device: torch.device) -> None:
+    """Raise unless ``t`` has ``shape``, one of ``dtypes``, lies on
+    ``device`` and is contiguous — what a kernel's pointers assume."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected one of {dtypes}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

@@ -1,0 +1,90 @@
+"""Wrapper of the sample-batched filter-engine kernel (regression).
+
+On a CUDA tensor ``filter_gains`` launches the hand-written engine of
+``csrc/filter_gains.cu`` — a base pass over the G guess bases and a
+sample pass over the G·m perturbed states, on the current stream — and
+raises on what the kernel cannot take and on a failed launch.  On a CPU
+tensor it runs the plain ``filter_gains_lattice_ref``.  The guess axis
+is always explicit: the port carries the DASH lattice as a leading lane
+axis instead of batching a kernel under ``vmap``.
+``filter_gains.launches`` counts wrapper calls that launch the engine;
+each such call is two device kernels, the base pass and the sample pass.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import (
+    check_tensor,
+    quantize,
+    resolve_precision,
+    stream_dtype,
+    use_kernel,
+)
+from repro_torch.kernels.filter_gains.ref import (
+    SPAN_TOL,
+    filter_gains_lattice_ref,
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P,
+             ctypes.c_float, _P]
+_MAX_COL_BLOCKS = 65535  # gridDim.y of the launch; 64 columns per block
+
+
+def _library():
+    lib = _build.load("filter_gains")
+    fn = lib.filter_gains_launch
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return fn
+
+
+def _launch(X, Q, D, R, col_sq, span_tol):
+    d, n = X.shape
+    g, _, k = Q.shape
+    m, b = D.shape[1], D.shape[3]
+    dev = X.device
+    check_tensor("X", X, (d, n), (torch.float32, torch.bfloat16), dev)
+    check_tensor("Q", Q, (g, d, k), (torch.float32,), dev)
+    check_tensor("D", D, (g, m, d, b), (torch.float32,), dev)
+    check_tensor("R", R, (g, m, d), (torch.float32,), dev)
+    check_tensor("col_sq", col_sq, (n,), (torch.float32,), dev)
+    if g < 1 or m < 1 or n < 1 or -(-n // 64) > _MAX_COL_BLOCKS:
+        raise ValueError(
+            f"filter_gains: unsupported shape G={g}, m={m}, n={n}")
+    base = torch.empty((g, n), dtype=torch.float32, device=dev)
+    out = torch.empty((g, m, n), dtype=torch.float32, device=dev)
+    fn = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(X.data_ptr(), int(X.dtype == torch.bfloat16), d, n, g, m,
+                  Q.data_ptr(), k, D.data_ptr(), b, R.data_ptr(),
+                  col_sq.data_ptr(), base.data_ptr(), out.data_ptr(),
+                  float(span_tol), stream)
+    _build.check(code, "filter_gains")
+    filter_gains.launches += 1
+    return out
+
+
+def filter_gains(X, Q, D, R, col_sq, *, precision: str | None = None,
+                 span_tol: float = SPAN_TOL):
+    """Sample-batched regression filter gains for the whole guess lattice.
+
+    X: (d, n) in f32 or already in the stream dtype; Q: (G, d, k)
+    per-guess bases; D: (G, m, d, b) per-sample orthonormal deltas (⊥ Q);
+    R: (G, m, d) per-sample residuals; col_sq: (n,).  Returns (G, m, n)
+    unnormalized gains.  ``precision="bf16"`` streams X in bf16 with f32
+    accumulation (the plain version quantizes X identically).
+    """
+    prec = resolve_precision(precision)
+    if use_kernel(X):
+        return _launch(X.to(stream_dtype(prec)), Q, D, R, col_sq, span_tol)
+    return filter_gains_lattice_ref(quantize(X, prec), Q, D, R, col_sq,
+                                    span_tol=span_tol)
+
+
+filter_gains.launches = 0

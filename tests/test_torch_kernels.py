@@ -1,0 +1,238 @@
+"""The port's kernel modules against the JAX reference, on the CPU.
+
+The same numpy inputs (``np.random.default_rng``) go through the JAX
+references, the JAX Pallas kernels in interpret mode, and the port's
+plain versions / wrappers (which take the plain route for CPU tensors).
+Tolerance: ``STREAM_PARITY_TOL[...]["kernel_vs_ref"]`` = 2e-4 rtol and
+atol, as the JAX package's own kernel-vs-reference tests.  Also the
+guard tests: the port imports neither JAX nor ``repro``, and its entry
+points refuse to fall back to the CPU.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels.common import quantize as jax_quantize  # noqa: E402
+from repro.kernels.filter_gains.ops import filter_gains as jax_filter_gains  # noqa: E402
+from repro.kernels.filter_gains.ref import (  # noqa: E402
+    filter_gains_lattice_ref as jax_filter_gains_lattice_ref,
+    filter_gains_ref as jax_filter_gains_ref,
+)
+from repro.kernels.marginal_gains.ops import (  # noqa: E402
+    regression_gains as jax_regression_gains,
+)
+from repro.kernels.marginal_gains.ref import (  # noqa: E402
+    regression_gains_ref as jax_regression_gains_ref,
+)
+from repro_torch.kernels.common import (  # noqa: E402
+    STREAM_PARITY_TOL,
+    quantize,
+)
+from repro_torch.kernels.filter_gains import (  # noqa: E402
+    filter_gains,
+    filter_gains_lattice_ref,
+    filter_gains_ref,
+)
+from repro_torch.kernels.marginal_gains import (  # noqa: E402
+    regression_gains,
+    regression_gains_ref,
+)
+
+REPO = Path(__file__).resolve().parent.parent
+TOL = STREAM_PARITY_TOL["f32"]["kernel_vs_ref"]
+
+# The ragged shapes of tests/test_filter_gains.py, k = 0 included.
+SHAPES = [
+    (32, 64, 0, 1, 2),
+    (100, 300, 7, 4, 5),
+    (128, 128, 16, 8, 3),
+    (257, 513, 5, 3, 8),
+    (64, 1000, 32, 2, 4),
+]
+
+
+def _problem(seed, d, n, k, b, m, g=1):
+    """X (d, n), per-guess orthonormal Q (g, d, k), deltas D (g, m, d, b)
+    ⊥ Q, residuals R (g, m, d), col_sq — numpy f32."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(d, n)).astype(np.float32)
+    Qs, Ds = [], []
+    for _ in range(g):
+        Q = np.linalg.qr(rng.normal(size=(d, k)))[0] if k else np.zeros((d, 0))
+        Qs.append(Q)
+        Dg = []
+        for _ in range(m):
+            Di = rng.normal(size=(d, b))
+            Di = Di - Q @ (Q.T @ Di)
+            Dg.append(np.linalg.qr(Di)[0][:, :b])
+        Ds.append(np.stack(Dg))
+    R = rng.normal(size=(g, m, d)).astype(np.float32)
+    return (X, np.stack(Qs).astype(np.float32),
+            np.stack(Ds).astype(np.float32), R,
+            np.sum(X * X, axis=0).astype(np.float32))
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=tol, atol=tol)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,k,b,m", SHAPES)
+def test_regression_gains_matches_jax(d, n, k, b, m, precision):
+    X, Q, _, R, csq = _problem(1, d, n, k, b, m)
+    r = R[0, 0]
+    Xq = np.asarray(jax_quantize(jnp.asarray(X), precision))
+    want_ref = jax_regression_gains_ref(Xq, Q[0], r, csq)
+    want_kernel = jax_regression_gains(X, Q[0] if k else np.zeros((d, 0), np.float32),
+                                       r, csq, interpret=True,
+                                       precision=precision)
+    Xt, Qt, rt, ct = _t(X, Q[0], r, csq)
+    got_ref = regression_gains_ref(quantize(Xt, precision), Qt, rt, ct)
+    got = regression_gains(Xt, Qt, rt, ct, precision=precision)
+    assert got.shape == (n,)
+    _close(got_ref, want_ref)
+    _close(got_ref, want_kernel)
+    _close(got, want_ref)
+
+
+def test_regression_gains_lane_axis_matches_per_lane():
+    """The lane axis (G, d, k) gives each lane's own sweep."""
+    X, Q, _, R, csq = _problem(2, 96, 200, 6, 1, 1, g=3)
+    Xt, Qt, Rt, ct = _t(X, Q, R[:, 0], csq)
+    got = regression_gains(Xt, Qt, Rt, ct)
+    assert got.shape == (3, 200)
+    for g in range(3):
+        want = jax_regression_gains_ref(X, Q[g], R[g, 0], csq)
+        _close(got[g], want)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,k,b,m", SHAPES)
+def test_filter_gains_matches_jax(d, n, k, b, m, precision):
+    X, Q, D, R, csq = _problem(3, d, n, k, b, m)
+    Xq = np.asarray(jax_quantize(jnp.asarray(X), precision))
+    want_ref = jax_filter_gains_ref(Xq, Q[0], D[0], R[0], csq)
+    want_kernel = jax_filter_gains(X, Q[0], D[0], R[0], csq, interpret=True,
+                                   precision=precision)
+    Xt, Qt, Dt, Rt, ct = _t(X, Q, D, R, csq)
+    got_ref = filter_gains_ref(quantize(Xt, precision), Qt[0], Dt[0], Rt[0],
+                               ct)
+    got = filter_gains(Xt, Qt, Dt, Rt, ct, precision=precision)
+    assert got.shape == (1, m, n)
+    _close(got_ref, want_ref)
+    _close(got_ref, want_kernel)
+    _close(got[0], want_ref)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,k,b,m,g", [
+    (64, 130, 5, 3, 4, 3),
+    (33, 257, 0, 1, 2, 2),
+    (100, 300, 8, 2, 8, 6),
+])
+def test_filter_gains_lattice_matches_jax(d, n, k, b, m, g, precision):
+    X, Q, D, R, csq = _problem(4, d, n, k, b, m, g=g)
+    Xq = np.asarray(jax_quantize(jnp.asarray(X), precision))
+    want_ref = jax_filter_gains_lattice_ref(Xq, Q, D, R, csq)
+    want_kernel = jax_filter_gains(X, Q, D, R, csq, interpret=True,
+                                   precision=precision)
+    Xt, Qt, Dt, Rt, ct = _t(X, Q, D, R, csq)
+    got_ref = filter_gains_lattice_ref(quantize(Xt, precision), Qt, Dt, Rt, ct)
+    got = filter_gains(Xt, Qt, Dt, Rt, ct, precision=precision)
+    assert got.shape == (g, m, n)
+    _close(got_ref, want_ref)
+    _close(got_ref, want_kernel)
+    _close(got, want_ref)
+
+
+def test_quantize_bitwise_equals_jax():
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=(4096,)) * np.logspace(-6, 6, 4096)).astype(np.float32)
+    for p in ("f32", "bf16"):
+        want = np.asarray(jax_quantize(jnp.asarray(x), p))
+        got = quantize(torch.from_numpy(x), p).numpy()
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+def test_cpu_wrappers_count_no_launches():
+    """On CPU tensors the wrappers take the plain route and launch
+    nothing."""
+    X, Q, D, R, csq = _problem(6, 16, 20, 2, 1, 2)
+    before = (regression_gains.launches, filter_gains.launches)
+    Xt, Qt, Dt, Rt, ct = _t(X, Q, D, R, csq)
+    regression_gains(Xt, Qt, Rt[:, 0], ct)
+    filter_gains(Xt, Qt, Dt, Rt, ct)
+    assert (regression_gains.launches, filter_gains.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# guards: no JAX in the port, no silent CPU fallback
+# ---------------------------------------------------------------------------
+
+def _port_modules():
+    root = REPO / "src"
+    return sorted(
+        ".".join(p.relative_to(root).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in (root / "repro_torch").rglob("*.py")
+    )
+
+
+def test_port_imports_no_jax_and_no_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_name_no_jax_or_repro():
+    pat = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[\s.])",
+                     re.M)
+    files = [*(REPO / "src" / "repro_torch").rglob("*.py"),
+             REPO / "chip_smoke.py"]
+    hits = [str(p) for p in files if pat.search(p.read_text())]
+    assert hits == []
+
+
+def test_objective_without_device_refuses_cpu(monkeypatch):
+    """device=None means the card: with none, construction raises instead
+    of running on the CPU."""
+    from repro_torch.core import RegressionObjective, dash_auto, greedy
+    from repro_torch.core.random import SeedKey
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.eye(4, 3, dtype=np.float32)
+    y = np.ones(4, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RegressionObjective(X, y, 2)
+    obj = RegressionObjective(X, y, 2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        greedy(obj, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dash_auto(obj, 2, SeedKey(0))
