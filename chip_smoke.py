@@ -7,23 +7,32 @@ Run from the root of a checkout.  Phases, each of which raises (and so
 exits nonzero, with no result line) when a check fails:
 
   1. device  — the card's name, count and power limit; TF32 off
-  2. build   — nvcc builds both CUDA kernels from the checkout's sources,
-               all at once; ptxas register/spill lines and seconds
+  2. build   — nvcc builds the four CUDA kernels from the checkout's
+               sources, all at once; ptxas register/spill lines, seconds
   3. kernels — each kernel against its plain PyTorch version on the card,
                f32 and bf16, at the main-path shapes and ragged ones, at
-               STREAM_PARITY_TOL["kernel_vs_ref"] (2e-4 rtol and atol)
+               STREAM_PARITY_TOL["kernel_vs_ref"] (2e-4 rtol and atol);
+               the A-optimality kernels on genuine operands (a state's
+               shared solve W = M⁻¹X and expand_factors' Woodbury factors)
   4. main    — the port's quickstart (greedy, DASH over 6 OPT guesses
                × 8 samples, TOP-K, RANDOM) on the paper's D1 protocol at
                d = n = 8192, k = 128, with the kernels' launch counters
                set to 0 just before and read just after
   5. parity  — greedy and DASH on the small D1 (600 × 200, k = 40), card
                against the CPU plain path, DASH noise drawn on the CPU
-  6. timing  — CUDA-event times per call of each kernel, its plain
+  6. design main — the port's A-optimal design entry point (greedy, DASH
+               over 6 OPT guesses × 2 α × 8 samples, TOP-K, RANDOM) on
+               the paper's D1 design protocol at d = 1024, n = 65536,
+               k = 128, launch counters set to 0 before and read after
+  7. design parity — greedy and DASH on the small design (128 × 512,
+               k = 32), card against the CPU plain path
+  8. timing  — CUDA-event times per call of each kernel, its plain
                version and a cuBLAS product, beside the kernel's bound
                from its shapes and the H100 SXM peaks
-  7. profile — greedy and DASH of the main phase once more under
-               torch.profiler: device busy time by kernel and the
-               device's busy share of the host wall time
+  9. profile — greedy and DASH of the main phase, and DASH of the design
+               main phase, once more under torch.profiler: device busy
+               time by kernel and the device's busy share of the host
+               wall time
 
 The last three lines of output: the kernels JSON, the card's name and
 power limit as nvidia-smi prints them, and the result JSON.  Imports
@@ -49,16 +58,29 @@ MAIN = dict(d=8192, n=8192, k=128, support=256, n_guesses=6, n_samples=8)
 # DashConfig.resolve at n = 8192, k = 128: r = 13 rounds, block b = 10.
 MAIN_BLOCK = 10
 
+# The A-optimal design path: D1 design protocol, 6 OPT guesses × the
+# α lattice {0.3, 1} of repro_torch.experimental_design (12 lanes).
+DESIGN = dict(d=1024, n=65536, k=128, n_guesses=6, n_samples=8)
+DESIGN_LANES = 12
+# DashConfig.resolve at n = 65536, k = 128: r = 16 rounds, block b = 8.
+DESIGN_BLOCK = 8
+
 REPLACES = {
     "regression_gains": "src/repro/kernels/marginal_gains/kernel.py:62",
     "filter_gains": "src/repro/kernels/filter_gains/kernel.py:86",
+    "aopt_gains": "src/repro/kernels/aopt_gains/kernel.py:34",
+    "aopt_filter_gains": "src/repro/kernels/filter_gains/kernel_aopt.py:74",
 }
-# Device kernels per counted wrapper call: the filter engine is a base
-# pass over the G guess bases plus a sample pass over the G*m states.
-LAUNCHES_PER_CALL = {"regression_gains": 1, "filter_gains": 2}
+# Device kernels per counted wrapper call: the regression filter engine
+# is a base pass over the G guess bases plus a sample pass over the G*m
+# states; the A-optimality engine is one launch over the G*m states.
+LAUNCHES_PER_CALL = {"regression_gains": 1, "filter_gains": 2,
+                     "aopt_gains": 1, "aopt_filter_gains": 1}
 SOURCES = {
     "regression_gains": "src/repro_torch/kernels/csrc/marginal_gains.cu",
     "filter_gains": "src/repro_torch/kernels/csrc/filter_gains.cu",
+    "aopt_gains": "src/repro_torch/kernels/csrc/aopt_gains.cu",
+    "aopt_filter_gains": "src/repro_torch/kernels/csrc/aopt_filter_gains.cu",
 }
 
 
@@ -104,7 +126,8 @@ def phase_build():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    info = _build.build("marginal_gains", "filter_gains")
+    info = _build.build("marginal_gains", "filter_gains", "aopt_gains",
+                        "aopt_filter_gains")
     for name, bi in info.items():
         log(f"[build] {name}: {bi.seconds:.1f} s -> {bi.library.name}")
         for line in bi.ptxas.splitlines():
@@ -185,6 +208,75 @@ def phase_kernels(torch, cases):
                 if prec == "f32":
                     worst[name] = max(worst[name], abs_err)
             del Xq
+    return worst
+
+
+def make_aopt_operands(torch, d, n, g, m, b, n_sel, seed, sigma2=1.0):
+    """Genuine A-optimality operands on the card: X of the D1 design,
+    the shared solves W (g, d, n) of g states with n_sel random
+    selections each, and the Woodbury factors E (g, m, d, b), F of m
+    random b-sets per state from ``expand_factors``."""
+    from repro_torch.core import AOptimalityObjective
+    from repro_torch.data.synthetic import make_d1_design
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(count):
+        return torch.randperm(n, generator=gen)[:count]
+
+    obj = AOptimalityObjective(
+        make_d1_design(seed=seed, n_samples=n, n_features=d),
+        kmax=n_sel + b, sigma2=sigma2, device=dev)
+    idx = torch.stack([draw(n_sel) for _ in range(g)]).to(dev)
+    st = obj.add_set(obj.init(g), idx, torch.ones_like(idx, dtype=torch.bool))
+    if b == 0:
+        E = torch.zeros((g, m, d, 0), device=dev)
+        F = torch.zeros((g, m, 0, 0), device=dev)
+    else:
+        sidx = torch.stack([torch.stack([draw(b) for _ in range(m)])
+                            for _ in range(g)]).to(dev)
+        E, F = obj.expand_factors(st, sidx,
+                                  torch.ones_like(sidx, dtype=torch.bool))
+    return obj.X, st.W, E.contiguous(), F.contiguous(), obj.isig2
+
+
+def phase_aopt_kernels(torch, cases):
+    from repro_torch.kernels.aopt_gains import aopt_gains, aopt_gains_ref
+    from repro_torch.kernels.common import STREAM_PARITY_TOL, quantize
+    from repro_torch.kernels.filter_gains import (
+        aopt_filter_gains,
+        aopt_filter_gains_lattice_ref,
+    )
+
+    worst = {"aopt_gains": 0.0, "aopt_filter_gains": 0.0}
+    for (d, n, g, m, b, n_sel, sigma2) in cases:
+        X, W, E, F, isig2 = make_aopt_operands(torch, d, n, g, m, b, n_sel,
+                                               seed=d + n + b, sigma2=sigma2)
+        for prec in ("f32", "bf16"):
+            tol = STREAM_PARITY_TOL[prec]["kernel_vs_ref"]
+            Xq, Wq = quantize(X, prec), quantize(W, prec)
+            for name, got, want in (
+                ("aopt_gains", aopt_gains(X, W, isig2, precision=prec),
+                 aopt_gains_ref(Xq, Wq, isig2)),
+                ("aopt_filter_gains",
+                 aopt_filter_gains(X, W, E, F, isig2, precision=prec),
+                 aopt_filter_gains_lattice_ref(Xq, Wq, E, F, isig2)),
+            ):
+                torch.cuda.synchronize()
+                need(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+                abs_err, rel_err = _errs(got, want)
+                ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+                log(f"[kernels] {name:17s} {prec:4s} d={d} n={n} G={g} "
+                    f"m={m} b={b} |S|={n_sel} isig2={isig2:g}: "
+                    f"max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} "
+                    f"{'ok' if ok else 'FAIL'}")
+                need(ok, f"{name} {prec} disagrees with its plain version "
+                         f"at d={d} n={n} G={g} m={m} b={b}")
+                if prec == "f32":
+                    worst[name] = max(worst[name], abs_err)
+            del Xq, Wq
+        del X, W, E, F
     return worst
 
 
@@ -279,7 +371,108 @@ def phase_parity(torch):
 
 
 # ---------------------------------------------------------------------------
-# 6. timing
+# 6-7. the A-optimal design path and its card-vs-CPU parity
+# ---------------------------------------------------------------------------
+
+def phase_design_main(torch):
+    from repro_torch import experimental_design
+    from repro_torch.kernels.aopt_gains import aopt_gains
+    from repro_torch.kernels.filter_gains import aopt_filter_gains
+
+    k, d = DESIGN["k"], DESIGN["d"]
+    torch.cuda.reset_peak_memory_stats()
+    aopt_gains.launches = 0
+    aopt_filter_gains.launches = 0
+    out = experimental_design.main(device="cuda", verbose=False, seed=0,
+                                   **DESIGN)
+    launches = {"aopt_gains": aopt_gains.launches,
+                "aopt_filter_gains": aopt_filter_gains.launches}
+    peak = torch.cuda.max_memory_allocated()
+    dash = out["dash"]
+    log(f"[design] D1 design d={d} n={DESIGN['n']} k={k} "
+        f"G={DESIGN['n_guesses']} OPT x alphas {out['alphas']} = "
+        f"{len(out['lanes'])} lanes, m={DESIGN['n_samples']} (no cut); "
+        f"gamma={out['gamma']:.4e} alpha={out['alpha']:.3f}")
+    for algo in ("greedy", "dash", "topk", "random"):
+        extra = ""
+        if algo == "dash":
+            extra = (f"rounds={out['dash_rounds']} "
+                     f"selected={out['dash_selected']} ")
+        elif algo == "greedy":
+            extra = f"rounds={k} "
+        log(f"[design] {algo:7s} value={out[algo + '_value']:.6f} {extra}"
+            f"host_s={out[algo + '_s']:.3f} "
+            f"launches={out['launches'][algo]}")
+    log(f"[design] dash filter iterations per round (best lane): "
+        f"{dash.trace.filter_iters.tolist()}")
+    for i, lane in enumerate(out["lanes"]):
+        log(f"[design] dash lane {i:2d} (OPT guess {i // len(out['alphas'])}"
+            f"): alpha={lane['alpha']:.3f} value={lane['value']:.6f} "
+            f"filter_iterations={lane['filter_iters']}")
+    log(f"[design] max_memory_allocated={peak} bytes  launches={launches}")
+
+    need(launches["aopt_gains"] > 0 and launches["aopt_filter_gains"] > 0,
+         f"a kernel of the design path never launched: {launches}")
+    need(out["launches"]["greedy"]["aopt_gains"] >= k,
+         "greedy launched aopt_gains fewer than k times")
+    need(out["launches"]["dash"]["aopt_filter_gains"] > 0,
+         "DASH never launched aopt_filter_gains")
+    for algo in ("greedy", "dash", "topk", "random"):
+        v = out[algo + "_value"]
+        need(v == v and 0.0 <= v <= d, f"{algo} value {v} not in [0, {d}]")
+    need(out["dash_value"] > out["random_value"],
+         "DASH does not beat RANDOM on the design")
+    need(out["dash_selected"] <= k, "DASH selected more than k")
+    return out, launches, peak
+
+
+def phase_design_parity(torch):
+    """Greedy and DASH on the small design, card against the CPU.  Every
+    candidate column has unit norm, so greedy's first gains are all 0.5
+    in exact arithmetic and its picks may part at an f32 tie: they must
+    be equal, or first differ where the CPU's top two gains are within
+    2e-4 relative.  DASH (noise drawn on the CPU) selects the same set,
+    or its values agree within 1e-3."""
+    from repro_torch.core import AOptimalityObjective, dash_auto, greedy
+    from repro_torch.core.random import SeedKey
+    from repro_torch.data.synthetic import make_d1_design
+
+    X = make_d1_design(seed=0, n_samples=512, n_features=128)
+    objs, runs = {}, {}
+    for dev in ("cpu", "cuda"):
+        obj = objs[dev] = AOptimalityObjective(X, 32, device=dev)
+        runs[dev] = (greedy(obj, 32, device=dev),
+                     dash_auto(obj, 32, SeedKey(0, host=True), eps=0.25,
+                               alpha=0.3, alphas=[0.3, 1.0], n_samples=8,
+                               n_guesses=6, device=dev))
+    (gc, dc), (gg, dg) = runs["cpu"], runs["cuda"]
+    pc, pg = gc.sel_idx.tolist(), gg.sel_idx.cpu().tolist()
+    if pc == pg:
+        log(f"[design parity] greedy: identical picks (k=32), values "
+            f"cpu={float(gc.value):.6f} cuda={float(gg.value):.6f}")
+    else:
+        i = next(j for j, (a, b) in enumerate(zip(pc, pg)) if a != b)
+        obj = objs["cpu"]
+        st = obj.init()
+        if i:
+            st = obj.add_set(st, torch.tensor([pc[:i]]),
+                             torch.ones((1, i), dtype=torch.bool))
+        top = torch.topk(obj.gains(st)[0], 2).values.tolist()
+        gap = (top[0] - top[1]) / top[0]
+        log(f"[design parity] greedy: first difference at step {i}, "
+            f"top-two relative gap {gap:.3e}; values "
+            f"cpu={float(gc.value):.6f} cuda={float(gg.value):.6f}")
+        need(gap < 2e-4, "design greedy picks differ beyond a near-tie")
+    same = bool(torch.equal(dc.sel_mask, dg.sel_mask.cpu()))
+    dv = abs(float(dc.value) - float(dg.value))
+    log(f"[design parity] dash: same set={same} value "
+        f"cpu={float(dc.value):.6f} cuda={float(dg.value):.6f} "
+        f"|diff|={dv:.3e}")
+    need(same or dv < 1e-3, "design DASH on the card disagrees with the CPU")
+
+
+# ---------------------------------------------------------------------------
+# 8. timing
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, iters=10, warmup=2):
@@ -370,8 +563,79 @@ def phase_timing(torch, worst, launches):
     return rows
 
 
+def phase_aopt_timing(torch, worst, launches):
+    from repro_torch.kernels.aopt_gains import aopt_gains, aopt_gains_ref
+    from repro_torch.kernels.common import quantize
+    from repro_torch.kernels.filter_gains import (
+        aopt_filter_gains,
+        aopt_filter_gains_lattice_ref,
+    )
+
+    d, n = DESIGN["d"], DESIGN["n"]
+    m, b = DESIGN["n_samples"], DESIGN_BLOCK
+    X, W, E, F, isig2 = make_aopt_operands(torch, d, n, DESIGN_LANES, m, b,
+                                           n_sel=64, seed=11)
+    rows = []
+    # aopt_gains at greedy's shape (one lane); aopt_filter_gains at the
+    # design DASH lattice (12 lanes) and at the 6 lanes of one α.
+    shapes = (("aopt_gains", 1), ("aopt_filter_gains", DESIGN_LANES),
+              ("aopt_filter_gains", DESIGN["n_guesses"]))
+    for prec in ("f32", "bf16"):
+        xb = 4 if prec == "f32" else 2
+        sdt = torch.float32 if prec == "f32" else torch.bfloat16
+        Xs, Ws = X.to(sdt), W.to(sdt)
+        Xq, Wq = quantize(X, prec), quantize(W, prec)
+        for name, g in shapes:
+            Wg, Wqg = Ws[:g], Wq[:g]
+            Eg, Fg = E[:g].contiguous(), F[:g].contiguous()
+            lib = None
+            if name == "aopt_gains":
+                bd, by = bound(4.0 * d * n * g + 3.0 * g * n,
+                               xb * d * n * (1 + g) + 4 * g * n)
+                t = time_ms(torch, lambda: aopt_gains(Xs, Wg, isig2,
+                                                      precision=prec))
+                p = time_ms(torch, lambda: aopt_gains_ref(Xq, Wqg, isig2))
+            else:
+                bd, by = bound(4.0 * d * n * g
+                               + g * m * n * (4.0 * d * b + 2.0 * b * b
+                                              + 6.0 * b + 6.0),
+                               xb * d * n * (1 + g)
+                               + 4 * g * m * (d * b + b * b + n))
+                t = time_ms(torch, lambda: aopt_filter_gains(
+                    Xs, Wg, Eg, Fg, isig2, precision=prec))
+                p = time_ms(torch, lambda: aopt_filter_gains_lattice_ref(
+                    Xq, Wqg, Eg, Fg, isig2))
+                if prec == "f32":
+                    # cuBLAS f32 E^T X and E_g^T W_g alone: only the two
+                    # products of the function, timed as a yardstick.
+                    et = Eg.permute(0, 1, 3, 2).reshape(g, m * b, d)
+                    et_all = et.reshape(g * m * b, d).contiguous()
+                    et = et.contiguous()
+                    lib = time_ms(torch, lambda: (et_all @ X,
+                                                  torch.bmm(et, W[:g])))
+            lib_s = "n/a" if lib is None else f"{lib:.4f} (cuBLAS only)"
+            log(f"[timing] {name:17s} {prec:4s} G={g:2d} kernel_ms={t:.4f} "
+                f"plain_ms={p:.4f} bound_ms={bd:.4f} ({by}) "
+                f"library_ms={lib_s} bound/kernel={bd / t:.3f}")
+            if prec == "f32" and (name == "aopt_gains"
+                                  or g == DESIGN_LANES):
+                rows.append({
+                    "name": name, "route": "cuda", "source": SOURCES[name],
+                    "replaces": REPLACES[name], "launches": launches[name],
+                    "launches_per_call": LAUNCHES_PER_CALL[name],
+                    "max_abs_err": worst[name], "ms": t, "plain_ms": p,
+                    "bound_ms": bd, "bound_by": by, "library_ms": lib,
+                })
+        del Xs, Ws, Xq, Wq
+    log(f"[timing] shapes: d={d} n={n} m={m} b={b}; aopt_gains at G=1 "
+        f"(no single library call computes it), aopt_filter_gains over "
+        f"G*m states at G={DESIGN_LANES} (the design lattice) and "
+        f"G={DESIGN['n_guesses']}")
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# 7. where the time goes
+# 9. where the time goes
 # ---------------------------------------------------------------------------
 
 def _device_us(event):
@@ -381,21 +645,31 @@ def _device_us(event):
     return 0.0
 
 
-def phase_profile(torch, out):
-    """Replay the main phase's greedy and DASH under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_runs(out, design):
+    """The runs the profile phase replays: the main phase's greedy and
+    DASH, and the design main phase's DASH, each as it ran there."""
     from repro_torch.core import SeedKey, dash_auto, greedy
 
     obj, k = out["objective"], MAIN["k"]
-    runs = {
+    dobj = design["objective"]
+    return {
         "greedy": lambda: greedy(obj, k, device="cuda"),
         "dash": lambda: dash_auto(obj, k, SeedKey(0), eps=0.25, alpha=0.6,
                                   n_samples=MAIN["n_samples"],
                                   n_guesses=MAIN["n_guesses"],
                                   device="cuda"),
+        "design dash": lambda: dash_auto(
+            dobj, DESIGN["k"], SeedKey(0), eps=0.25, alpha=design["alpha"],
+            alphas=design["alphas"], n_samples=DESIGN["n_samples"],
+            n_guesses=DESIGN["n_guesses"], device="cuda"),
     }
+
+
+def phase_profile(torch, runs):
+    """Replay each run under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     for algo, fn in runs.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -443,12 +717,29 @@ def main() -> int:
         (257, 513, 0, 3, 4, 2),         # odd d, k = 0
         (513, 777, 130, 17, 2, 3),      # k, b above one basis tile
     ])
+    dd, dn, dk, dm = (DESIGN["d"], DESIGN["n"], DESIGN["k"],
+                      DESIGN["n_samples"])
+    worst.update(phase_aopt_kernels(torch, [
+        # d, n, G, m, b, |S|, sigma2
+        (dd, dn, DESIGN_LANES, dm, DESIGN_BLOCK, 64, 1.0),  # design lattice
+        (dd, dn, 1, dm, DESIGN_BLOCK, dk - 1, 1.0),  # greedy's last state
+        (1000, 1537, 2, 3, 1, 5, 0.5),   # ragged d and n, b = 1, σ² ≠ 1
+        (257, 513, 2, 4, 0, 7, 1.0),     # b = 0: the singleton gain
+        (513, 777, 3, 2, 64, 9, 1.0),    # b at the cap: 8 groups of 8
+        (100, 300, 1, 9, 3, 3, 2.0),     # m above one CTA's 8 samples
+        (dd, 4099, 2, 8, 17, 40, 1.0),   # 3 groups, ragged last group
+    ]))
     log(f"[kernels] done at {time.perf_counter() - t0:.1f} s")
     out, launches, _ = phase_main(torch)
     log(f"[main] done at {time.perf_counter() - t0:.1f} s")
     phase_parity(torch)
+    design, design_launches, _ = phase_design_main(torch)
+    launches.update(design_launches)
+    log(f"[design] done at {time.perf_counter() - t0:.1f} s")
+    phase_design_parity(torch)
     rows = phase_timing(torch, worst, launches)
-    phase_profile(torch, out)
+    rows += phase_aopt_timing(torch, worst, launches)
+    phase_profile(torch, profile_runs(out, design))
     log(f"[smoke] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

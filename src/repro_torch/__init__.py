@@ -2,18 +2,22 @@
 
 A second package beside the JAX reference package ``repro``.  It never
 imports JAX or ``repro``; its tests hold it against the reference on the
-same numpy inputs.  Slice 1 carries the paper's main path: DASH feature
-selection for sparse regression on one device.
+same numpy inputs.  Slice 1 carries the paper's main path, DASH feature
+selection for sparse regression on one device
+(``repro_torch.quickstart``); slice 2 Bayesian A-optimal experimental
+design (``repro_torch.experimental_design``).
 
 Layers:
   repro_torch.kernels  — hand-written CUDA C++ kernels for sm_90a (the
-                         singleton-gain sweep and the sample-batched
-                         filter engine), their plain PyTorch versions and
-                         the nvcc/ctypes build
-  repro_torch.core     — the regression objective, estimators, the
-                         lane-batched DASH selection loop, greedy and the
-                         §5 one-shot baselines
-  repro_torch.data     — the paper's synthetic D1 data (numpy only)
+                         regression and A-optimality singleton-gain
+                         sweeps and sample-batched filter engines), their
+                         plain PyTorch versions and the nvcc/ctypes build
+  repro_torch.core     — the regression and A-optimality objectives,
+                         estimators, the lane-batched DASH selection loop,
+                         greedy, the §5 one-shot baselines and the Cor. 9
+                         γ/α bound
+  repro_torch.data     — the paper's synthetic D1 regression and design
+                         data (numpy only)
   repro_torch.convert  — numpy state in, port state out (parity tests)
 
 Entry points run on the card (``device=None`` means ``"cuda"``) and raise

@@ -1,11 +1,11 @@
-"""Carry regression objectives and states across from numpy.
+"""Carry objectives and states across from numpy.
 
 The parity tests start the JAX reference and the port from the same
-state: they export the reference's ``RegressionObjective`` inputs and
-``RegressionState`` fields as numpy arrays and rebuild them here.  A
-state without a leading lane axis becomes a one-lane state; with one
-(Q (G, d, k), count (G,), resid (G, d), sel_mask (G, n), value (G,)) it
-becomes a G-lane state.
+state: they export the reference's objective inputs and state fields as
+numpy arrays and rebuild them here.  A state without a leading lane axis
+becomes a one-lane state; with one (regression: Q (G, d, k), count (G,),
+resid (G, d), sel_mask (G, n), value (G,); A-optimality: M, L (G, d, d),
+W (G, d, n), sel_mask (G, n), value (G,)) it becomes a G-lane state.
 """
 
 from __future__ import annotations
@@ -13,6 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.objectives.a_optimal import (
+    AOptimalityObjective,
+    AOptState,
+)
 from repro_torch.core.objectives.regression import (
     RegressionObjective,
     RegressionState,
@@ -30,21 +34,49 @@ def objective_from_numpy(X, y, kmax: int, *, span_tol: float = 1e-6,
                                precision=precision, device=device)
 
 
-def state_from_numpy(Q, count, resid, sel_mask, value, *,
-                     device=None) -> RegressionState:
-    """The port's RegressionState from numpy fields (lane axis optional)."""
+def _lane_fields(lanes: bool, device):
+    """A converter of one numpy field to a tensor on ``device`` whose
+    leading lane axis is added (of size 1) unless ``lanes``."""
     dev = resolve_device(device)
-    Q = np.asarray(Q, np.float32)
-    lanes = Q.ndim == 3
 
     def t(x, dtype, nd):
         x = torch.as_tensor(np.array(x, copy=True)).to(dtype=dtype, device=dev)
         return x if lanes else x.reshape((1,) + tuple(x.shape[:nd]))
 
+    return t
+
+
+def state_from_numpy(Q, count, resid, sel_mask, value, *,
+                     device=None) -> RegressionState:
+    """The port's RegressionState from numpy fields (lane axis optional)."""
+    t = _lane_fields(np.ndim(Q) == 3, device)
     return RegressionState(
         Q=t(Q, torch.float32, 2),
         count=t(count, torch.int32, 0),
         resid=t(resid, torch.float32, 1),
+        sel_mask=t(sel_mask, torch.bool, 1),
+        value=t(value, torch.float32, 0),
+    )
+
+
+def aopt_objective_from_numpy(X, kmax: int, *, beta2: float = 1.0,
+                              sigma2: float = 1.0,
+                              precision: str | None = None,
+                              device=None) -> AOptimalityObjective:
+    """The port's A-optimality objective over the numpy X (d, n)."""
+    return AOptimalityObjective(np.array(X, np.float32), kmax, beta2=beta2,
+                                sigma2=sigma2, precision=precision,
+                                device=device)
+
+
+def aopt_state_from_numpy(M, L, W, sel_mask, value, *,
+                          device=None) -> AOptState:
+    """The port's AOptState from numpy fields (lane axis optional)."""
+    t = _lane_fields(np.ndim(M) == 3, device)
+    return AOptState(
+        M=t(M, torch.float32, 2),
+        L=t(L, torch.float32, 2),
+        W=t(W, torch.float32, 2),
         sel_mask=t(sel_mask, torch.bool, 1),
         value=t(value, torch.float32, 0),
     )

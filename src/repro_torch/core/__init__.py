@@ -1,20 +1,28 @@
-"""The paper's contribution on PyTorch: the regression objective, DASH
-and its yardsticks (slice 1 of the port).
+"""The paper's contribution on PyTorch: the regression and A-optimal
+design objectives, DASH and its yardsticks (slices 1 and 2 of the port).
 
 Public API:
-    objectives: RegressionObjective, normalize_columns
+    objectives: RegressionObjective, AOptimalityObjective,
+                normalize_columns
     algorithms: dash, dash_auto, DashConfig, greedy, top_k_select,
                 random_select
+    spectral:   gamma_aopt, alpha_from_gamma
     keys:       SeedKey
 """
 
-from repro_torch.core.objectives import RegressionObjective, normalize_columns
+from repro_torch.core.objectives import (
+    AOptimalityObjective,
+    RegressionObjective,
+    normalize_columns,
+)
 from repro_torch.core.dash import DashConfig, DashResult, dash, dash_auto
 from repro_torch.core.greedy import GreedyResult, greedy
 from repro_torch.core.baselines import SelectResult, random_select, top_k_select
 from repro_torch.core.random import SeedKey
+from repro_torch.core.spectral import alpha_from_gamma, gamma_aopt
 
 __all__ = [
+    "AOptimalityObjective",
     "RegressionObjective",
     "normalize_columns",
     "DashConfig",
@@ -27,4 +35,6 @@ __all__ = [
     "random_select",
     "top_k_select",
     "SeedKey",
+    "alpha_from_gamma",
+    "gamma_aopt",
 ]

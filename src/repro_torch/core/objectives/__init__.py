@@ -4,6 +4,10 @@ from repro_torch.core.objectives.base import (
     SupportsSubsetGains,
     normalize_columns,
 )
+from repro_torch.core.objectives.a_optimal import (
+    AOptimalityObjective,
+    AOptState,
+)
 from repro_torch.core.objectives.regression import RegressionObjective
 
 __all__ = [
@@ -11,5 +15,7 @@ __all__ = [
     "SupportsFilterEngine",
     "SupportsSubsetGains",
     "normalize_columns",
+    "AOptimalityObjective",
+    "AOptState",
     "RegressionObjective",
 ]

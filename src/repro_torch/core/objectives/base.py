@@ -109,6 +109,12 @@ def gather_columns(X: torch.Tensor, idx: torch.Tensor,
     return cols * mask.to(X.dtype).unsqueeze(-2)
 
 
+def mark_selected(sel_mask: torch.Tensor, idx: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """sel_mask | (the entries idx[mask]), scattered on the last axis."""
+    return sel_mask.scatter(-1, idx, torch.gather(sel_mask, -1, idx) | mask)
+
+
 def write_accepted_column(Q: torch.Tensor, slot: torch.Tensor,
                           accept: torch.Tensor, q: torch.Tensor) -> None:
     """Write basis column ``q`` into ``Q[..., :, slot]`` only where

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core.objectives.base import (
     gather_columns,
+    mark_selected,
     write_accepted_column,
 )
 from repro_torch.kernels.common import (
@@ -117,11 +118,6 @@ def mgs_expand(Q, count, resid, C, kmax: int, span_tol: float = 1e-6):
         r = r - q * torch.sum(q * r, dim=-1, keepdim=True)
         dcount = dcount + accept.to(torch.int32)
     return D, r
-
-
-def _mark_selected(sel_mask, idx, mask):
-    """sel_mask | (the entries idx[mask]), scattered on the last axis."""
-    return sel_mask.scatter(-1, idx, torch.gather(sel_mask, -1, idx) | mask)
 
 
 class RegressionObjective:
@@ -221,7 +217,7 @@ class RegressionObjective:
         C = gather_columns(self.X, idx, mask)              # (G, d, m)
         Q, count, resid = mgs_extend(state.Q, state.count, state.resid, C,
                                      self.kmax, self.span_tol)
-        sel = _mark_selected(state.sel_mask, idx, mask)
+        sel = mark_selected(state.sel_mask, idx, mask)
         value = (self.ysq - torch.sum(resid * resid, dim=-1)) / self.ysq
         return RegressionState(Q=Q, count=count, resid=resid, sel_mask=sel,
                                value=value)
@@ -247,6 +243,6 @@ class RegressionObjective:
         g = filter_gains(self._x_stream(), state.Q, D, R, self.col_sq,
                          precision=self.precision) / self.ysq
         s = idx.shape[1]
-        sel = _mark_selected(state.sel_mask[:, None, :].repeat(1, s, 1),
-                             idx, mask)
+        sel = mark_selected(state.sel_mask[:, None, :].repeat(1, s, 1),
+                            idx, mask)
         return torch.where(sel, torch.zeros_like(g), g)

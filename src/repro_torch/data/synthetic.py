@@ -1,8 +1,9 @@
 """Synthetic data of the paper's App. I.2 protocol, numpy only.
 
-A copy of the D1 regression generator of ``repro/data/synthetic.py``:
-the same seed gives byte-identical arrays (the tests check it).  The
-other datasets come with the slices that use them.
+Copies of the D1 regression and D1 experimental-design generators of
+``repro/data/synthetic.py``: the same seed gives byte-identical arrays
+(the tests check it).  The other datasets come with the slices that use
+them.
 """
 
 from __future__ import annotations
@@ -37,3 +38,14 @@ def make_d1_regression(seed: int = 0, n_samples: int = 1000,
     beta[sup] = rng.uniform(-2, 2, size=support)
     y = X @ beta + noise * rng.normal(size=n_samples)
     return _normalize_cols(X).astype(np.float32), y.astype(np.float32), sup
+
+
+def make_d1_design(seed: int = 0, n_samples: int = 1024,
+                   n_features: int = 256, rho: float = 0.8):
+    """Paper D1, experimental-design variant: correlated features (cov
+    0.8), rows ℓ2-normalized.  Returns the (d = n_features, n = n_samples)
+    f32 stimuli matrix whose *columns* are the candidate experiments."""
+    rng = np.random.default_rng(seed)
+    X = _correlated_normal(rng, n_samples, n_features, rho)
+    X = X / np.maximum(np.linalg.norm(X, axis=1, keepdims=True), 1e-12)
+    return X.T.astype(np.float32)

@@ -1,0 +1,139 @@
+"""Bayesian A-optimal experimental design with DASH (paper §3.1, Cor. 9).
+
+The single-device, plain A-optimality part of
+``examples/experimental_design.py``: on the paper's D1 design protocol
+(correlated features, cov 0.8, rows ℓ2-normalized; the columns of X are
+the candidate experiments) it sets α = max(γ², 0.3) from the Cor. 9
+bound and runs greedy, DASH (``dash_auto``: eps 0.25, m = 8 samples,
+6 OPT guesses), TOP-K and RANDOM, reporting each one's f_A-opt value.
+
+DASH sweeps the (OPT, α) lattice of paper App. G: the 6 OPT guesses
+crossed with α ∈ {max(γ², 0.3), 1}, the Cor. 9 floor and the submodular
+end of the range, 12 lanes in lockstep.  With the floor alone no lane's
+set-gain estimate ever falls below its threshold α²·t/r on this design
+at k ≪ d, so DASH never filters and commits uniformly random blocks —
+RANDOM's quality — and the filter engine never runs.
+
+On the card every algorithm is timed with the host clock around a
+``torch.cuda.synchronize()``, and the result records how many times
+each algorithm launched each kernel, and each DASH lane's α, value and
+filter iterations.
+
+    PYTHONPATH=src python -m repro_torch.experimental_design --device cpu --d 64 --n 512 --k 16
+
+Not ported yet: the example's distributed DASH over a device mesh (it
+waits for the sharded runtime) and its diversity-regularized variant
+(it waits for the other objectives).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.core import (
+    AOptimalityObjective,
+    SeedKey,
+    alpha_from_gamma,
+    dash_auto,
+    gamma_aopt,
+    greedy,
+    random_select,
+    top_k_select,
+)
+from repro_torch.data.synthetic import make_d1_design
+from repro_torch.kernels.aopt_gains import aopt_gains
+from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.filter_gains import aopt_filter_gains
+
+ALPHA_FLOOR = 0.3   # the example's practical floor under the Cor. 9 bound
+
+
+def _counts():
+    return {"aopt_gains": aopt_gains.launches,
+            "aopt_filter_gains": aopt_filter_gains.launches}
+
+
+def _timed(name, fn, dev, out):
+    """Run ``fn``; record its host seconds and kernel launches in
+    ``out`` under ``name``."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    before = _counts()
+    t0 = time.perf_counter()
+    res = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out[f"{name}_s"] = time.perf_counter() - t0
+    out.setdefault("launches", {})[name] = {
+        k: v - before[k] for k, v in _counts().items()}
+    return res
+
+
+def main(device=None, d: int = 128, n: int = 512, k: int = 32,
+         seed: int = 0, n_guesses: int = 6, n_samples: int = 8,
+         verbose: bool = True) -> dict:
+    """Run the four selectors on a (d, n) design with β² = σ² = 1;
+    returns their results."""
+    dev = resolve_device(device)
+    X = make_d1_design(seed=seed, n_samples=n, n_features=d)
+    obj = AOptimalityObjective(X, kmax=k, device=dev)
+    gamma = float(gamma_aopt(obj.X, 1.0, 1.0))
+    alpha = max(float(alpha_from_gamma(gamma)), ALPHA_FLOOR)
+    out = {"d": d, "n": n, "k": k, "gamma": gamma, "alpha": alpha}
+
+    g = _timed("greedy", lambda: greedy(obj, k, device=dev), dev, out)
+    alphas = sorted({alpha, 1.0})
+    res, lattice = _timed("dash", lambda: dash_auto(
+        obj, k, SeedKey(seed), eps=0.25, alpha=alpha, alphas=alphas,
+        n_samples=n_samples, n_guesses=n_guesses, return_lattice=True,
+        device=dev), dev, out)
+    # Lanes run OPT-major over the α lattice (core.dash.lattice_grid).
+    lanes = [{"alpha": alphas[i % len(alphas)], "value": v,
+              "filter_iters": it}
+             for i, (v, it) in enumerate(zip(
+                 lattice.value.tolist(),
+                 lattice.trace.filter_iters.sum(dim=-1).tolist()))]
+    t = _timed("topk", lambda: top_k_select(obj, k, device=dev), dev, out)
+    r = _timed("random", lambda: random_select(obj, k, SeedKey(seed + 1),
+                                               device=dev), dev, out)
+    out.update(
+        objective=obj, greedy=g, dash=res, topk=t, random=r,
+        greedy_value=float(g.value), dash_value=float(res.value),
+        dash_rounds=int(res.rounds), dash_selected=int(res.sel_count),
+        alphas=alphas, lanes=lanes,
+        topk_value=float(t.value), random_value=float(r.value),
+    )
+    if verbose:
+        print(f"γ (Cor. 9 bound) = {gamma:.4e}; practical α = {alpha:.3f}; "
+              f"DASH α lattice {alphas}")
+        print(f"greedy (SDS_MA):  f_A = {out['greedy_value']:.4f}  "
+              f"rounds={k}  seconds={out['greedy_s']:.3f}")
+        print(f"DASH:             f_A = {out['dash_value']:.4f}  "
+              f"rounds={out['dash_rounds']}  "
+              f"selected={out['dash_selected']}  "
+              f"seconds={out['dash_s']:.3f}")
+        print(f"TOP-K:            f_A = {out['topk_value']:.4f}  "
+              f"seconds={out['topk_s']:.3f}")
+        print(f"RANDOM:           f_A = {out['random_value']:.4f}  "
+              f"seconds={out['random_s']:.3f}")
+        for i, lane in enumerate(lanes):
+            print(f"DASH lane {i:2d}: α={lane['alpha']:.3f}  "
+                  f"f_A = {lane['value']:.4f}  "
+                  f"filter iterations={lane['filter_iters']}")
+    return out
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--d", type=int, default=128,
+                    help="features per experiment (rows of X)")
+    ap.add_argument("--n", type=int, default=512,
+                    help="candidate experiments (columns of X)")
+    ap.add_argument("--k", type=int, default=32, help="experiments to pick")
+    a = ap.parse_args()
+    main(device=a.device, d=a.d, n=a.n, k=a.k)

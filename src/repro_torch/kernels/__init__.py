@@ -10,8 +10,11 @@ Each kernel package has two modules:
 Kernels:
   marginal_gains — fused batched regression singleton-gain sweep
                    (greedy's oracle, DASH's current-state fallback)
-  filter_gains   — sample-batched filter engine with the regression
-                   epilogue (DASH's inner-loop hot spot)
+  aopt_gains     — the A-optimality Sherman–Morrison singleton sweep
+                   against the cached shared solve W = M⁻¹X
+  filter_gains   — sample-batched filter engine with the regression and
+                   the A-optimality (Woodbury) epilogues (DASH's
+                   inner-loop hot spot)
 
 The CUDA sources live in ``csrc/``; ``common`` holds the precision policy
 and the device rule.

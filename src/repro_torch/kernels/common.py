@@ -13,7 +13,8 @@ tiling heuristics:
   * any other device raises.
 
 Precision policy (as in the JAX package): ``precision="bf16"`` stores
-the streamed operand X in bf16; every accumulation and output is f32.
+the streamed operands — X, and A-optimality's shared solve W — in bf16;
+every accumulation and output is f32.
 The plain versions apply the same bf16 round trip (``quantize``) so
 kernel and plain version compute the same function per precision.
 """

@@ -32,19 +32,9 @@
 // through the 50 MB L2 instead of each lane pulling it from HBM.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "stream.cuh"
 
 namespace repro_torch {
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 constexpr int TD = 16;  // rows of d staged per step
 

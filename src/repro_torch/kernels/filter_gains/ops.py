@@ -1,14 +1,17 @@
-"""Wrapper of the sample-batched filter-engine kernel (regression).
+"""Wrappers of the sample-batched filter-engine kernels.
 
-On a CUDA tensor ``filter_gains`` launches the hand-written engine of
-``csrc/filter_gains.cu`` — a base pass over the G guess bases and a
-sample pass over the G·m perturbed states, on the current stream — and
-raises on what the kernel cannot take and on a failed launch.  On a CPU
-tensor it runs the plain ``filter_gains_lattice_ref``.  The guess axis
-is always explicit: the port carries the DASH lattice as a leading lane
-axis instead of batching a kernel under ``vmap``.
-``filter_gains.launches`` counts wrapper calls that launch the engine;
-each such call is two device kernels, the base pass and the sample pass.
+On a CUDA tensor ``filter_gains`` (regression epilogue,
+``csrc/filter_gains.cu``: a base pass over the G guess bases and a sample
+pass over the G·m perturbed states) and ``aopt_filter_gains``
+(A-optimality Woodbury epilogue, ``csrc/aopt_filter_gains.cu``: one
+launch over the G·m states) run their engine on the current stream, and
+raise on what the kernel cannot take and on a failed launch.  On a CPU
+tensor they run the plain lattice versions of ``ref.py``.  The guess
+axis is always explicit: the port carries the DASH lattice as a leading
+lane axis instead of batching a kernel under ``vmap``.
+``filter_gains.launches`` and ``aopt_filter_gains.launches`` count
+wrapper calls that launch an engine: two device kernels per call for
+``filter_gains``, one for ``aopt_filter_gains``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from repro_torch.kernels.common import (
 )
 from repro_torch.kernels.filter_gains.ref import (
     SPAN_TOL,
+    aopt_filter_gains_lattice_ref,
     filter_gains_lattice_ref,
 )
 
@@ -88,3 +92,71 @@ def filter_gains(X, Q, D, R, col_sq, *, precision: str | None = None,
 
 
 filter_gains.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# A-optimality epilogue
+# ---------------------------------------------------------------------------
+
+_AOPT_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, ctypes.c_float,
+                  _P, _P]
+AOPT_MAX_B = 64            # Woodbury columns per sample the kernel holds
+_AOPT_MAX_COL_BLOCKS = 65535  # gridDim.y of the launch; 128 columns each
+
+
+def _aopt_library():
+    lib = _build.load("aopt_filter_gains")
+    fn = lib.aopt_filter_gains_launch
+    fn.argtypes, fn.restype = _AOPT_ARGTYPES, ctypes.c_int
+    return fn
+
+
+def _aopt_launch(X, W, E, F, isig2):
+    d, n = X.shape
+    g = W.shape[0]
+    m, b = E.shape[1], E.shape[3]
+    dev = X.device
+    check_tensor("X", X, (d, n), (torch.float32, torch.bfloat16), dev)
+    check_tensor("W", W, (g, d, n), (X.dtype,), dev)
+    check_tensor("E", E, (g, m, d, b), (torch.float32,), dev)
+    check_tensor("F", F, (g, m, b, b), (torch.float32,), dev)
+    if b > AOPT_MAX_B:
+        raise ValueError(f"aopt_filter_gains: b={b} Woodbury columns per "
+                         f"sample; the kernel holds at most {AOPT_MAX_B}")
+    if g < 1 or m < 1 or n < 1 or -(-n // 128) > _AOPT_MAX_COL_BLOCKS:
+        raise ValueError(
+            f"aopt_filter_gains: unsupported shape G={g}, m={m}, n={n}")
+    out = torch.empty((g, m, n), dtype=torch.float32, device=dev)
+    fn = _aopt_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(X.data_ptr(), W.data_ptr(), int(X.dtype == torch.bfloat16),
+                  d, n, g, m, E.data_ptr(), F.data_ptr(), b, float(isig2),
+                  out.data_ptr(), stream)
+    _build.check(code, "aopt_filter_gains")
+    aopt_filter_gains.launches += 1
+    return out
+
+
+def aopt_filter_gains(X, W, E, F, isig2, *, precision: str | None = None):
+    """Sample-batched A-optimality (Woodbury) filter gains for the whole
+    guess lattice.
+
+    X: (d, n) candidate columns; W: (G, d, n) per-guess shared solves
+    M_g⁻¹X; E: (G, m, d, b) per-sample Woodbury factors (M_gi⁻¹ = M_g⁻¹ −
+    E_gi E_giᵀ); F: (G, m, b, b) their Grams; isig2 = 1/σ².  Returns
+    (G, m, n) gains w.r.t. every perturbed state.  ``precision="bf16"``
+    streams X and W in bf16 with f32 accumulation; E and F stay f32 (the
+    plain version quantizes X and W identically, and its ‖w‖² and xᵀw
+    are those of the quantized values, as the kernel sums the stored
+    ones).
+    """
+    prec = resolve_precision(precision)
+    if use_kernel(X):
+        sdt = stream_dtype(prec)
+        return _aopt_launch(X.to(sdt), W.to(sdt), E, F, isig2)
+    return aopt_filter_gains_lattice_ref(quantize(X, prec), quantize(W, prec),
+                                         E, F, isig2)
+
+
+aopt_filter_gains.launches = 0

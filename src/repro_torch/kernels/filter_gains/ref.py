@@ -1,15 +1,21 @@
-"""Plain PyTorch versions of the sample-batched regression filter gains.
+"""Plain PyTorch versions of the sample-batched filter gains.
 
 The filter step of DASH evaluates the batched gain vector at every
-Monte-Carlo perturbed state S ∪ R_i.  The state splits into a shared
-orthonormal basis Q of span(X_S) plus per-sample delta columns D_i ⊥ Q
-and residual r_i, so
+Monte-Carlo perturbed state S ∪ R_i, split into state shared by all
+samples plus a small per-sample delta:
 
-    gain_i(a) = (x_aᵀ r_i)² / (‖x_a‖² − ‖Qᵀ x_a‖² − ‖D_iᵀ x_a‖²)
+* regression: a shared orthonormal basis Q of span(X_S) plus per-sample
+  delta columns D_i ⊥ Q and residual r_i, so
 
-with the shared-base term computed once for all samples.  In-span
-candidates are clamped to 0 as in ``marginal_gains.ref``; the gains are
-unnormalized.  Transliterations of the regression parts of
+      gain_i(a) = (x_aᵀ r_i)² / (‖x_a‖² − ‖Qᵀ x_a‖² − ‖D_iᵀ x_a‖²)
+
+  with the shared-base term computed once for all samples.  In-span
+  candidates are clamped to 0 as in ``marginal_gains.ref``; the gains are
+  unnormalized.
+* A-optimality: the shared solve W = M⁻¹X plus per-sample Woodbury
+  factors E_i with M_i⁻¹ = M⁻¹ − E_i E_iᵀ and Grams F_i = E_iᵀE_i.
+
+Transliterations of the regression and A-optimality parts of
 ``repro/kernels/filter_gains/ref.py``.
 """
 
@@ -42,4 +48,32 @@ def filter_gains_lattice_ref(X, Q, D, R, col_sq, *,
     return torch.stack([
         filter_gains_ref(X, Q[g], D[g], R[g], col_sq, span_tol=span_tol)
         for g in range(Q.shape[0])
+    ])
+
+
+def aopt_filter_gains_ref(X, W, E, F, isig2):
+    """X: (d, n); W = M⁻¹X (d, n) shared solve; E: (m, d, b) per-sample
+    Woodbury factors (zero-padded columns); F: (m, b, b) Grams E_iᵀE_i;
+    isig2 = 1/σ².  Returns (m, n) f32 gains
+
+        σ⁻² ‖M_i⁻¹x_a‖² / (1 + σ⁻² x_aᵀM_i⁻¹x_a).
+    """
+    wsq = torch.sum(W * W, dim=0)                       # (n,) — shared
+    xw = torch.sum(X * W, dim=0)                        # (n,) — shared
+    T = torch.einsum("mdb,dn->mbn", E, X)               # E_iᵀ X
+    U = torch.einsum("mdb,dn->mbn", E, W)               # E_iᵀ W
+    FT = torch.einsum("mbc,mcn->mbn", F, T)
+    num = (wsq[None, :] - 2.0 * torch.sum(U * T, dim=1)
+           + torch.sum(T * FT, dim=1))
+    den = 1.0 + isig2 * (xw[None, :] - torch.sum(T * T, dim=1))
+    # num is a squared norm: clamp the f32 cancellation residue at 0.
+    return isig2 * torch.clamp(num, min=0.0) / torch.clamp(den, min=1e-30)
+
+
+def aopt_filter_gains_lattice_ref(X, W, E, F, isig2):
+    """Per-guess shared solves W: (G, d, n), factors E: (G, m, d, b),
+    Grams F: (G, m, b, b); shared X: (d, n).  Returns (G, m, n)."""
+    return torch.stack([
+        aopt_filter_gains_ref(X, W[g], E[g], F[g], isig2)
+        for g in range(W.shape[0])
     ])

@@ -4,7 +4,9 @@ Marked ``gpu``: they skip where no CUDA device is present (decided in
 the ``cuda`` fixture, never at import).  Run them on a machine with the
 card:  python -m pytest -q -m gpu tests/test_torch_gpu.py
 Tolerance: ``STREAM_PARITY_TOL[...]["kernel_vs_ref"]`` = 2e-4 rtol and
-atol, kernel and plain version on the same (quantized) inputs.
+atol, kernel and plain version on the same (quantized) inputs.  The
+A-optimality kernels take genuine operands (W = M⁻¹X of a real state,
+Woodbury factors by the objective's Cholesky formula), so den ≥ 1.
 """
 
 import numpy as np
@@ -12,15 +14,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.aopt_gains import aopt_gains, aopt_gains_ref  # noqa: E402
 from repro_torch.kernels.common import (  # noqa: E402
     STREAM_PARITY_TOL,
     quantize,
     set_full_f32_matmul,
 )
 from repro_torch.kernels.filter_gains import (  # noqa: E402
+    aopt_filter_gains,
+    aopt_filter_gains_lattice_ref,
     filter_gains,
     filter_gains_lattice_ref,
 )
+from repro_torch.kernels.filter_gains.ops import AOPT_MAX_B  # noqa: E402
 from repro_torch.kernels.marginal_gains import (  # noqa: E402
     regression_gains,
     regression_gains_ref,
@@ -126,6 +132,121 @@ def test_dash_on_card_matches_cpu(cuda):
         obj = objs["cpu"]
         st = obj.add_set(obj.init(), torch.from_numpy(pc[:i])[None],
                          torch.ones((1, i), dtype=torch.bool))
+        top = torch.topk(obj.gains(st)[0], 2).values
+        assert float(top[0] - top[1]) <= 2e-4 * float(top[0]), (i, top)
+    same_set = bool(torch.equal(dc.sel_mask, dg.sel_mask.cpu()))
+    assert same_set or abs(float(dc.value) - float(dg.value)) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# A-optimality: the Sherman–Morrison sweep and the Woodbury filter engine
+# ---------------------------------------------------------------------------
+
+def _aopt_problem(dev, d, n, g, m, b, n_sel=6, sigma2=1.0, seed=0):
+    """Design columns X (d, n); per lane a genuine W = M⁻¹X of a random
+    n_sel-set; per (lane, sample) the Woodbury factors E (d, b) of a
+    random b-set and F = EᵀE — in float64 numpy, then f32 on ``dev``."""
+    from repro_torch.data.synthetic import make_d1_design
+
+    rng = np.random.default_rng(seed)
+    X = np.ascontiguousarray(
+        make_d1_design(seed=seed, n_samples=n, n_features=d), np.float64)
+    isig2 = 1.0 / sigma2
+    W = np.zeros((g, d, n))
+    E = np.zeros((g, m, d, b))
+    for gi in range(g):
+        Xs = X[:, rng.choice(n, size=n_sel, replace=False)]
+        M = np.eye(d) + isig2 * Xs @ Xs.T
+        W[gi] = np.linalg.solve(M, X)
+        for i in range(m):
+            C = X[:, rng.choice(n, size=b, replace=False)]
+            P = np.linalg.solve(M, C)
+            Lk = np.linalg.cholesky(np.eye(b) + isig2 * C.T @ P)
+            E[gi, i] = np.sqrt(isig2) * np.linalg.solve(Lk, P.T).T
+    F = np.einsum("gmdb,gmdc->gmbc", E, E)
+    t = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (X, W, E, F)]
+    return (*t, isig2)
+
+
+AOPT_SHAPES = [  # d, n, g, m, b, sigma2
+    (1024, 4096, 2, 8, 8, 1.0),    # the design path's d, m and b
+    (1000, 1537, 2, 3, 1, 0.5),    # d % 16 != 0, n % 128 != 0, b = 1
+    (257, 513, 2, 4, 0, 1.0),      # b = 0: the singleton gain
+    (100, 300, 1, 9, 3, 2.0),      # m above the 8 samples of one CTA
+    (129, 333, 3, 2, AOPT_MAX_B, 1.0),   # b at the cap
+]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,g,m,b,sigma2", AOPT_SHAPES)
+def test_aopt_gains_kernel(cuda, d, n, g, m, b, sigma2, precision):
+    X, W, _, _, isig2 = _aopt_problem(cuda, d, n, g, 1, 1, sigma2=sigma2)
+    before = aopt_gains.launches
+    got = aopt_gains(X, W, isig2, precision=precision)
+    torch.cuda.synchronize()
+    assert aopt_gains.launches == before + 1
+    want = aopt_gains_ref(quantize(X, precision), quantize(W, precision),
+                          isig2)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,g,m,b,sigma2", AOPT_SHAPES)
+def test_aopt_filter_gains_kernel(cuda, d, n, g, m, b, sigma2, precision):
+    X, W, E, F, isig2 = _aopt_problem(cuda, d, n, g, m, b, n_sel=b + 5,
+                                      sigma2=sigma2)
+    before = aopt_filter_gains.launches
+    got = aopt_filter_gains(X, W, E, F, isig2, precision=precision)
+    torch.cuda.synchronize()
+    assert aopt_filter_gains.launches == before + 1
+    want = aopt_filter_gains_lattice_ref(quantize(X, precision),
+                                         quantize(W, precision), E, F, isig2)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+def test_aopt_wrappers_reject_what_the_kernel_cannot_take(cuda):
+    X, W, E, F, isig2 = _aopt_problem(cuda, 64, 100, 1, 2, 3)
+    big = torch.zeros((1, 2, 64, AOPT_MAX_B + 1), device=cuda)
+    big_f = torch.zeros((1, 2, AOPT_MAX_B + 1, AOPT_MAX_B + 1), device=cuda)
+    with pytest.raises(ValueError):
+        aopt_filter_gains(X, W, big, big_f, isig2)               # b > cap
+    with pytest.raises(ValueError):
+        aopt_filter_gains(X, W, E.double(), F, isig2)            # dtype
+    with pytest.raises(ValueError):
+        aopt_gains(X, W.cpu(), isig2)                            # device
+    with pytest.raises(ValueError):
+        aopt_gains(X, W[:, :, :50].contiguous(), isig2)          # shape
+
+
+def test_design_dash_on_card_matches_cpu(cuda):
+    """Greedy and DASH on a small design, card against the CPU plain
+    path, DASH noise drawn on the CPU.  Every candidate has unit norm, so
+    greedy's first gains tie at 0.5: its picks are equal, or first
+    differ where the CPU's top two gains are within 2e-4 relative.  DASH
+    (6 OPT guesses × α ∈ {0.3, 1}) selects the same set, or its values
+    agree within 1e-3."""
+    from repro_torch.core import AOptimalityObjective, dash_auto, greedy
+    from repro_torch.core.random import SeedKey
+    from repro_torch.data.synthetic import make_d1_design
+
+    X = make_d1_design(seed=0, n_samples=512, n_features=128)
+    objs, runs = {}, {}
+    for dev in ("cpu", "cuda"):
+        obj = objs[dev] = AOptimalityObjective(X, 32, device=dev)
+        runs[dev] = (greedy(obj, 32, device=dev),
+                     dash_auto(obj, 32, SeedKey(0, host=True), eps=0.25,
+                               alpha=0.3, alphas=[0.3, 1.0], n_samples=8,
+                               n_guesses=6, device=dev))
+    (gc, dc), (gg, dg) = runs["cpu"], runs["cuda"]
+    pc, pg = gc.sel_idx.numpy(), gg.sel_idx.cpu().numpy()
+    diff = np.flatnonzero(pc != pg)
+    if diff.size:
+        i = int(diff[0])
+        obj = objs["cpu"]
+        st = obj.init()
+        if i:
+            st = obj.add_set(st, torch.from_numpy(pc[:i])[None],
+                             torch.ones((1, i), dtype=torch.bool))
         top = torch.topk(obj.gains(st)[0], 2).values
         assert float(top[0] - top[1]) <= 2e-4 * float(top[0]), (i, top)
     same_set = bool(torch.equal(dc.sel_mask, dg.sel_mask.cpu()))
