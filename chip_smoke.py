@@ -7,13 +7,17 @@ Run from the root of a checkout.  Phases, each of which raises (and so
 exits nonzero, with no result line) when a check fails:
 
   1. device  — the card's name, count and power limit; TF32 off
-  2. build   — nvcc builds the four CUDA kernels from the checkout's
+  2. build   — nvcc builds the six CUDA kernels from the checkout's
                sources, all at once; ptxas register/spill lines, seconds
   3. kernels — each kernel against its plain PyTorch version on the card,
                f32 and bf16, at the main-path shapes and ragged ones, at
                STREAM_PARITY_TOL["kernel_vs_ref"] (2e-4 rtol and atol);
                the A-optimality kernels on genuine operands (a state's
-               shared solve W = M⁻¹X and expand_factors' Woodbury factors)
+               shared solve W = M⁻¹X and expand_factors' Woodbury factors);
+               the logistic kernels on genuine logits (refit states and
+               expand_logits' perturbed states), each error measured
+               against the plain version in float64 beside the f32 plain
+               version's, under rtol 2e-4 and atol 2e-4 + ε_f32·√d·ℓ_abs
   4. main    — the port's quickstart (greedy, DASH over 6 OPT guesses
                × 8 samples, TOP-K, RANDOM) on the paper's D1 protocol at
                d = n = 8192, k = 128, with the kernels' launch counters
@@ -26,13 +30,20 @@ exits nonzero, with no result line) when a check fails:
                k = 128, launch counters set to 0 before and read after
   7. design parity — greedy and DASH on the small design (128 × 512,
                k = 32), card against the CPU plain path
-  8. timing  — CUDA-event times per call of each kernel, its plain
+  8. classification main — the port's classification entry point
+               (greedy, DASH over 6 OPT guesses × 8 samples, TOP-K,
+               RANDOM) on the paper's D3 protocol at d = n = 8192,
+               support 256, k = 128, launch counters set to 0 before and
+               read after
+  9. classification parity — greedy and DASH on the small D3 (600 × 200,
+               support 50, k = 20), card against the CPU plain path
+ 10. timing  — CUDA-event times per call of each kernel, its plain
                version and a cuBLAS product, beside the kernel's bound
                from its shapes and the H100 SXM peaks
-  9. profile — greedy and DASH of the main phase, and DASH of the design
-               main phase, once more under torch.profiler: device busy
-               time by kernel and the device's busy share of the host
-               wall time
+ 11. profile — greedy and DASH of the main phase, and DASH of the design
+               and classification main phases, once more under
+               torch.profiler: device busy time by kernel and the
+               device's busy share of the host wall time
 
 The last three lines of output: the kernels JSON, the card's name and
 power limit as nvidia-smi prints them, and the result JSON.  Imports
@@ -41,6 +52,7 @@ nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -53,6 +65,10 @@ SRC = ROOT / "src"
 # H100 SXM data-sheet peaks: non-tensor f32 FMA rate and HBM3 bandwidth.
 F32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# Transcendentals (exp, log, reciprocal) on the special-function units:
+# 16 per SM per clock (Hopper white paper) × 132 SMs × 1.98 GHz, the clock
+# of the 67 TFLOP/s f32 peak.
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 MAIN = dict(d=8192, n=8192, k=128, support=256, n_guesses=6, n_samples=8)
 # DashConfig.resolve at n = 8192, k = 128: r = 13 rounds, block b = 10.
@@ -65,22 +81,36 @@ DESIGN_LANES = 12
 # DashConfig.resolve at n = 65536, k = 128: r = 16 rounds, block b = 8.
 DESIGN_BLOCK = 8
 
+# The classification path: D3 protocol at the regression main's width
+# and support, DASH of benchmarks/bench_selection.py (6 OPT guesses,
+# eps 0.25, α 0.6, 8 samples); r = 13 rounds, block b = 10.
+CLASS = dict(d=8192, n=8192, k=128, support=256, n_guesses=6, n_samples=8)
+CLASS_BLOCK = 10
+
 REPLACES = {
     "regression_gains": "src/repro/kernels/marginal_gains/kernel.py:62",
     "filter_gains": "src/repro/kernels/filter_gains/kernel.py:86",
     "aopt_gains": "src/repro/kernels/aopt_gains/kernel.py:34",
     "aopt_filter_gains": "src/repro/kernels/filter_gains/kernel_aopt.py:74",
+    "logistic_gains": "src/repro/kernels/logistic_gains/kernel.py:58",
+    "logistic_filter_gains":
+        "src/repro/kernels/filter_gains/kernel_logistic.py:55",
 }
 # Device kernels per counted wrapper call: the regression filter engine
 # is a base pass over the G guess bases plus a sample pass over the G*m
-# states; the A-optimality engine is one launch over the G*m states.
+# states; the A-optimality engine is one launch over the G*m states; the
+# logistic kernels make the per-row old log-likelihood terms, then sweep.
 LAUNCHES_PER_CALL = {"regression_gains": 1, "filter_gains": 2,
-                     "aopt_gains": 1, "aopt_filter_gains": 1}
+                     "aopt_gains": 1, "aopt_filter_gains": 1,
+                     "logistic_gains": 2, "logistic_filter_gains": 2}
 SOURCES = {
     "regression_gains": "src/repro_torch/kernels/csrc/marginal_gains.cu",
     "filter_gains": "src/repro_torch/kernels/csrc/filter_gains.cu",
     "aopt_gains": "src/repro_torch/kernels/csrc/aopt_gains.cu",
     "aopt_filter_gains": "src/repro_torch/kernels/csrc/aopt_filter_gains.cu",
+    "logistic_gains": "src/repro_torch/kernels/csrc/logistic_gains.cu",
+    "logistic_filter_gains":
+        "src/repro_torch/kernels/csrc/logistic_filter_gains.cu",
 }
 
 
@@ -127,7 +157,8 @@ def phase_build():
 
     t0 = time.perf_counter()
     info = _build.build("marginal_gains", "filter_gains", "aopt_gains",
-                        "aopt_filter_gains")
+                        "aopt_filter_gains", "logistic_gains",
+                        "logistic_filter_gains")
     for name, bi in info.items():
         log(f"[build] {name}: {bi.seconds:.1f} s -> {bi.library.name}")
         for line in bi.ptxas.splitlines():
@@ -277,6 +308,114 @@ def phase_aopt_kernels(torch, cases):
                     worst[name] = max(worst[name], abs_err)
             del Xq, Wq
         del X, W, E, F
+    return worst
+
+
+@functools.lru_cache(maxsize=None)
+def d3_problem(d, n, support):
+    """The paper's D3 data (seed 2, as the entry point): X, y, support."""
+    from repro_torch.data.synthetic import make_d3_classification
+
+    return make_d3_classification(n_samples=d, n_features=n, support=support)
+
+
+def make_logistic_operands(torch, d, n, g, m, b, n_sel, seed):
+    """Genuine logistic operands on the card: X and y of the D3 protocol,
+    the logits (g, d) of g states refit on n_sel random features each
+    (the empty set, η = 0, for n_sel = 0), and the refit logits (g, m, d)
+    of m random b-sets per state from ``expand_logits``."""
+    from repro_torch.core import ClassificationObjective
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    X, y, _ = d3_problem(d, n, min(256, n // 4))
+    obj = ClassificationObjective(X, y, kmax=n_sel + b, device=dev)
+    st = obj.init(g)
+    if n_sel:
+        idx = torch.stack([torch.randperm(n, generator=gen)[:n_sel]
+                           for _ in range(g)]).to(dev)
+        st = obj.add_set(st, idx, torch.ones_like(idx, dtype=torch.bool))
+    sidx = torch.stack([torch.stack([torch.randperm(n, generator=gen)[:b]
+                                     for _ in range(m)])
+                        for _ in range(g)]).to(dev)
+    etas = obj.expand_logits(st, sidx, torch.ones_like(sidx, dtype=torch.bool))
+    return obj.X, obj.y, st.eta.contiguous(), etas.contiguous()
+
+
+def logistic_atol(torch, y, etas):
+    """The gate's absolute tolerance per state, 2e-4 + ε_f32·√d·ℓ_abs
+    with ℓ_abs = Σ_i |y_i η_i − softplus(η_i)|: the f32 cancellation of
+    ℓ_new − ℓ_old, each of order d·ln 2.  etas (..., d) → (..., 1)."""
+    from repro_torch.kernels.logistic_gains.ref import softplus
+
+    e = etas.double()
+    labs = torch.sum(torch.abs(y.double() * e - softplus(e)), dim=-1,
+                     keepdim=True)
+    eps = torch.finfo(torch.float32).eps
+    return 2e-4 + eps * e.shape[-1] ** 0.5 * labs
+
+
+def phase_logistic_kernels(torch, cases):
+    """Kernels 6-7 against their plain versions run in float64 on the
+    card, beside the f32 plain version: the kernel must lie within rtol
+    2e-4 and atol 2e-4 + ε_f32·√d·ℓ_abs of the float64 result.  The
+    f32 plain version's error is printed, not gated: it keeps the
+    reference's formula, whose ℓ_new − ℓ_old cancels in f32."""
+    from repro_torch.kernels.common import quantize
+    from repro_torch.kernels.filter_gains import (
+        logistic_filter_gains,
+        logistic_filter_gains_lattice_ref,
+    )
+    from repro_torch.kernels.logistic_gains import (
+        logistic_gains,
+        logistic_gains_ref,
+    )
+
+    def lanes_ref(Xq, y, E, steps):
+        return torch.stack([logistic_gains_ref(Xq, y, e, steps=steps)
+                            for e in E])
+
+    worst = {"logistic_gains": 0.0, "logistic_filter_gains": 0.0}
+    for (d, n, g, m, b, n_sel, steps) in cases:
+        X, y, E, etas = make_logistic_operands(torch, d, n, g, m, b, n_sel,
+                                               seed=d + n + n_sel)
+        y64 = y.double()
+        for prec in ("f32", "bf16"):
+            Xq = quantize(X, prec)
+            X64 = Xq.double()
+            for name, states, got, want, plain in (
+                ("logistic_gains", E,
+                 logistic_gains(X, y, E, steps=steps, precision=prec),
+                 lanes_ref(X64, y64, E.double(), steps),
+                 lanes_ref(Xq, y, E, steps)),
+                ("logistic_filter_gains", etas,
+                 logistic_filter_gains(X, y, etas, steps=steps,
+                                       precision=prec),
+                 logistic_filter_gains_lattice_ref(X64, y64, etas.double(),
+                                                   steps=steps),
+                 logistic_filter_gains_lattice_ref(Xq, y, etas,
+                                                   steps=steps)),
+            ):
+                torch.cuda.synchronize()
+                need(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+                atol = logistic_atol(torch, y, states)
+                err = (got.double() - want).abs()
+                plain_err = float((plain.double() - want).abs().max())
+                ok = bool((err <= atol + 2e-4 * want.abs()).all())
+                log(f"[kernels] {name:21s} {prec:4s} d={d} n={n} G={g} "
+                    f"m={m} b={b} |S|={n_sel} steps={steps}: "
+                    f"kernel_err={float(err.max()):.3e} "
+                    f"f32_plain_err={plain_err:.3e} "
+                    f"atol_min={float(atol.min()):.3e} "
+                    f"max_gain={float(want.max()):.3f} "
+                    f"{'ok' if ok else 'FAIL'}")
+                need(ok, f"{name} {prec} outside the f64-anchored bound at "
+                         f"d={d} n={n} G={g} m={m} steps={steps}")
+                if prec == "f32":
+                    worst[name] = max(worst[name], float(err.max()))
+                del got, want, plain, err
+            del Xq, X64
+        del X, y, E, etas
     return worst
 
 
@@ -472,7 +611,122 @@ def phase_design_parity(torch):
 
 
 # ---------------------------------------------------------------------------
-# 8. timing
+# 8-9. the classification path and its card-vs-CPU parity
+# ---------------------------------------------------------------------------
+
+def phase_class_main(torch):
+    import math
+
+    from repro_torch import classification
+    from repro_torch.kernels.filter_gains import logistic_filter_gains
+    from repro_torch.kernels.logistic_gains import logistic_gains
+
+    k, d = CLASS["k"], CLASS["d"]
+    top = d * math.log(2.0)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    logistic_gains.launches = 0
+    logistic_filter_gains.launches = 0
+    out = classification.main(device="cuda", verbose=False, **CLASS)
+    launches = {"logistic_gains": logistic_gains.launches,
+                "logistic_filter_gains": logistic_filter_gains.launches}
+    peak = torch.cuda.max_memory_allocated()
+    dash = out["dash"]
+    log(f"[class] D3 d={d} n={CLASS['n']} support={CLASS['support']} k={k} "
+        f"G={CLASS['n_guesses']} OPT guesses, alpha={out['alpha']}, "
+        f"m={CLASS['n_samples']} (no cut)")
+    for algo in ("greedy", "dash", "topk", "random"):
+        extra = ""
+        if algo == "dash":
+            extra = (f"rounds={out['dash_rounds']} "
+                     f"selected={out['dash_selected']} ")
+        elif algo == "greedy":
+            extra = f"rounds={k} "
+        log(f"[class] {algo:7s} value={out[algo + '_value']:.6f} {extra}"
+            f"host_s={out[algo + '_s']:.3f} "
+            f"launches={out['launches'][algo]}")
+    log(f"[class] planted-support recovery (DASH) {out['recovered']}/{k}")
+    log(f"[class] dash filter iterations per round (best lane): "
+        f"{dash.trace.filter_iters.tolist()}")
+    for i, lane in enumerate(out["lanes"]):
+        log(f"[class] dash lane {i:2d} (OPT guess {i}): "
+            f"alpha={lane['alpha']:.3f} value={lane['value']:.6f} "
+            f"filter_iterations={lane['filter_iters']}")
+    log(f"[class] max_memory_allocated={peak} bytes, of which "
+        f"{peak - base} above the {base} bytes held before the run  "
+        f"launches={launches}")
+
+    need(launches["logistic_gains"] > 0
+         and launches["logistic_filter_gains"] > 0,
+         f"a kernel of the classification path never launched: {launches}")
+    need(out["launches"]["greedy"]["logistic_gains"] >= k,
+         "greedy launched logistic_gains fewer than k times")
+    need(out["launches"]["dash"]["logistic_filter_gains"] > 0,
+         "DASH never launched logistic_filter_gains")
+    values = [out[a + "_value"] for a in ("greedy", "dash", "topk",
+                                          "random")]
+    values += [lane["value"] for lane in out["lanes"]]
+    need(all(v == v and 0.0 <= v <= top for v in values),
+         f"a classification value lies outside [0, d ln 2 = {top:.3f}]")
+    need(out["dash_value"] > out["random_value"],
+         "classification DASH does not beat RANDOM")
+    need(out["dash_selected"] <= k, "DASH selected more than k")
+    return out, launches, peak
+
+
+def phase_class_parity(torch):
+    """Greedy and DASH on the small D3 (600 × 200, support 50, k = 20),
+    card against the CPU, DASH noise drawn on the CPU.  Greedy's picks
+    are equal, or first differ where the CPU's top two gains are within
+    1e-4 relative.  Per DASH guess (lane) the card selects the CPU's set,
+    or its value agrees within 1e-3."""
+    from repro_torch.core import ClassificationObjective, dash_auto, greedy
+    from repro_torch.core.random import SeedKey
+    from repro_torch.data.synthetic import make_d3_classification
+
+    X, y, _ = make_d3_classification(n_samples=600, n_features=200,
+                                     support=50)
+    objs, runs = {}, {}
+    for dev in ("cpu", "cuda"):
+        obj = objs[dev] = ClassificationObjective(X, y, 20, device=dev)
+        runs[dev] = (greedy(obj, 20, device=dev),
+                     dash_auto(obj, 20, SeedKey(0, host=True), eps=0.25,
+                               alpha=0.6, n_samples=8, n_guesses=6,
+                               return_lattice=True, device=dev)[1])
+    (gc, dc), (gg, dg) = runs["cpu"], runs["cuda"]
+    pc, pg = gc.sel_idx.tolist(), gg.sel_idx.cpu().tolist()
+    if pc == pg:
+        log(f"[class parity] greedy: identical picks (k=20), values "
+            f"cpu={float(gc.value):.6f} cuda={float(gg.value):.6f}")
+    else:
+        i = next(j for j, (a, b) in enumerate(zip(pc, pg)) if a != b)
+        obj = objs["cpu"]
+        st = obj.init()
+        if i:
+            st = obj.add_set(st, torch.tensor([pc[:i]]),
+                             torch.ones((1, i), dtype=torch.bool))
+        top = torch.topk(obj.gains(st)[0], 2).values.tolist()
+        gap = (top[0] - top[1]) / top[0]
+        log(f"[class parity] greedy: first difference at step {i}, "
+            f"top-two relative gap {gap:.3e}; values "
+            f"cpu={float(gc.value):.6f} cuda={float(gg.value):.6f}")
+        need(gap < 1e-4, "classification greedy picks differ beyond a "
+                         "near-tie")
+    lanes = dc.value.shape[0]
+    for g in range(lanes):
+        same = bool(torch.equal(dc.sel_mask[g], dg.sel_mask[g].cpu()))
+        vc, vg = float(dc.value[g]), float(dg.value[g])
+        log(f"[class parity] dash lane {g:2d}: same set={same} value "
+            f"cpu={vc:.6f} cuda={vg:.6f} |diff|={abs(vc - vg):.3e} "
+            f"filter_iterations cpu={int(dc.trace.filter_iters[g].sum())} "
+            f"cuda={int(dg.trace.filter_iters[g].sum())}")
+        need(same or abs(vc - vg) < 1e-3,
+             f"classification DASH lane {g} on the card disagrees with the "
+             "CPU")
+
+
+# ---------------------------------------------------------------------------
+# 10. timing
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, iters=10, warmup=2):
@@ -634,8 +888,87 @@ def phase_aopt_timing(torch, worst, launches):
     return rows
 
 
+def logistic_bound(d, n, states, steps, xb):
+    """The least time for ``states`` Newton sweeps over X (d, n): the
+    larger of the bytes (X once in its storage type, y, the logits and
+    the gains), the f32 flops and the transcendentals on the
+    special-function units.  Counted per element and state from
+    newton_sweep.cuh: each Newton step 11 flops, one expf and one divide;
+    the closing pass 8 flops, one expf and one log1pf; per row and state
+    the old log-likelihood term, 5 flops, one expf and one log1pf.
+    Returns (bound_ms, bound_by, {term: ms})."""
+    elems = states * d * n
+    flops = elems * (11.0 * steps + 8.0) + states * d * 5.0
+    sfu = elems * (2.0 * steps + 2.0) + states * d * 2.0
+    nbytes = xb * d * n + 4.0 * (d + states * d + states * n)
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "f32_flops": flops / F32_PEAK_FLOPS * 1e3,
+             "sfu": sfu / SFU_OPS_PER_S * 1e3}
+    top = max(terms, key=terms.get)
+    return terms[top], "bytes" if top == "bytes" else "operations", terms
+
+
+def phase_logistic_timing(torch, worst, launches):
+    from repro_torch.kernels.common import quantize
+    from repro_torch.kernels.filter_gains import (
+        logistic_filter_gains,
+        logistic_filter_gains_lattice_ref,
+    )
+    from repro_torch.kernels.logistic_gains import (
+        logistic_gains,
+        logistic_gains_ref,
+    )
+
+    d, n = CLASS["d"], CLASS["n"]
+    G, m, b = CLASS["n_guesses"], CLASS["n_samples"], CLASS_BLOCK
+    X, y, E, etas = make_logistic_operands(torch, d, n, G, m, b, n_sel=64,
+                                           seed=13)
+    e1 = E[:1].contiguous()
+    steps = 3
+    rows = []
+    for prec in ("f32", "bf16"):
+        xb = 4 if prec == "f32" else 2
+        Xs = X.to(torch.float32 if prec == "f32" else torch.bfloat16)
+        Xq = quantize(X, prec)
+        # logistic_gains at greedy's shape (one lane); the engine over the
+        # G*m states of DASH's lattice.
+        for name, states, run, plain in (
+            ("logistic_gains", 1,
+             lambda: logistic_gains(Xs, y, e1, steps=steps, precision=prec),
+             lambda: logistic_gains_ref(Xq, y, e1[0], steps=steps)),
+            ("logistic_filter_gains", G * m,
+             lambda: logistic_filter_gains(Xs, y, etas, steps=steps,
+                                           precision=prec),
+             lambda: logistic_filter_gains_lattice_ref(Xq, y, etas,
+                                                       steps=steps)),
+        ):
+            bd, by, terms = logistic_bound(d, n, states, steps, xb)
+            t = time_ms(torch, run)
+            p = time_ms(torch, plain, iters=3, warmup=1)
+            log(f"[timing] {name:21s} {prec:4s} states={states:2d} "
+                f"kernel_ms={t:.4f} plain_ms={p:.4f} bound_ms={bd:.4f} "
+                f"({by}: bytes {terms['bytes']:.4f}, f32 flops "
+                f"{terms['f32_flops']:.4f}, special-function units "
+                f"{terms['sfu']:.4f}) library_ms=none bound/kernel="
+                f"{bd / t:.3f}")
+            if prec == "f32":
+                rows.append({
+                    "name": name, "route": "cuda", "source": SOURCES[name],
+                    "replaces": REPLACES[name], "launches": launches[name],
+                    "launches_per_call": LAUNCHES_PER_CALL[name],
+                    "max_abs_err": worst[name], "ms": t, "plain_ms": p,
+                    "bound_ms": bd, "bound_by": by, "bound_terms_ms": terms,
+                    "library_ms": None,
+                })
+        del Xs, Xq
+    log(f"[timing] shapes: d={d} n={n} steps={steps}; logistic_gains at "
+        f"G=1, logistic_filter_gains over G*m={G * m} states (no single "
+        f"library call computes either)")
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# 9. where the time goes
+# 11. where the time goes
 # ---------------------------------------------------------------------------
 
 def _device_us(event):
@@ -645,13 +978,14 @@ def _device_us(event):
     return 0.0
 
 
-def profile_runs(out, design):
+def profile_runs(out, design, cls):
     """The runs the profile phase replays: the main phase's greedy and
-    DASH, and the design main phase's DASH, each as it ran there."""
+    DASH, and the design and classification main phases' DASH, each as
+    it ran there."""
     from repro_torch.core import SeedKey, dash_auto, greedy
 
     obj, k = out["objective"], MAIN["k"]
-    dobj = design["objective"]
+    dobj, cobj = design["objective"], cls["objective"]
     return {
         "greedy": lambda: greedy(obj, k, device="cuda"),
         "dash": lambda: dash_auto(obj, k, SeedKey(0), eps=0.25, alpha=0.6,
@@ -662,6 +996,10 @@ def profile_runs(out, design):
             dobj, DESIGN["k"], SeedKey(0), eps=0.25, alpha=design["alpha"],
             alphas=design["alphas"], n_samples=DESIGN["n_samples"],
             n_guesses=DESIGN["n_guesses"], device="cuda"),
+        "classification dash": lambda: dash_auto(
+            cobj, CLASS["k"], SeedKey(0), eps=0.25, alpha=cls["alpha"],
+            n_samples=CLASS["n_samples"], n_guesses=CLASS["n_guesses"],
+            device="cuda"),
     }
 
 
@@ -729,6 +1067,18 @@ def main() -> int:
         (100, 300, 1, 9, 3, 3, 2.0),     # m above one CTA's 8 samples
         (dd, 4099, 2, 8, 17, 40, 1.0),   # 3 groups, ragged last group
     ]))
+    cd, cn, cg, cm = CLASS["d"], CLASS["n"], CLASS["n_guesses"], \
+        CLASS["n_samples"]
+    worst.update(phase_logistic_kernels(torch, [
+        # d, n, G, m, b, |S|, steps
+        (cd, cn, cg, cm, CLASS_BLOCK, 64, 3),       # the main lattice
+        (cd, cn, 1, 1, CLASS_BLOCK, CLASS["k"] - 1, 3),  # greedy's last
+        (cd, cn, 1, 1, CLASS_BLOCK, 0, 3),          # greedy's first: η = 0
+        (1000, 1537, 2, 3, 5, 7, 1),                # ragged d, n; 1 step
+        (1000, 1537, 2, 3, 5, 7, 4),                # 4 steps
+        (600, 700, 5, 8, 4, 9, 3),                  # G*m = 40 > 16 warps
+        (20000, 300, 1, 4, 5, 3, 3),                # slabs of 2 (4) columns
+    ]))
     log(f"[kernels] done at {time.perf_counter() - t0:.1f} s")
     out, launches, _ = phase_main(torch)
     log(f"[main] done at {time.perf_counter() - t0:.1f} s")
@@ -737,9 +1087,14 @@ def main() -> int:
     launches.update(design_launches)
     log(f"[design] done at {time.perf_counter() - t0:.1f} s")
     phase_design_parity(torch)
+    cls, class_launches, _ = phase_class_main(torch)
+    launches.update(class_launches)
+    log(f"[class] done at {time.perf_counter() - t0:.1f} s")
+    phase_class_parity(torch)
     rows = phase_timing(torch, worst, launches)
     rows += phase_aopt_timing(torch, worst, launches)
-    phase_profile(torch, profile_runs(out, design))
+    rows += phase_logistic_timing(torch, worst, launches)
+    phase_profile(torch, profile_runs(out, design, cls))
     log(f"[smoke] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

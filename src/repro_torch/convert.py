@@ -5,7 +5,9 @@ state: they export the reference's objective inputs and state fields as
 numpy arrays and rebuild them here.  A state without a leading lane axis
 becomes a one-lane state; with one (regression: Q (G, d, k), count (G,),
 resid (G, d), sel_mask (G, n), value (G,); A-optimality: M, L (G, d, d),
-W (G, d, n), sel_mask (G, n), value (G,)) it becomes a G-lane state.
+W (G, d, n), sel_mask (G, n), value (G,); classification: sel_idx,
+sel_k, w (G, kcap), eta (G, d), sel_mask (G, n), value (G,)) it becomes
+a G-lane state.
 """
 
 from __future__ import annotations
@@ -16,6 +18,10 @@ import torch
 from repro_torch.core.objectives.a_optimal import (
     AOptimalityObjective,
     AOptState,
+)
+from repro_torch.core.objectives.classification import (
+    ClassificationObjective,
+    ClassificationState,
 )
 from repro_torch.core.objectives.regression import (
     RegressionObjective,
@@ -77,6 +83,36 @@ def aopt_state_from_numpy(M, L, W, sel_mask, value, *,
         M=t(M, torch.float32, 2),
         L=t(L, torch.float32, 2),
         W=t(W, torch.float32, 2),
+        sel_mask=t(sel_mask, torch.bool, 1),
+        value=t(value, torch.float32, 0),
+    )
+
+
+def classification_objective_from_numpy(
+        X, y, kmax: int, *, newton_steps: int = 6,
+        newton_gain_steps: int = 3, gain_mode: str = "newton1d",
+        ridge: float = 1e-4, gain_eps: float = 1e-9,
+        precision: str | None = None,
+        device=None) -> ClassificationObjective:
+    """The port's classification objective over the numpy X (d, n) and
+    labels y (d,)."""
+    return ClassificationObjective(
+        np.array(X, np.float32), np.array(y, np.float32), kmax,
+        newton_steps=newton_steps, newton_gain_steps=newton_gain_steps,
+        gain_mode=gain_mode, ridge=ridge, gain_eps=gain_eps,
+        precision=precision, device=device)
+
+
+def classification_state_from_numpy(sel_idx, sel_k, w, eta, sel_mask, value,
+                                    *, device=None) -> ClassificationState:
+    """The port's ClassificationState from numpy fields (lane axis
+    optional)."""
+    t = _lane_fields(np.ndim(eta) == 2, device)
+    return ClassificationState(
+        sel_idx=t(sel_idx, torch.int64, 1),
+        sel_k=t(sel_k, torch.bool, 1),
+        w=t(w, torch.float32, 1),
+        eta=t(eta, torch.float32, 1),
         sel_mask=t(sel_mask, torch.bool, 1),
         value=t(value, torch.float32, 0),
     )

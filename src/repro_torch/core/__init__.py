@@ -1,9 +1,10 @@
-"""The paper's contribution on PyTorch: the regression and A-optimal
-design objectives, DASH and its yardsticks (slices 1 and 2 of the port).
+"""The paper's contribution on PyTorch: the regression, A-optimal design
+and logistic-classification objectives, DASH and its yardsticks (slices
+1–3 of the port).
 
 Public API:
     objectives: RegressionObjective, AOptimalityObjective,
-                normalize_columns
+                ClassificationObjective, normalize_columns
     algorithms: dash, dash_auto, DashConfig, greedy, top_k_select,
                 random_select
     spectral:   gamma_aopt, alpha_from_gamma
@@ -12,6 +13,7 @@ Public API:
 
 from repro_torch.core.objectives import (
     AOptimalityObjective,
+    ClassificationObjective,
     RegressionObjective,
     normalize_columns,
 )
@@ -23,6 +25,7 @@ from repro_torch.core.spectral import alpha_from_gamma, gamma_aopt
 
 __all__ = [
     "AOptimalityObjective",
+    "ClassificationObjective",
     "RegressionObjective",
     "normalize_columns",
     "DashConfig",

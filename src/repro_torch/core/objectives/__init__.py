@@ -8,6 +8,10 @@ from repro_torch.core.objectives.a_optimal import (
     AOptimalityObjective,
     AOptState,
 )
+from repro_torch.core.objectives.classification import (
+    ClassificationObjective,
+    ClassificationState,
+)
 from repro_torch.core.objectives.regression import RegressionObjective
 
 __all__ = [
@@ -17,5 +21,7 @@ __all__ = [
     "normalize_columns",
     "AOptimalityObjective",
     "AOptState",
+    "ClassificationObjective",
+    "ClassificationState",
     "RegressionObjective",
 ]

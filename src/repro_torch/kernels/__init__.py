@@ -12,9 +12,12 @@ Kernels:
                    (greedy's oracle, DASH's current-state fallback)
   aopt_gains     — the A-optimality Sherman–Morrison singleton sweep
                    against the cached shared solve W = M⁻¹X
-  filter_gains   — sample-batched filter engine with the regression and
-                   the A-optimality (Woodbury) epilogues (DASH's
-                   inner-loop hot spot)
+  logistic_gains — the 1-D-Newton logistic singleton sweep (per-row
+                   old log-likelihood terms, then steps Newton
+                   iterations per column)
+  filter_gains   — sample-batched filter engine with the regression, the
+                   A-optimality (Woodbury) and the logistic (Newton
+                   sweep) epilogues (DASH's inner-loop hot spot)
 
 The CUDA sources live in ``csrc/``; ``common`` holds the precision policy
 and the device rule.

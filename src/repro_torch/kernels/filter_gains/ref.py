@@ -14,14 +14,17 @@ samples plus a small per-sample delta:
   unnormalized.
 * A-optimality: the shared solve W = M⁻¹X plus per-sample Woodbury
   factors E_i with M_i⁻¹ = M⁻¹ − E_i E_iᵀ and Grams F_i = E_iᵀE_i.
+* logistic: per-sample refit logits η_i; each row is exactly
+  ``logistic_gains_ref`` at η_i.
 
-Transliterations of the regression and A-optimality parts of
-``repro/kernels/filter_gains/ref.py``.
+Transliterations of ``repro/kernels/filter_gains/ref.py``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.logistic_gains.ref import logistic_gains_ref
 
 SPAN_TOL = 1e-6
 
@@ -77,3 +80,26 @@ def aopt_filter_gains_lattice_ref(X, W, E, F, isig2):
         aopt_filter_gains_ref(X, W[g], E[g], F[g], isig2)
         for g in range(W.shape[0])
     ])
+
+
+def logistic_filter_gains_ref(X, y, etas, *, steps: int = 3,
+                              eps: float = 1e-9):
+    """X: (d, n); y: (d,); etas: (S, d) per-sample refit logits.  Row i
+    is ``logistic_gains_ref`` at η_i — (S, n) gains.  One state at a
+    time: a (S, d, n) temporary would be 12.9 GB in f32 at the main
+    path's d = n = 8192, S = 48."""
+    out = torch.empty((etas.shape[0], X.shape[1]), dtype=X.dtype,
+                      device=X.device)
+    for i, eta in enumerate(etas):
+        out[i] = logistic_gains_ref(X, y, eta, steps=steps, eps=eps)
+    return out
+
+
+def logistic_filter_gains_lattice_ref(X, y, etas, *, steps: int = 3,
+                                      eps: float = 1e-9):
+    """Per-guess logits etas: (G, m, d); shared X: (d, n), y: (d,).
+    Returns (G, m, n)."""
+    g, m, d = etas.shape
+    out = logistic_filter_gains_ref(X, y, etas.reshape(g * m, d),
+                                    steps=steps, eps=eps)
+    return out.reshape(g, m, -1)

@@ -6,7 +6,12 @@ card:  python -m pytest -q -m gpu tests/test_torch_gpu.py
 Tolerance: ``STREAM_PARITY_TOL[...]["kernel_vs_ref"]`` = 2e-4 rtol and
 atol, kernel and plain version on the same (quantized) inputs.  The
 A-optimality kernels take genuine operands (W = M⁻¹X of a real state,
-Woodbury factors by the objective's Cholesky formula), so den ≥ 1.
+Woodbury factors by the objective's Cholesky formula), so den ≥ 1.  The
+logistic kernels take genuine logits (refit states, ``expand_logits``)
+and are held to the plain version run in float64, within rtol 2e-4 and
+atol 2e-4 + ε_f32·√d·ℓ_abs(η): their gain ℓ_new − ℓ_old is the
+difference of two sums of order d·ln 2, and the f32 plain version itself
+strays from the float64 one by about that much.
 """
 
 import numpy as np
@@ -251,3 +256,151 @@ def test_design_dash_on_card_matches_cpu(cuda):
         assert float(top[0] - top[1]) <= 2e-4 * float(top[0]), (i, top)
     same_set = bool(torch.equal(dc.sel_mask, dg.sel_mask.cpu()))
     assert same_set or abs(float(dc.value) - float(dg.value)) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# Logistic classification: the Newton sweep and its filter engine
+# ---------------------------------------------------------------------------
+
+def _logistic_problem(dev, d, n, g, m, b=3, n_sel=5, seed=0):
+    """D3 features X (d, n) and labels y on ``dev``; the logits E (g, d)
+    of g states refit on n_sel random features, and the refit logits
+    (g, m, d) of m random b-sets per state (``expand_logits``)."""
+    from repro_torch.core import ClassificationObjective
+    from repro_torch.data.synthetic import make_d3_classification
+
+    X, y, _ = make_d3_classification(seed=seed, n_samples=d, n_features=n,
+                                     support=max(1, n // 4))
+    obj = ClassificationObjective(X, y, n_sel + b, device=dev)
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, count):
+        return torch.from_numpy(np.stack(
+            [rng.choice(n, size=count, replace=False)
+             for _ in range(int(np.prod(shape)))]).reshape(*shape, count)
+        ).to(dev)
+
+    idx = draw((g,), n_sel)
+    st = obj.add_set(obj.init(g), idx, torch.ones_like(idx, dtype=torch.bool))
+    sidx = draw((g, m), b)
+    etas = obj.expand_logits(st, sidx, torch.ones_like(sidx,
+                                                       dtype=torch.bool))
+    return obj.X, obj.y, st.eta.contiguous(), etas.contiguous()
+
+
+def _f64_gate(got, want64, y, etas):
+    """The kernels' gate: rtol 2e-4 and atol 2e-4 + ε_f32·√d·ℓ_abs(η)
+    against the plain version in float64 (ℓ_abs = Σ|y η − softplus(η)|,
+    the size of the f32 cancellation of ℓ_new − ℓ_old)."""
+    from repro_torch.kernels.logistic_gains.ref import softplus
+
+    e = etas.double()
+    labs = torch.sum(torch.abs(y.double() * e - softplus(e)), dim=-1,
+                     keepdim=True)
+    atol = 2e-4 + torch.finfo(torch.float32).eps * e.shape[-1] ** 0.5 * labs
+    err = (got.double() - want64).abs()
+    assert bool((err <= atol + 2e-4 * want64.abs()).all()), float(err.max())
+
+
+LOGISTIC_SHAPES = [  # d, n, g, m, steps
+    (32, 64, 1, 2, 3),
+    (257, 513, 2, 3, 1),          # odd d, ragged n, one step
+    (1000, 1537, 3, 8, 4),        # G·m = 24 above one CTA's 16 states
+    (600, 700, 5, 8, 3),          # G·m = 40
+    (20000, 100, 1, 2, 3),        # slabs of 2 f32 (4 bf16) columns
+]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,g,m,steps", LOGISTIC_SHAPES)
+def test_logistic_gains_kernel(cuda, d, n, g, m, steps, precision):
+    from repro_torch.kernels.logistic_gains import (
+        logistic_gains,
+        logistic_gains_ref,
+    )
+
+    X, y, E, _ = _logistic_problem(cuda, d, n, g, 1)
+    before = logistic_gains.launches
+    got = logistic_gains(X, y, E, steps=steps, precision=precision)
+    torch.cuda.synchronize()
+    assert logistic_gains.launches == before + 1
+    X64 = quantize(X, precision).double()
+    want = torch.stack([logistic_gains_ref(X64, y.double(), e.double(),
+                                           steps=steps) for e in E])
+    _f64_gate(got, want, y, E)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,g,m,steps", LOGISTIC_SHAPES)
+def test_logistic_filter_gains_kernel(cuda, d, n, g, m, steps, precision):
+    from repro_torch.kernels.filter_gains import (
+        logistic_filter_gains,
+        logistic_filter_gains_lattice_ref,
+    )
+
+    X, y, _, etas = _logistic_problem(cuda, d, n, g, m)
+    before = logistic_filter_gains.launches
+    got = logistic_filter_gains(X, y, etas, steps=steps, precision=precision)
+    torch.cuda.synchronize()
+    assert logistic_filter_gains.launches == before + 1
+    want = logistic_filter_gains_lattice_ref(
+        quantize(X, precision).double(), y.double(), etas.double(),
+        steps=steps)
+    _f64_gate(got, want, y, etas)
+
+
+def test_logistic_wrappers_reject_what_the_kernel_cannot_take(cuda):
+    from repro_torch.kernels.filter_gains import logistic_filter_gains
+    from repro_torch.kernels.logistic_gains import logistic_gains
+
+    X, y, E, etas = _logistic_problem(cuda, 64, 100, 2, 3)
+    with pytest.raises(ValueError):
+        logistic_gains(X, y, E.double())                          # dtype
+    with pytest.raises(ValueError):
+        logistic_gains(X, y.cpu(), E)                             # device
+    with pytest.raises(ValueError):
+        logistic_gains(X.t().contiguous().t(), y, E)              # layout
+    with pytest.raises(ValueError):
+        logistic_filter_gains(X, y, etas.transpose(0, 1))         # layout
+    with pytest.raises(ValueError):
+        logistic_filter_gains(X, y.double(), etas)                # dtype
+    big = torch.zeros((60000, 2), device=cuda)                    # slab
+    with pytest.raises(ValueError):
+        logistic_filter_gains(big, torch.zeros(60000, device=cuda),
+                              torch.zeros((1, 1, 60000), device=cuda))
+
+
+def test_classification_dash_on_card_matches_cpu(cuda):
+    """Greedy and DASH on the small D3 (600 × 200, support 50, k = 20),
+    card against the CPU plain path, DASH noise drawn on the CPU.
+    Greedy's picks are equal, or first differ where the CPU's top two
+    gains are within 1e-4 relative; per DASH guess the card selects the
+    CPU's set, or its value agrees within 1e-3."""
+    from repro_torch.core import ClassificationObjective, dash_auto, greedy
+    from repro_torch.core.random import SeedKey
+    from repro_torch.data.synthetic import make_d3_classification
+
+    X, y, _ = make_d3_classification(n_samples=600, n_features=200,
+                                     support=50)
+    objs, runs = {}, {}
+    for dev in ("cpu", "cuda"):
+        obj = objs[dev] = ClassificationObjective(X, y, 20, device=dev)
+        runs[dev] = (greedy(obj, 20, device=dev),
+                     dash_auto(obj, 20, SeedKey(0, host=True), eps=0.25,
+                               alpha=0.6, n_samples=8, n_guesses=6,
+                               return_lattice=True, device=dev)[1])
+    (gc, dc), (gg, dg) = runs["cpu"], runs["cuda"]
+    pc, pg = gc.sel_idx.numpy(), gg.sel_idx.cpu().numpy()
+    diff = np.flatnonzero(pc != pg)
+    if diff.size:
+        i = int(diff[0])
+        obj = objs["cpu"]
+        st = obj.init()
+        if i:
+            st = obj.add_set(st, torch.from_numpy(pc[:i])[None],
+                             torch.ones((1, i), dtype=torch.bool))
+        top = torch.topk(obj.gains(st)[0], 2).values
+        assert float(top[0] - top[1]) <= 1e-4 * float(top[0]), (i, top)
+    for g in range(dc.value.shape[0]):
+        same = bool(torch.equal(dc.sel_mask[g], dg.sel_mask[g].cpu()))
+        assert same or abs(float(dc.value[g]) - float(dg.value[g])) < 1e-3
