@@ -7,8 +7,8 @@ Run from the root of a checkout.  Phases, each of which raises (and so
 exits nonzero, with no result line) when a check fails:
 
   1. device  — the card's name, count and power limit; TF32 off
-  2. build   — nvcc builds the six CUDA kernels from the checkout's
-               sources, all at once; ptxas register/spill lines, seconds
+  2. build   — nvcc builds the seven CUDA sources from the checkout,
+               all at once; ptxas register/spill lines, seconds
   3. kernels — each kernel against its plain PyTorch version on the card,
                f32 and bf16, at the main-path shapes and ragged ones, at
                STREAM_PARITY_TOL["kernel_vs_ref"] (2e-4 rtol and atol);
@@ -37,13 +37,39 @@ exits nonzero, with no result line) when a check fails:
                read after
   9. classification parity — greedy and DASH on the small D3 (600 × 200,
                support 50, k = 20), card against the CPU plain path
- 10. timing  — CUDA-event times per call of each kernel, its plain
-               version and a cuBLAS product, beside the kernel's bound
-               from its shapes and the H100 SXM peaks
- 11. profile — greedy and DASH of the main phase, and DASH of the design
-               and classification main phases, once more under
-               torch.profiler: device busy time by kernel and the
-               device's busy share of the host wall time
+ 10. lm kernels — flash attention (kernel 8) against its plain version,
+               f32 and bf16, at rtol = atol = 2e-5 (f32) and 2e-2 (bf16),
+               the JAX test's, and in bf16 also per row against the
+               output's scale in float64 (FLASH_BF16_REL, beside the
+               plain version's reading and two planted faults', which
+               must exceed it): danube's heads at S 8192 with window 4096,
+               the JAX test's sweep, ragged S, softcap 30 without the
+               causal mask, q_offset, D 16/32/64/80/128; an f32 case that
+               misses against the f32 plain version is gated against the
+               plain version in float64, both errors printed (run with
+               the kernel phases, before the main phase)
+ 11. lm main — the port's serve_lm entry point: h2o-danube-1.8b at full
+               width, bf16, random weights (seed 0), batch 4, prompt
+               8192, 32 new tokens, greedy then top-k 40 at T 0.8;
+               prefill s, decode s per token, tokens/s, peak memory; the
+               flash launch counter set to 0 before and read after
+               (exactly 24 per prefill); first tokens checked against a
+               fresh prefill and decode step
+ 12. lm consistency — full width: prefill 5999 tokens (ring caches),
+               decode one, against prefilling all 6000 (LM_CONSIST_TOL);
+               two planted faults must exceed the limit
+ 13. lm parity — the reduced danube (f32) on the card against the CPU:
+               identical greedy tokens, logits within LM_PARITY_TOL
+ 14. timing  — CUDA-event times per call of each kernel, its plain
+               version and a library call, beside the kernel's bound
+               from its shapes and the H100 SXM peaks (kernel 8 at the lm
+               main prefill shape, SDPA with the same mask as its
+               yardstick)
+ 15. profile — greedy and DASH of the main phase, DASH of the design
+               and classification main phases, one lm prefill and four
+               lm decode steps, once more under torch.profiler: device
+               busy time by kernel and the device's busy share of the
+               host wall time
 
 The last three lines of output: the kernels JSON, the card's name and
 power limit as nvidia-smi prints them, and the result JSON.  Imports
@@ -54,6 +80,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -87,6 +114,73 @@ DESIGN_BLOCK = 8
 CLASS = dict(d=8192, n=8192, k=128, support=256, n_guesses=6, n_samples=8)
 CLASS_BLOCK = 10
 
+# The LM serving path: h2o-danube-1.8b at full width (24 layers, d_model
+# 2560, 32 query and 8 KV heads of 80, window 4096, bf16) through
+# repro_torch.serve_lm: batch 4, prompt 8192 (longer than the window:
+# ring caches, window mask live), 32 new tokens (within prefill's 64 of
+# headroom), greedy and top-k 40 at T 0.8.
+LM = dict(arch="h2o-danube-1.8b", batch=4, prompt_len=8192, new_tokens=32)
+LM_LAYERS = 24
+LM_HEADS = dict(h=32, hkv=8, d=80, window=4096)
+# Prefill S − 1, decode one, against prefill S: S > 4096, so ring caches.
+LM_CONSIST_S = 6000
+# bf16 logits of order 1 (rms 1, largest about 4.5: bf16 ulp 2^-5 there):
+# the two paths round each of 24 layers' activations at other points
+# (GEMMs at M = 1 against M = S, one-pass softmax against the online
+# recurrence), and a stack of random layers amplifies those differences
+# (0.0859 measured at S = 6000 on the H100, PERF.md).  Two planted faults
+# on copies of the same cache are read beside it and must land above the
+# limit: decoding at position S − 2 instead of S − 1 (1.33 measured), and
+# one 64-slot block of every layer's cache zeroed (0.734).  The limit is
+# the geometric mean of the sound reading and the weaker fault's, a
+# factor 2.9 from each.
+LM_CONSIST_TOL = 0.25
+# The cache slots a planted fault zeroes in every layer.
+LM_FAULT_SLOTS = (2048, 2112)
+# f32 reduced danube, card against CPU: another summation order in
+# every GEMM and reduction (d_model 64, two layers, logits of order 1).
+LM_PARITY_TOL = 1e-4
+# Flash kernel against its plain version: the JAX test's tolerance.
+FLASH_TOL = {"f32": 2e-5, "bf16": 2e-2}
+# ... and, in bf16, against the output's own scale.  The JAX test's 2e-2
+# was set at short S, where outputs are O(0.1-1); at danube's S 8192 with
+# window 4096 a late row's softmax spreads over about 1500 keys and its
+# |out| is a few hundredths, so 2e-2 would pass a kernel 10 % off there,
+# while the first rows see a few keys and |out| reaches 3.  So each bf16
+# case is measured against the plain version in float64 row by row: the
+# largest max_d |err| / rms_d(out) over the (b, q, h) rows, gated at
+# FLASH_BF16_REL.  Two planted faults (the kernel's output scaled by 0.9;
+# one 64-key block inside every row's band dropped) are measured the
+# same way and must land above the gate, or the phase fails as blind.
+# Readings on the H100 (PERF.md): kernel at most 0.0174, the bf16 plain
+# version at most 0.0456, the weaker fault at least 0.253; the gate is
+# about their geometric mean, twice the plain version's worst.
+FLASH_BF16_REL = 0.1
+# The KV block a planted fault drops (the kernel's KV tile).
+FLASH_FAULT_BLOCK = 64
+# H100 SXM dense bf16 tensor-core peak.
+BF16_TC_FLOPS = 989e12
+
+# Kernel 8's checks: (B, Sq, Skv, H, Hkv, D, causal, window, softcap,
+# q_offset) — danube's prefill heads at S 8192, the JAX test's sweep
+# (tests/test_kernels.py), ragged S, softcap 30 without the causal mask,
+# decode-shaped q_offset, D 64/80/128 and the reduced configs' D 16.
+LM_FLASH_CASES = (
+    [(1, 8192, 8192, 32, 8, 80, True, 4096, 0.0, 0)]
+    + [(2, sq, skv, h, hkv, d, c, w, cap, 0)
+       for (sq, skv, h, hkv, d) in ((128, 128, 4, 4, 32),
+                                    (130, 200, 4, 2, 32),
+                                    (64, 256, 8, 1, 64))
+       for (c, w, cap) in ((True, 0, 0.0), (True, 48, 0.0),
+                           (False, 0, 0.0), (True, 0, 20.0))]
+    + [(2, 1000, 1537, 8, 2, 80, True, 0, 0.0, 0),
+       (2, 1000, 1537, 8, 2, 80, False, 0, 30.0, 0),
+       (1, 1, 100, 4, 2, 80, True, 0, 0.0, 99),
+       (1, 1, 100, 4, 2, 32, True, 0, 0.0, 99)]
+    + [(2, 513, 513, 8, 2, d, True, 256, 0.0, 0) for d in (64, 80, 128)]
+    + [(2, 48, 48, 4, 2, 16, True, 32, 0.0, 0)]
+)
+
 REPLACES = {
     "regression_gains": "src/repro/kernels/marginal_gains/kernel.py:62",
     "filter_gains": "src/repro/kernels/filter_gains/kernel.py:86",
@@ -95,6 +189,7 @@ REPLACES = {
     "logistic_gains": "src/repro/kernels/logistic_gains/kernel.py:58",
     "logistic_filter_gains":
         "src/repro/kernels/filter_gains/kernel_logistic.py:55",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:88",
 }
 # Device kernels per counted wrapper call: the regression filter engine
 # is a base pass over the G guess bases plus a sample pass over the G*m
@@ -102,7 +197,8 @@ REPLACES = {
 # logistic kernels make the per-row old log-likelihood terms, then sweep.
 LAUNCHES_PER_CALL = {"regression_gains": 1, "filter_gains": 2,
                      "aopt_gains": 1, "aopt_filter_gains": 1,
-                     "logistic_gains": 2, "logistic_filter_gains": 2}
+                     "logistic_gains": 2, "logistic_filter_gains": 2,
+                     "flash_attention": 1}
 SOURCES = {
     "regression_gains": "src/repro_torch/kernels/csrc/marginal_gains.cu",
     "filter_gains": "src/repro_torch/kernels/csrc/filter_gains.cu",
@@ -111,6 +207,7 @@ SOURCES = {
     "logistic_gains": "src/repro_torch/kernels/csrc/logistic_gains.cu",
     "logistic_filter_gains":
         "src/repro_torch/kernels/csrc/logistic_filter_gains.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 
 
@@ -158,7 +255,7 @@ def phase_build():
     t0 = time.perf_counter()
     info = _build.build("marginal_gains", "filter_gains", "aopt_gains",
                         "aopt_filter_gains", "logistic_gains",
-                        "logistic_filter_gains")
+                        "logistic_filter_gains", "flash_attention")
     for name, bi in info.items():
         log(f"[build] {name}: {bi.seconds:.1f} s -> {bi.library.name}")
         for line in bi.ptxas.splitlines():
@@ -726,7 +823,395 @@ def phase_class_parity(torch):
 
 
 # ---------------------------------------------------------------------------
-# 10. timing
+# 10-13. the LM serving path: kernel 8, main, consistency, parity
+# ---------------------------------------------------------------------------
+
+def flash_plain(torch, q, k, v, dtype=None, **kw):
+    """The plain version one KV group at a time (GQA keeps query heads
+    h·r … h·r + r − 1 on KV head h), so its (B, r, Sq, Skv) scores fit at
+    S = 8192; in ``dtype`` when given (float64: the anchor)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    if dtype is not None:
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    r = q.shape[2] // k.shape[2]
+    return torch.cat([
+        flash_attention_ref(q[:, :, g * r:(g + 1) * r], k[:, :, g:g + 1],
+                            v[:, :, g:g + 1], **kw)
+        for g in range(k.shape[2])], dim=2)
+
+
+def flash_dropped64(torch, q, k, v, drop, *, causal, window, softcap,
+                    q_offset):
+    """A planted fault: the plain formula in float64 with the keys
+    ``drop[0]:drop[1]`` masked out of every row, one KV group at a
+    time."""
+    from repro_torch.kernels.flash_attention.ref import (
+        NEG_INF,
+        attention_mask,
+    )
+
+    d, hkv = q.shape[3], k.shape[2]
+    r = q.shape[2] // hkv
+    valid = attention_mask(q.shape[1], k.shape[1], causal=causal,
+                           window=window, q_offset=q_offset,
+                           device=q.device)
+    valid[:, drop[0]:drop[1]] = False
+    outs = []
+    for g in range(hkv):
+        sc = torch.einsum("bqhd,bkd->bhqk", q[:, :, g * r:(g + 1) * r]
+                          .double(), k[:, :, g].double()) / math.sqrt(d)
+        if softcap:
+            sc = softcap * torch.tanh(sc / softcap)
+        sc = torch.where(valid, sc, NEG_INF)
+        outs.append(torch.einsum("bhqk,bkd->bqhd", torch.softmax(sc, -1),
+                                 v[:, :, g].double()))
+        del sc
+    return torch.cat(outs, dim=2)
+
+
+def flash_inputs(torch, b, sq, skv, h, hkv, d, dtype, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device="cuda").to(dtype)
+                 for s in ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+
+
+def phase_lm_kernels(torch, cases):
+    """Kernel 8 against its plain version on the card, f32 and bf16, at
+    FLASH_TOL (rtol = atol).  An f32 case that misses it against the f32
+    plain version is measured against the plain version in float64, and
+    gated there, both errors printed.  Every bf16 case is also gated
+    against the output's scale (FLASH_BF16_REL), beside the bf16 plain
+    version's reading and two planted faults'."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    worst = {"f32": 0.0, "bf16": 0.0, "bf16_rel": 0.0}
+    for (b, sq, skv, h, hkv, d, causal, window, cap, q_offset) in cases:
+        kw = dict(causal=causal, window=window, softcap=cap,
+                  q_offset=q_offset)
+        for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            tol = FLASH_TOL[prec]
+            q, k, v = flash_inputs(torch, b, sq, skv, h, hkv, d, dt,
+                                   seed=sq + skv + d)
+            got = flash_attention(q, k, v, **kw).float()
+            torch.cuda.synchronize()
+            need(bool(torch.isfinite(got).all()), "flash_attention: "
+                 "non-finite output")
+            want = flash_plain(torch, q, k, v, **kw).float()
+            err = float((got - want).abs().max())
+            ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+            extra = ""
+            if not ok and prec == "f32":
+                w64 = flash_plain(torch, q, k, v, torch.float64, **kw)
+                err64 = float((got.double() - w64).abs().max())
+                plain64 = float((want.double() - w64).abs().max())
+                ok = bool(torch.allclose(got.double(), w64, rtol=tol,
+                                         atol=tol))
+                extra = (f" float64-anchored: kernel_err={err64:.3e} "
+                         f"f32_plain_err={plain64:.3e}")
+                err = err64
+                del w64
+            if prec == "bf16":
+                w64 = flash_plain(torch, q, k, v, torch.float64, **kw)
+                rms = w64.pow(2).mean(-1).sqrt()        # (B, Sq, H)
+
+                def rel(o):
+                    e = (o.double() - w64).abs().amax(-1) / rms
+                    return float(e.max())
+
+                # a block inside the band of the causal rows' keys
+                seen = min(skv, q_offset + sq) if causal else skv
+                j0 = FLASH_FAULT_BLOCK * (seen // 2 // FLASH_FAULT_BLOCK)
+                j1 = min(j0 + FLASH_FAULT_BLOCK, skv)
+                r_kernel, r_plain = rel(got), rel(want)
+                r_scaled = rel(0.9 * got)
+                r_dropped = rel(flash_dropped64(torch, q, k, v, (j0, j1),
+                                                **kw))
+                ok = ok and r_kernel <= FLASH_BF16_REL
+                extra = (f" rms(out) per row {float(rms.min()):.3e}.."
+                         f"{float(rms.max()):.3e}; max_err/rms(row): kernel="
+                         f"{r_kernel:.3e} bf16_plain={r_plain:.3e}; planted "
+                         f"faults: x0.9={r_scaled:.3e} keys {j0}:{j1} "
+                         f"dropped={r_dropped:.3e} (gate {FLASH_BF16_REL})")
+                worst["bf16_rel"] = max(worst["bf16_rel"], r_kernel)
+                del w64
+            log(f"[lm kernels] flash_attention {prec:4s} B={b} Sq={sq} "
+                f"Skv={skv} H={h} Hkv={hkv} D={d} causal={causal} "
+                f"window={window} softcap={cap} q_offset={q_offset}: "
+                f"max_abs_err={err:.3e}{extra} {'ok' if ok else 'FAIL'}")
+            need(ok, f"flash_attention {prec} disagrees with its plain "
+                     f"version at B={b} Sq={sq} Skv={skv} H={h} Hkv={hkv} "
+                     f"D={d} {kw}")
+            if prec == "bf16":
+                need(min(r_scaled, r_dropped) > FLASH_BF16_REL,
+                     "the bf16 gate does not see a planted fault at "
+                     f"B={b} Sq={sq} Skv={skv} D={d} {kw}")
+            worst[prec] = max(worst[prec], err)
+            del q, k, v, got, want
+    return worst
+
+
+def phase_lm_main(torch):
+    """The port's serve_lm entry point at full width, greedy then top-k,
+    with the flash launch counter set to 0 just before and read just
+    after; then the first tokens are checked against a fresh prefill and
+    decode of the same weights and prompt."""
+    from repro_torch import serve_lm
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # what earlier phases keep
+    flash_attention.launches = 0
+    runs = {}
+    for name, temp in (("greedy", 0.0), ("top-k", 0.8)):
+        runs[name] = serve_lm.main(**LM, temperature=temp, full=True,
+                                   device="cuda", verbose=False)
+        if name == "greedy":   # the top-k run draws the same weights
+            runs[name].pop("params")
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    res = runs["top-k"]
+    cfg, model, params = res["cfg"], res["model"], res["params"]
+    b, n = LM["batch"], LM["new_tokens"]
+    log(f"[lm] {cfg.name} full width: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.attn.n_heads} query / {cfg.attn.n_kv_heads} "
+        f"KV heads of {cfg.attn.head_dim}, window {cfg.attn.window}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+        f"{cfg.dtype}; random weights (seed 0); batch {b}, prompt "
+        f"{LM['prompt_len']}, {n} new tokens")
+    for name, r in runs.items():
+        log(f"[lm] {name:6s} prefill_s={r['prefill_s']:.4f} "
+            f"decode_s_per_token={r['decode_s_per_token']:.5f} "
+            f"tokens_per_s={r['tok_s']:.2f} total_s={r['seconds']:.4f} "
+            f"ids[0][:12]={r['tokens'][0, :12].tolist()}")
+    log(f"[lm] max_memory_allocated={peak} bytes, {peak - held} above "
+        f"the {held} that earlier phases hold; flash_attention "
+        f"launches={launches} ({launches / 2:g} per prefill)")
+    need(launches == 2 * LM_LAYERS,
+         f"flash_attention launched {launches} times in two prefills of "
+         f"{LM_LAYERS} layers")
+    for name, r in runs.items():
+        tok = r["tokens"]
+        need(tuple(tok.shape) == (b, n) and tok.dtype == torch.int32,
+             f"{name}: tokens of shape {tuple(tok.shape)}")
+        need(int(tok.min()) >= 0 and int(tok.max()) < cfg.padded_vocab,
+             f"{name}: a token outside the padded vocab")
+    # A fresh prefill and one decode step of the same weights and prompt:
+    # greedy's first two tokens are their argmax; top-k's first token
+    # lies within the 40 largest logits.
+    prompt = res["prompt"]
+    logits, cache = model.prefill(params, {"tokens": prompt})
+    need(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    need(tuple(logits.shape) == (b, cfg.padded_vocab), "prefill logits "
+         f"of shape {tuple(logits.shape)}")
+    g = runs["greedy"]["tokens"]
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
+    kth = torch.topk(logits.float(), 40, dim=-1).values[:, -1]
+    pick = logits.float().gather(1, res["tokens"][:, :1].long())[:, 0]
+    logits2, _ = model.decode_step(params, cache, g[:, :1],
+                                   cache["step_offset"])
+    second = torch.argmax(logits2, dim=-1).to(torch.int32)
+    log(f"[lm] check: greedy token 0 = prefill argmax: "
+        f"{bool(torch.equal(first, g[:, 0]))}, token 1 = decode argmax: "
+        f"{bool(torch.equal(second, g[:, 1]))}, top-k token 0 within the "
+        f"top 40: {bool((pick >= kth).all())}; logits rms "
+        f"{float(logits.float().pow(2).mean().sqrt()):.4f}")
+    need(torch.equal(first, g[:, 0]), "greedy token 0 is not the argmax")
+    need(torch.equal(second, g[:, 1]), "greedy token 1 is not the argmax")
+    need(bool((pick >= kth).all()), "top-k drew outside the top 40")
+    del logits, logits2, cache
+    return res, launches, peak
+
+
+def phase_lm_consistency(torch, model, params):
+    """At full width: prefill S − 1 tokens (ring caches), decode token
+    S − 1, against the last logits of prefilling all S, within
+    LM_CONSIST_TOL; argmax equal wherever the top-two margin exceeds it.
+    Two planted faults, each decoded from a copy of the same cache, must
+    land above LM_CONSIST_TOL."""
+    cfg = model.cfg
+    s = LM_CONSIST_S
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, s), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    want, _ = model.prefill(params, {"tokens": tok})
+    _, cache = model.prefill(params, {"tokens": tok[:, :-1]})
+    ring = cache["layers"][0].k.shape[1]
+
+    def decode(pos, zero=None):
+        c = {"layers": [type(lc)(*(t.clone() for t in lc))
+                        for lc in cache["layers"]]}
+        if zero is not None:
+            for lc in c["layers"]:
+                lc.k[:, zero[0]:zero[1]] = 0
+                lc.v[:, zero[0]:zero[1]] = 0
+        out, _ = model.decode_step(params, c, tok[:, -1:],
+                                   torch.full((2,), pos, dtype=torch.int32,
+                                              device="cuda"))
+        return out.float()
+
+    want = want.float()
+    faults = {"position S-2": decode(s - 2),
+              f"slots {LM_FAULT_SLOTS[0]}:{LM_FAULT_SLOTS[1]} zeroed":
+              decode(s - 1, LM_FAULT_SLOTS)}
+    faults = {k: float((f - want).abs().max()) for k, f in faults.items()}
+    got = decode(s - 1)
+    err = float((got - want).abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    same = torch.argmax(got, -1) == torch.argmax(want, -1)
+    log(f"[lm consistency] S={s}, cache slots {ring} (ring), batch 2: "
+        f"max|decode - prefill| = {err:.4e} (tolerance {LM_CONSIST_TOL}), "
+        f"logits max {float(want.abs().max()):.3f}; argmax equal "
+        f"{same.tolist()}, top-two margins {margin.tolist()}; planted "
+        f"faults: " + ", ".join(f"{k} {v:.4e}" for k, v in faults.items()))
+    need(ring < s - 1, "the consistency check did not reach a ring cache")
+    need(err <= LM_CONSIST_TOL, "decode disagrees with prefill")
+    need(min(faults.values()) > LM_CONSIST_TOL,
+         "the consistency gate does not see a planted fault")
+    need(bool((same | (margin <= LM_CONSIST_TOL)).all()),
+         "decode and prefill pick another token beyond a near-tie")
+
+
+def phase_lm_parity(torch):
+    """The reduced danube (f32) on the card against the CPU plain path, on
+    the same weights: identical greedy tokens, prefill and decode logits
+    within LM_PARITY_TOL.  Prompt 48 > window 32: ring caches."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.random import SeedKey
+    from repro_torch.lm_serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import params_to
+
+    cfg = get_reduced_config(LM["arch"])
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = {"cpu": model.init(gen)}
+    params["cuda"] = params_to(params["cpu"], "cuda")
+    tok = torch.randint(0, cfg.vocab_size, (2, 48), generator=gen,
+                        dtype=torch.int32)
+    out, logits = {}, {}
+    for dev in ("cpu", "cuda"):
+        p, t = params[dev], tok.to(dev)
+        out[dev] = [generate(model, p, {"tokens": t}, 24, SeedKey(0, True),
+                             temperature=temp, top_k=top_k,
+                             device=dev).cpu()
+                    for temp, top_k in ((0.0, 0), (0.8, 40))]
+        lg, cache = model.prefill(p, {"tokens": t})
+        lg2, _ = model.decode_step(p, cache, t[:, :1], cache["step_offset"])
+        logits[dev] = (lg.cpu(), lg2.cpu())
+    errs = [float((a - b).abs().max())
+            for a, b in zip(logits["cpu"], logits["cuda"])]
+    same = [bool(torch.equal(a, b)) for a, b in zip(out["cpu"], out["cuda"])]
+    log(f"[lm parity] reduced {cfg.name} f32 (d_model {cfg.d_model}, "
+        f"{cfg.n_layers} layers, window {cfg.attn.window}), prompt 48, 24 "
+        f"tokens: greedy identical={same[0]}, top-k (noise on the CPU) "
+        f"identical={same[1]}; max|logit diff| prefill {errs[0]:.3e}, "
+        f"decode {errs[1]:.3e} (tolerance {LM_PARITY_TOL})")
+    need(same[0], "greedy tokens differ between the card and the CPU")
+    need(max(errs) <= LM_PARITY_TOL, "logits differ between the card and "
+         "the CPU")
+
+
+def count_valid_pairs(sq, skv, causal, window, q_offset=0):
+    """Valid (q, k) pairs of one (b, h) under the masks."""
+    total = 0
+    for i in range(sq):
+        qp = i + q_offset
+        hi = min(skv - 1, qp) if causal else skv - 1
+        lo = max(0, qp - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def phase_lm_timing(torch, worst, launches):
+    """Kernel 8 at the lm-main prefill shape: CUDA-event ms, f32 and bf16,
+    beside its bound, its plain version (B 1: the (B, H, S, S) scores of
+    B 4 do not fit) and SDPA with the same mask as a yardstick."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_ref,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+
+    b, s = LM["batch"], LM["prompt_len"]
+    h, hkv, d, w = (LM_HEADS[x] for x in ("h", "hkv", "d", "window"))
+    kw = dict(causal=True, window=w, softcap=0.0)
+    pairs = count_valid_pairs(s, s, True, w)
+    flops = 4.0 * d * pairs * b * h
+    torch.cuda.empty_cache()
+    rows, out = [], {}
+    for prec, dt, peak in (("bf16", torch.bfloat16, BF16_TC_FLOPS),
+                           ("f32", torch.float32, F32_PEAK_FLOPS)):
+        q, k, v = flash_inputs(torch, b, s, s, h, hkv, d, dt, seed=3)
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bd, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+        t = time_ms(torch, lambda: flash_attention(q, k, v, **kw),
+                    iters=10 if prec == "bf16" else 3, warmup=1)
+        q1, k1, v1 = q[:1], k[:1], v[:1]
+        p = time_ms(torch, lambda: flash_attention_ref(q1, k1, v1, **kw),
+                    iters=2, warmup=1)
+        torch.cuda.empty_cache()
+        lib = None
+        if prec == "bf16":
+            # SDPA on (B, H, S, D) with the KV heads repeated and the same
+            # boolean mask: a yardstick only, never called by the port.
+            qt = q.transpose(1, 2)
+            kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+            vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+            mask = attention_mask(s, s, causal=True, window=w, q_offset=0,
+                                  device=q.device)
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+            diff = float((F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask).transpose(1, 2).float()
+                - flash_attention(q, k, v, **kw).float()).abs().max())
+            del qt, kt, vt, mask
+        out[prec] = dict(ms=t, plain_ms=p, bound_ms=bd, bound_by=by,
+                         library_ms=lib)
+        log(f"[timing] flash_attention {prec:4s} B={b} S={s} H={h} "
+            f"Hkv={hkv} D={d} window={w} causal: kernel_ms={t:.4f} "
+            f"plain_ms={p:.4f} (at B=1) bound_ms={bd:.4f} ({by}: "
+            f"{flops / 1e12:.3f} TFLOP at {peak / 1e12:g} TFLOP/s "
+            f"{t_ops:.4f} ms, {nbytes / 1e6:.1f} MB at 3.35 TB/s "
+            f"{t_bytes:.4f} ms) library_ms="
+            f"{'n/a' if lib is None else f'{lib:.4f} (SDPA, same mask)'} "
+            f"bound/kernel={bd / t:.3f} achieved "
+            f"{flops / t / 1e9:.1f} TFLOP/s"
+            + (f"; SDPA vs kernel max diff {diff:.3e}" if lib else ""))
+        del q, k, v, q1, k1, v1
+        torch.cuda.empty_cache()
+    log(f"[timing] flash_attention valid (q, k) pairs per (b, h): {pairs} "
+        f"of {s * s}; launches per lm main run {launches['flash_attention']}"
+        f" ({LM_LAYERS} per prefill)")
+    r = out["bf16"]
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"],
+        "launches": launches["flash_attention"],
+        "launches_per_call": LAUNCHES_PER_CALL["flash_attention"],
+        "max_abs_err": worst["bf16"], "max_abs_err_f32": worst["f32"],
+        "max_err_over_row_rms": worst["bf16_rel"],
+        "dtype": "bf16", "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "plain_shape": f"B=1 S={s} H={h} Hkv={hkv} D={d}",
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "ms_f32": out["f32"]["ms"],
+        "plain_ms_f32": out["f32"]["plain_ms"],
+        "bound_ms_f32": out["f32"]["bound_ms"],
+    })
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# 14. timing
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, iters=10, warmup=2):
@@ -968,7 +1453,7 @@ def phase_logistic_timing(torch, worst, launches):
 
 
 # ---------------------------------------------------------------------------
-# 11. where the time goes
+# 15. where the time goes
 # ---------------------------------------------------------------------------
 
 def _device_us(event):
@@ -1001,6 +1486,21 @@ def profile_runs(out, design, cls):
             n_samples=CLASS["n_samples"], n_guesses=CLASS["n_guesses"],
             device="cuda"),
     }
+
+
+def lm_profile_runs(torch, lm):
+    """One prefill of the lm main phase, and 4 greedy decode steps from
+    its cache (the cache is made before the profiled window)."""
+    model, params, prompt = lm["model"], lm["params"], lm["prompt"]
+    _, cache = model.prefill(params, {"tokens": prompt})
+    tok = lm["tokens"][:, :1].contiguous()
+
+    def decode4():
+        for i in range(4):
+            model.decode_step(params, cache, tok, cache["step_offset"] + i)
+
+    return {"lm prefill": lambda: model.prefill(params, {"tokens": prompt}),
+            "lm decode x4": decode4}
 
 
 def phase_profile(torch, runs):
@@ -1079,6 +1579,7 @@ def main() -> int:
         (600, 700, 5, 8, 4, 9, 3),                  # G*m = 40 > 16 warps
         (20000, 300, 1, 4, 5, 3, 3),                # slabs of 2 (4) columns
     ]))
+    lm_worst = phase_lm_kernels(torch, LM_FLASH_CASES)
     log(f"[kernels] done at {time.perf_counter() - t0:.1f} s")
     out, launches, _ = phase_main(torch)
     log(f"[main] done at {time.perf_counter() - t0:.1f} s")
@@ -1091,10 +1592,18 @@ def main() -> int:
     launches.update(class_launches)
     log(f"[class] done at {time.perf_counter() - t0:.1f} s")
     phase_class_parity(torch)
+    lm, launches["flash_attention"], _ = phase_lm_main(torch)
+    log(f"[lm] done at {time.perf_counter() - t0:.1f} s")
+    phase_lm_consistency(torch, lm["model"], lm["params"])
+    phase_lm_parity(torch)
+    log(f"[lm parity] done at {time.perf_counter() - t0:.1f} s")
     rows = phase_timing(torch, worst, launches)
     rows += phase_aopt_timing(torch, worst, launches)
     rows += phase_logistic_timing(torch, worst, launches)
-    phase_profile(torch, profile_runs(out, design, cls))
+    rows += phase_lm_timing(torch, lm_worst, launches)
+    runs = profile_runs(out, design, cls)
+    runs.update(lm_profile_runs(torch, lm))
+    phase_profile(torch, runs)
     log(f"[smoke] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -6,20 +6,28 @@ same numpy inputs.  Slice 1 carries the paper's main path, DASH feature
 selection for sparse regression on one device
 (``repro_torch.quickstart``); slice 2 Bayesian A-optimal experimental
 design (``repro_torch.experimental_design``); slice 3 feature selection
-for logistic classification (``repro_torch.classification``).
+for logistic classification (``repro_torch.classification``); slice 4
+LM serving, prefill and decode of the dense attention-only archs
+(``repro_torch.serve_lm``).
 
 Layers:
   repro_torch.kernels  — hand-written CUDA C++ kernels for sm_90a (the
                          regression, A-optimality and logistic
                          singleton-gain sweeps and sample-batched filter
-                         engines), their plain PyTorch versions and the
-                         nvcc/ctypes build
+                         engines; flash attention), their plain PyTorch
+                         versions and the nvcc/ctypes build
   repro_torch.core     — the regression, A-optimality and classification
                          objectives, estimators, the lane-batched DASH
                          selection loop, greedy, the §5 one-shot
                          baselines and the Cor. 9 γ/α bound
   repro_torch.data     — the paper's synthetic D1 regression, D1 design
                          and D3 classification data (numpy only)
+  repro_torch.configs  — the dense LM configs (copies of the JAX
+                         package's) and their registry
+  repro_torch.models   — the dense decoder LM: norms, RoPE, MLP,
+                         attention with KV and ring caches, prefill and
+                         decode
+  repro_torch.lm_serve — prefill/decode steps, sampling, ``generate``
   repro_torch.convert  — numpy state in, port state out (parity tests)
 
 Entry points run on the card (``device=None`` means ``"cuda"``) and raise

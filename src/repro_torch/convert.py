@@ -8,6 +8,11 @@ resid (G, d), sel_mask (G, n), value (G,); A-optimality: M, L (G, d, d),
 W (G, d, n), sel_mask (G, n), value (G,); classification: sel_idx,
 sel_k, w (G, kcap), eta (G, d), sel_mask (G, n), value (G,)) it becomes
 a G-lane state.
+
+``model_params_from_numpy`` carries an LM's parameters across: the
+reference's pytree (``embed``, ``lm_head``, ``final_norm``, and
+``blocks`` stacked over layers) as numpy arrays becomes the port's dict
+with one entry per layer in ``layers``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from repro_torch.core.objectives.regression import (
     RegressionState,
 )
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models.transformer import check_supported, dtype_of
 
 
 def objective_from_numpy(X, y, kmax: int, *, span_tol: float = 1e-6,
@@ -116,3 +122,26 @@ def classification_state_from_numpy(sel_idx, sel_k, w, eta, sel_mask, value,
         sel_mask=t(sel_mask, torch.bool, 1),
         value=t(value, torch.float32, 0),
     )
+
+
+def model_params_from_numpy(cfg, params_np, device=None) -> dict:
+    """The port's LM parameters from the reference's pytree of numpy
+    arrays: the stacked ``blocks`` (one pattern position, leaves with a
+    leading layer axis) are split into ``layers``, one dict per layer;
+    every leaf goes to ``device`` in ``cfg.param_dtype``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    pdt = dtype_of(cfg.param_dtype)
+
+    def tree(x, pick=None):
+        if isinstance(x, dict):
+            return {k: tree(v, pick) for k, v in x.items()}
+        a = np.asarray(x).astype(np.float32)
+        a = a[pick] if pick is not None else a
+        return torch.from_numpy(np.array(a, copy=True)).to(dtype=pdt,
+                                                            device=dev)
+
+    (blocks,) = params_np["blocks"]
+    out = {k: tree(v) for k, v in params_np.items() if k != "blocks"}
+    out["layers"] = [tree(blocks, i) for i in range(cfg.n_layers)]
+    return out

@@ -18,6 +18,9 @@ Kernels:
   filter_gains   — sample-batched filter engine with the regression, the
                    A-optimality (Woodbury) and the logistic (Newton
                    sweep) epilogues (DASH's inner-loop hot spot)
+  flash_attention — online-softmax attention with GQA, causal, window,
+                   softcap and q_offset masks (every LM prefill layer on
+                   the card; tensor cores for bf16, CUDA cores for f32)
 
 The CUDA sources live in ``csrc/``; ``common`` holds the precision policy
 and the device rule.

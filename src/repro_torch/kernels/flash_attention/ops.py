@@ -1,0 +1,102 @@
+"""Wrapper of the flash-attention kernel (kernel 8).
+
+On a CUDA tensor ``flash_attention`` launches the hand-written kernel of
+``csrc/flash_attention.cu`` (tensor cores for bf16, CUDA cores for f32);
+it raises on what the kernel cannot take — another dtype, mixed dtypes,
+a non-contiguous or unaligned tensor, H % Hkv ≠ 0, a head_dim outside
+``KERNEL_HEAD_DIMS`` — and on a failed launch.  On a CPU tensor it runs
+the plain version of ``ref.py``.  There is no size threshold and no
+fallback.  The kernel reads the model's (B, S, H, D) layout directly
+and masks ragged Sq and Skv itself, so nothing is padded or transposed.
+``flash_attention.launches`` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import use_kernel
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+KERNEL_HEAD_DIMS = (16, 32, 64, 80, 128)
+_DTYPES = (torch.float32, torch.bfloat16)
+_MAX_GRID_YZ = 65535   # gridDim.y (heads) and gridDim.z (batch)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+             _P]
+
+
+def _library():
+    fn = _build.load("flash_attention").flash_attention_launch
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return fn
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k, v must be (B, S, H, D)")
+    b, sq, h, d = q.shape
+    _, skv, hkv, _ = k.shape
+    if tuple(k.shape) != (b, skv, hkv, d) or v.shape != k.shape:
+        raise ValueError(
+            f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)} do not agree")
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"flash_attention: H={h} is not a multiple of "
+                         f"Hkv={hkv}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} not in "
+                         f"{KERNEL_HEAD_DIMS}")
+    if sq < 1 or skv < 1 or h > _MAX_GRID_YZ or b > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: unsupported shape B={b} "
+                         f"Sq={sq} Skv={skv} H={h}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in _DTYPES or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: {name} is {t.dtype}; q, k "
+                             f"and v must all be one of {_DTYPES}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on "
+                             f"{q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             "aligned")
+
+
+def _launch(q, k, v, causal, window, softcap, q_offset):
+    _check(q, k, v)
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    fn = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  int(q.dtype == torch.bfloat16), b, sq, skv, h, hkv, d,
+                  int(bool(causal)), int(window or 0), int(q_offset),
+                  1.0 / math.sqrt(d), float(softcap or 0.0), stream)
+    _build.check(code, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, q_offset: int = 0):
+    """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) → (B, Sq, H, D).
+
+    The CUDA kernel for a CUDA tensor, the plain version for a CPU one.
+    """
+    if window and window < 0:
+        raise ValueError(f"window={window}: expected ≥ 0")
+    if use_kernel(q):
+        return _launch(q, k, v, causal, window, softcap, q_offset)
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=softcap, q_offset=q_offset)
+
+
+flash_attention.launches = 0

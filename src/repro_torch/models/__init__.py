@@ -1,0 +1,5 @@
+"""The port's LM substrate: the dense decoder ``Model`` and its layers."""
+
+from repro_torch.models.registry import build_model
+
+__all__ = ["build_model"]

@@ -11,7 +11,11 @@ logistic kernels take genuine logits (refit states, ``expand_logits``)
 and are held to the plain version run in float64, within rtol 2e-4 and
 atol 2e-4 + ε_f32·√d·ℓ_abs(η): their gain ℓ_new − ℓ_old is the
 difference of two sums of order d·ln 2, and the f32 plain version itself
-strays from the float64 one by about that much.
+strays from the float64 one by about that much.  Flash attention
+(kernel 8) is held to its plain version on the same inputs within the
+JAX test's tolerance, rtol = atol = 2e-5 in f32 and 2e-2 in bf16 (the
+plain version rounds its scores to bf16 before the softmax, the kernel
+keeps them in f32).
 """
 
 import numpy as np
@@ -32,6 +36,10 @@ from repro_torch.kernels.filter_gains import (  # noqa: E402
     filter_gains_lattice_ref,
 )
 from repro_torch.kernels.filter_gains.ops import AOPT_MAX_B  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_ref,
+)
 from repro_torch.kernels.marginal_gains import (  # noqa: E402
     regression_gains,
     regression_gains_ref,
@@ -404,3 +412,75 @@ def test_classification_dash_on_card_matches_cpu(cuda):
     for g in range(dc.value.shape[0]):
         same = bool(torch.equal(dc.sel_mask[g], dg.sel_mask[g].cpu()))
         assert same or abs(float(dc.value[g]) - float(dg.value[g])) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# kernel 8: flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_SHAPES = [  # sq, skv, h, hkv, d: GQA 1, 2, 8, 4 and 3; every head_dim
+    (128, 128, 4, 4, 32), (130, 200, 4, 2, 32), (64, 256, 8, 1, 64),
+    (100, 157, 8, 2, 80), (257, 300, 6, 2, 128), (33, 33, 4, 1, 16),
+    (1000, 1537, 8, 2, 80),
+]
+FLASH_MASKS = [  # causal, window, softcap
+    (True, 0, 0.0), (True, 48, 0.0), (False, 0, 0.0), (True, 0, 30.0),
+    (False, 40, 0.0),
+]
+
+
+def _flash_inputs(dev, b, sq, skv, h, hkv, d, dtype, seed=0):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((b, sq, h, d), (b, skv, hkv, d),
+                               (b, skv, hkv, d)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,h,hkv,d", FLASH_SHAPES)
+@pytest.mark.parametrize("causal,window,cap", FLASH_MASKS)
+def test_flash_attention_kernel(cuda, dtype, sq, skv, h, hkv, d, causal,
+                                window, cap):
+    q, k, v = _flash_inputs(cuda, 2, sq, skv, h, hkv, d, dtype, seed=sq + d)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=cap)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,q_offset,window", [
+    (1, 100, 99, 0), (1, 100, 99, 16), (7, 64, 57, 0), (70, 4200, 4130, 64)])
+def test_flash_attention_q_offset(cuda, dtype, sq, skv, q_offset, window):
+    q, k, v = _flash_inputs(cuda, 3, sq, skv, 8, 2, 80, dtype)
+    got = flash_attention(q, k, v, causal=True, window=window,
+                          q_offset=q_offset)
+    want = flash_attention_ref(q, k, v, causal=True, window=window,
+                               q_offset=q_offset)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):
+    q, k, v = _flash_inputs(cuda, 1, 64, 64, 4, 2, 32, torch.float32)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="dtype|float16"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="float"):
+        flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    q3, k3, v3 = _flash_inputs(cuda, 1, 64, 64, 4, 3, 32, torch.float32)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q3, k3, v3)
+    q48, k48, v48 = _flash_inputs(cuda, 1, 64, 64, 4, 2, 48, torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q48, k48, v48)
+    assert flash_attention.launches == before
