@@ -156,7 +156,8 @@ FLASH_TOL = {"f32": 2e-5, "bf16": 2e-2}
 # version at most 0.0456, the weaker fault at least 0.253; the gate is
 # about their geometric mean, twice the plain version's worst.
 FLASH_BF16_REL = 0.1
-# The KV block a planted fault drops (the kernel's KV tile).
+# The keys a planted fault drops: 64, half of the bf16 kernel's 128-key
+# block at head_dim 80, so the fault is smaller than one block.
 FLASH_FAULT_BLOCK = 64
 # H100 SXM dense bf16 tensor-core peak.
 BF16_TC_FLOPS = 989e12
@@ -1127,40 +1128,91 @@ def count_valid_pairs(sq, skv, causal, window, q_offset=0):
     return total
 
 
+def flash_staging_bytes(info, b, s, h, hkv, d, causal, window):
+    """Bytes one self-attention call of the bf16 kernel stages from L2
+    into shared memory, reckoned from its tile sizes (``kernel_info``):
+    each CTA's query tile once and each K/V block of its band once.  A
+    grouped CTA's rows are (position, head) pairs of one GQA group, so
+    it spans rows / n_rep positions; otherwise one head's rows.  Returns
+    (total, K and V only)."""
+    rows, bk, n_rep = info["rows"], info["block_kv"], h // hkv
+    g = min(n_rep, rows) if info["grouped"] else 1
+    span = rows // g
+    tiles = blocks = 0
+    for q0 in range(0, s, span):
+        qhi = min(q0 + span, s) - 1
+        end = min(s, qhi + 1) if causal else s
+        begin = max(0, q0 - window + 1) if window else 0
+        kb0 = begin // bk
+        blocks += ((end + bk - 1) // bk if end > begin else kb0) - kb0
+        tiles += 1
+    ctas = b * hkv * -(-n_rep // g)        # per position tile
+    kv = ctas * blocks * 2 * bk * d * 2
+    return kv + ctas * tiles * rows * d * 2, kv
+
+
+def lm_flash_case(torch, dt, seed=3):
+    """Kernel 8's inputs at the lm-main prefill shape (B 4, S 8192, H 32,
+    Hkv 8, D 80, window 4096, causal) and its keyword arguments."""
+    b, s = LM["batch"], LM["prompt_len"]
+    h, hkv, d, w = (LM_HEADS[x] for x in ("h", "hkv", "d", "window"))
+    return (flash_inputs(torch, b, s, s, h, hkv, d, dt, seed=seed),
+            dict(causal=True, window=w, softcap=0.0))
+
+
+def time_flash(torch, q, k, v, kw, iters=10):
+    """CUDA-event ms per call of kernel 8: ``iters`` calls after one."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    return time_ms(torch, lambda: flash_attention(q, k, v, **kw),
+                   iters=iters, warmup=1)
+
+
 def phase_lm_timing(torch, worst, launches):
     """Kernel 8 at the lm-main prefill shape: CUDA-event ms, f32 and bf16,
     beside its bound, its plain version (B 1: the (B, H, S, S) scores of
-    B 4 do not fit) and SDPA with the same mask as a yardstick."""
+    B 4 do not fit) and SDPA with the same mask as a yardstick.  The bf16
+    bound is the largest of three: the tensor cores' flops, the SFUs' one
+    exp2 per valid pair, the bytes of Q, K, V and O once; beside it the
+    L2 → shared-memory bytes the kernel stages per call and its registers
+    and shared memory per CTA."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_ref,
+        kernel_info,
     )
     from repro_torch.kernels.flash_attention.ref import attention_mask
 
     b, s = LM["batch"], LM["prompt_len"]
     h, hkv, d, w = (LM_HEADS[x] for x in ("h", "hkv", "d", "window"))
-    kw = dict(causal=True, window=w, softcap=0.0)
     pairs = count_valid_pairs(s, s, True, w)
     flops = 4.0 * d * pairs * b * h
+    exps = float(pairs * b * h)
     torch.cuda.empty_cache()
     rows, out = [], {}
     for prec, dt, peak in (("bf16", torch.bfloat16, BF16_TC_FLOPS),
                            ("f32", torch.float32, F32_PEAK_FLOPS)):
-        q, k, v = flash_inputs(torch, b, s, s, h, hkv, d, dt, seed=3)
+        (q, k, v), kw = lm_flash_case(torch, dt)
         nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        bd, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-        t = time_ms(torch, lambda: flash_attention(q, k, v, **kw),
-                    iters=10 if prec == "bf16" else 3, warmup=1)
+        parts = {"operations": flops / peak * 1e3,
+                 "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+        if prec == "bf16":
+            parts["sfu"] = exps / SFU_OPS_PER_S * 1e3
+        by = max(parts, key=parts.get)
+        bd = parts[by]
+        by = "operations" if by == "sfu" else by   # the SFUs' exp2s
+        t = time_flash(torch, q, k, v, kw, iters=10 if prec == "bf16" else 3)
         q1, k1, v1 = q[:1], k[:1], v[:1]
         p = time_ms(torch, lambda: flash_attention_ref(q1, k1, v1, **kw),
                     iters=2, warmup=1)
         torch.cuda.empty_cache()
-        lib = None
+        lib = info = staged = staged_kv = None
         if prec == "bf16":
+            info = kernel_info(dt, d)
+            staged, staged_kv = flash_staging_bytes(info, b, s, h, hkv, d,
+                                                    True, w)
             # SDPA on (B, H, S, D) with the KV heads repeated and the same
             # boolean mask: a yardstick only, never called by the port.
             qt = q.transpose(1, 2)
@@ -1175,23 +1227,37 @@ def phase_lm_timing(torch, worst, launches):
                 - flash_attention(q, k, v, **kw).float()).abs().max())
             del qt, kt, vt, mask
         out[prec] = dict(ms=t, plain_ms=p, bound_ms=bd, bound_by=by,
-                         library_ms=lib)
+                         library_ms=lib, parts=parts, info=info,
+                         staged=staged, staged_kv=staged_kv)
+        sfu = (f", {exps:.4g} exp2 at {SFU_OPS_PER_S / 1e12:.3f} T/s "
+               f"{parts['sfu']:.4f} ms" if "sfu" in parts else "")
         log(f"[timing] flash_attention {prec:4s} B={b} S={s} H={h} "
             f"Hkv={hkv} D={d} window={w} causal: kernel_ms={t:.4f} "
-            f"plain_ms={p:.4f} (at B=1) bound_ms={bd:.4f} ({by}: "
+            f"plain_ms={p:.4f} (at B=1) bound_ms={bd:.4f} (largest of: "
             f"{flops / 1e12:.3f} TFLOP at {peak / 1e12:g} TFLOP/s "
-            f"{t_ops:.4f} ms, {nbytes / 1e6:.1f} MB at 3.35 TB/s "
-            f"{t_bytes:.4f} ms) library_ms="
+            f"{parts['operations']:.4f} ms{sfu}, {nbytes / 1e6:.1f} MB at "
+            f"3.35 TB/s {parts['bytes']:.4f} ms) library_ms="
             f"{'n/a' if lib is None else f'{lib:.4f} (SDPA, same mask)'} "
             f"bound/kernel={bd / t:.3f} achieved "
             f"{flops / t / 1e9:.1f} TFLOP/s"
             + (f"; SDPA vs kernel max diff {diff:.3e}" if lib else ""))
+        if info is not None:
+            kv_x = staged_kv / (2 * k.numel() * k.element_size())
+            log(f"[timing] flash_attention {prec:4s} kernel: "
+                f"{info['registers']} registers/thread, "
+                f"{info['spill_bytes']} spill bytes, {info['smem_bytes']} B "
+                f"shared/CTA, {info['threads']} threads/CTA, "
+                f"{info['ctas_per_sm']} CTAs/SM, {info['rows']} query rows "
+                f"x {info['block_kv']} keys per block, {info['stages']}-"
+                f"stage K/V, grouped={info['grouped']}; L2->shared staging "
+                f"{staged / 1e9:.3f} GB/call (K/V {staged_kv / 1e9:.3f} GB, "
+                f"{kv_x:.1f}x the K and V in device memory)")
         del q, k, v, q1, k1, v1
         torch.cuda.empty_cache()
     log(f"[timing] flash_attention valid (q, k) pairs per (b, h): {pairs} "
         f"of {s * s}; launches per lm main run {launches['flash_attention']}"
         f" ({LM_LAYERS} per prefill)")
-    r = out["bf16"]
+    r, info = out["bf16"], out["bf16"]["info"]
     rows.append({
         "name": "flash_attention", "route": "cuda",
         "source": SOURCES["flash_attention"],
@@ -1203,6 +1269,11 @@ def phase_lm_timing(torch, worst, launches):
         "dtype": "bf16", "ms": r["ms"], "plain_ms": r["plain_ms"],
         "plain_shape": f"B=1 S={s} H={h} Hkv={hkv} D={d}",
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "bound_parts_ms": {"tensor_cores": r["parts"]["operations"],
+                           "sfu_exp2": r["parts"]["sfu"],
+                           "bytes": r["parts"]["bytes"]},
+        "staging_bytes": r["staged"], "registers": info["registers"],
+        "smem_bytes_per_cta": info["smem_bytes"],
         "library_ms": r["library_ms"], "ms_f32": out["f32"]["ms"],
         "plain_ms_f32": out["f32"]["plain_ms"],
         "bound_ms_f32": out["f32"]["bound_ms"],

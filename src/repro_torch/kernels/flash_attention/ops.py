@@ -1,14 +1,17 @@
 """Wrapper of the flash-attention kernel (kernel 8).
 
 On a CUDA tensor ``flash_attention`` launches the hand-written kernel of
-``csrc/flash_attention.cu`` (tensor cores for bf16, CUDA cores for f32);
-it raises on what the kernel cannot take — another dtype, mixed dtypes,
+``csrc/flash_attention.cu``: for bf16 the tensor cores (wgmma over a K/V
+ring that each GQA group shares at head_dim 64, 80 and 128; mma.sync at
+16 and 32), for f32 the CUDA cores.  It raises on what the kernel cannot
+take — another dtype, mixed dtypes,
 a non-contiguous or unaligned tensor, H % Hkv ≠ 0, a head_dim outside
 ``KERNEL_HEAD_DIMS`` — and on a failed launch.  On a CPU tensor it runs
 the plain version of ``ref.py``.  There is no size threshold and no
 fallback.  The kernel reads the model's (B, S, H, D) layout directly
 and masks ragged Sq and Skv itself, so nothing is padded or transposed.
-``flash_attention.launches`` counts launches.
+``flash_attention.launches`` counts launches; ``kernel_info`` describes
+the kernel a dtype and head_dim get.
 """
 
 from __future__ import annotations
@@ -28,12 +31,29 @@ _MAX_GRID_YZ = 65535   # gridDim.y (heads) and gridDim.z (batch)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
              _P]
+# flash_attention_kernel_info's out[9], in order (csrc: describe).
+_INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "threads",
+              "ctas_per_sm", "rows", "block_kv", "stages", "grouped")
 
 
 def _library():
     fn = _build.load("flash_attention").flash_attention_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
+
+
+def kernel_info(dtype, d: int) -> dict:
+    """Registers, shared memory and tile geometry of the CUDA kernel that
+    ``flash_attention`` launches for ``dtype`` and head_dim ``d`` (needs
+    the card: it asks the CUDA runtime)."""
+    if d not in KERNEL_HEAD_DIMS or dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: no kernel for {dtype}, D={d}")
+    fn = _build.load("flash_attention").flash_attention_kernel_info
+    fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], ctypes.c_int
+    out = (_I * len(_INFO_KEYS))()
+    _build.check(fn(int(dtype == torch.bfloat16), d, out),
+                 "flash_attention_kernel_info")
+    return dict(zip(_INFO_KEYS, out))
 
 
 def _check(q, k, v):

@@ -468,6 +468,67 @@ def test_flash_attention_q_offset(cuda, dtype, sq, skv, q_offset, window):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# The bf16 kernel at head_dim 64, 80 and 128 stacks a GQA group's n_rep
+# query heads into the rows of a 192-row tile (192 / n_rep positions per
+# CTA: 192, 48, 64 and 38 for n_rep 1, 4, 3 and 5) and walks K/V in
+# blocks of 128 keys (64 at D 128): lengths one short of and one past a
+# tile, and one short of and one past two blocks.
+FLASH_EDGE_SHAPES = [  # sq, skv, h, hkv, d
+    (191, 257, 4, 4, 64), (193, 255, 4, 4, 64), (47, 257, 8, 2, 80),
+    (49, 255, 8, 2, 80), (63, 257, 6, 2, 64), (65, 255, 6, 2, 64),
+    (37, 129, 10, 2, 128), (39, 127, 10, 2, 128),
+]
+
+
+def _check_flash(q, k, v, **kw):
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, **kw)
+    tol = FLASH_TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("sq,skv,h,hkv,d", FLASH_EDGE_SHAPES)
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40),
+                                           (False, 0)])
+def test_flash_attention_tile_edges(cuda, sq, skv, h, hkv, d, causal,
+                                    window):
+    q, k, v = _flash_inputs(cuda, 2, sq, skv, h, hkv, d, torch.bfloat16,
+                            seed=sq + skv)
+    _check_flash(q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("window", [64, 65, 128, 129, 256, 257])
+def test_flash_attention_window_on_block_edges(cuda, window):
+    """A window that ends exactly on a block boundary (128 keys at D 80),
+    or one key past it, so a block is wholly inside the band or has one
+    masked pair; and at half a block."""
+    q, k, v = _flash_inputs(cuda, 2, 300, 300, 8, 2, 80, torch.bfloat16,
+                            seed=window)
+    _check_flash(q, k, v, causal=True, window=window)
+
+
+@pytest.mark.parametrize("h,hkv,d", [(9, 3, 64), (40, 8, 128)])
+@pytest.mark.parametrize("causal,window,cap", FLASH_MASKS)
+def test_flash_attention_gqa_groups(cuda, h, hkv, d, causal, window, cap):
+    """smollm's n_rep 3 at D 64 and qwen2.5-14b's n_rep 5 at D 128 (5
+    does not divide the 192-row tile)."""
+    q, k, v = _flash_inputs(cuda, 2, 150, 170, h, hkv, d, torch.bfloat16,
+                            seed=h + d)
+    _check_flash(q, k, v, causal=causal, window=window, softcap=cap)
+
+
+def test_flash_attention_danube_heads_past_the_window(cuda):
+    """danube's heads (H 32, Hkv 8, D 80) at S 4200 with window 4096:
+    interior blocks unmasked, the diagonal and the window edge masked."""
+    q, k, v = _flash_inputs(cuda, 1, 4200, 4200, 32, 8, 80, torch.bfloat16,
+                            seed=4200)
+    _check_flash(q, k, v, causal=True, window=4096)
+
+
 def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):
     q, k, v = _flash_inputs(cuda, 1, 64, 64, 4, 2, 32, torch.float32)
     before = flash_attention.launches

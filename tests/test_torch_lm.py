@@ -122,10 +122,17 @@ FLASH_MASKS = [  # causal, window, softcap — the JAX test's
 
 
 # f32 over every shape and mask; bf16 (interpret mode is slow) on the
-# ragged GQA shape and on head_dim 80.
+# ragged GQA shape and on head_dim 80; then the edges of the card
+# kernel's geometry (tests/test_torch_gpu.py holds it to this plain
+# version there): GQA groups of 3 and 5, a window that ends on a block
+# boundary, and ragged lengths past 128.
 FLASH_CASES = [("f32", s, m) for s in FLASH_SHAPES for m in FLASH_MASKS] + [
     ("bf16", s, m) for s in (FLASH_SHAPES[1], FLASH_SHAPES[3])
-    for m in FLASH_MASKS]
+    for m in FLASH_MASKS] + [
+    ("f32", (70, 90, 6, 2, 32), (True, 0, 0.0)),
+    ("f32", (70, 90, 10, 2, 32), (True, 48, 0.0)),
+    ("f32", (130, 130, 4, 2, 32), (True, 64, 0.0)),
+    ("f32", (129, 257, 4, 1, 32), (False, 0, 0.0))]
 
 
 @pytest.mark.parametrize("prec,shape,mask", FLASH_CASES)
