@@ -1132,11 +1132,10 @@ def flash_staging_bytes(info, b, s, h, hkv, d, causal, window):
     """Bytes one self-attention call of the bf16 kernel stages from L2
     into shared memory, reckoned from its tile sizes (``kernel_info``):
     each CTA's query tile once and each K/V block of its band once.  A
-    grouped CTA's rows are (position, head) pairs of one GQA group, so
-    it spans rows / n_rep positions; otherwise one head's rows.  Returns
-    (total, K and V only)."""
+    CTA's rows are (position, head) pairs of one GQA group, so it spans
+    rows / n_rep positions.  Returns (total, K and V only)."""
     rows, bk, n_rep = info["rows"], info["block_kv"], h // hkv
-    g = min(n_rep, rows) if info["grouped"] else 1
+    g = min(n_rep, rows)
     span = rows // g
     tiles = blocks = 0
     for q0 in range(0, s, span):
@@ -1227,8 +1226,7 @@ def phase_lm_timing(torch, worst, launches):
                 - flash_attention(q, k, v, **kw).float()).abs().max())
             del qt, kt, vt, mask
         out[prec] = dict(ms=t, plain_ms=p, bound_ms=bd, bound_by=by,
-                         library_ms=lib, parts=parts, info=info,
-                         staged=staged, staged_kv=staged_kv)
+                         library_ms=lib, info=info)
         sfu = (f", {exps:.4g} exp2 at {SFU_OPS_PER_S / 1e12:.3f} T/s "
                f"{parts['sfu']:.4f} ms" if "sfu" in parts else "")
         log(f"[timing] flash_attention {prec:4s} B={b} S={s} H={h} "
@@ -1247,10 +1245,10 @@ def phase_lm_timing(torch, worst, launches):
                 f"{info['registers']} registers/thread, "
                 f"{info['spill_bytes']} spill bytes, {info['smem_bytes']} B "
                 f"shared/CTA, {info['threads']} threads/CTA, "
-                f"{info['ctas_per_sm']} CTAs/SM, {info['rows']} query rows "
-                f"x {info['block_kv']} keys per block, {info['stages']}-"
-                f"stage K/V, grouped={info['grouped']}; L2->shared staging "
-                f"{staged / 1e9:.3f} GB/call (K/V {staged_kv / 1e9:.3f} GB, "
+                f"{info['ctas_per_sm']} CTAs/SM, {info['rows']} (position, "
+                f"head) rows x {info['block_kv']} keys per block; L2->shared "
+                f"staging {staged / 1e9:.3f} GB/call (reckoned; K/V "
+                f"{staged_kv / 1e9:.3f} GB, "
                 f"{kv_x:.1f}x the K and V in device memory)")
         del q, k, v, q1, k1, v1
         torch.cuda.empty_cache()
@@ -1269,10 +1267,7 @@ def phase_lm_timing(torch, worst, launches):
         "dtype": "bf16", "ms": r["ms"], "plain_ms": r["plain_ms"],
         "plain_shape": f"B=1 S={s} H={h} Hkv={hkv} D={d}",
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "bound_parts_ms": {"tensor_cores": r["parts"]["operations"],
-                           "sfu_exp2": r["parts"]["sfu"],
-                           "bytes": r["parts"]["bytes"]},
-        "staging_bytes": r["staged"], "registers": info["registers"],
+        "registers": info["registers"],
         "smem_bytes_per_cta": info["smem_bytes"],
         "library_ms": r["library_ms"], "ms_f32": out["f32"]["ms"],
         "plain_ms_f32": out["f32"]["plain_ms"],

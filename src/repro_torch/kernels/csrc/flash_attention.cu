@@ -348,51 +348,22 @@ flash_mma_kernel(Params p) {
 // bf16, D ∈ {64, 80, 128}: wgmma over an asynchronous K/V ring
 // ---------------------------------------------------------------------------
 
-// Measurement switches of the design ladder (scripts/flash_ladder.py
-// builds the source with each); the defaults are the kernel.
-// FLASH_GROUPED=0 gives every query head its own CTA; FLASH_STAGES sets
-// the ring's depth (1: synchronous loads); FLASH_MASK_ALL=1 tests every
-// pair of every block; FLASH_WS=0 drops the producer warpgroup (every
-// thread loads, a CTA barrier per block); FLASH_NWG sets the consumer
-// warpgroups, FLASH_BK the keys per block up to D 80.
-#ifndef FLASH_GROUPED
-#define FLASH_GROUPED 1
-#endif
-#ifndef FLASH_STAGES
-#define FLASH_STAGES 0  // 0: 3 up to D 80, 2 at D 128
-#endif
-#ifndef FLASH_MASK_ALL
-#define FLASH_MASK_ALL 0
-#endif
-#ifndef FLASH_WS
-#define FLASH_WS 1
-#endif
-#ifndef FLASH_NWG
-#define FLASH_NWG (FLASH_WS ? 3 : 4)
-#endif
-#ifndef FLASH_BK
-#define FLASH_BK 128
-#endif
+constexpr int NWG = 3;  // consumer warpgroups per CTA, 64 rows each
+// ... plus one producer warpgroup that only loads K and V.
+constexpr int WG_THREADS = 128 * (NWG + 1);
+constexpr int LOADERS = 128;  // the producer warpgroup's threads
+constexpr int BM = 64 * NWG;  // (position, head) rows per CTA
 // Registers per thread after setmaxnreg: the producer gives up its share
 // to the consumers (128·(PRODUCER_REGS + NWG·CONSUMER_REGS) ≤ 65536).
 // 40 rather than 56, which gives the consumers the same 152, measured
 // faster on the card.
 constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS =
-    (65536 / 128 - PRODUCER_REGS) / FLASH_NWG / 8 * 8;
-
-constexpr int NWG = FLASH_NWG;  // consumer warpgroups per CTA, 64 rows each
-// ... plus, when FLASH_WS, one producer warpgroup that only loads K and V.
-constexpr int WG_THREADS = 128 * (NWG + FLASH_WS);
-constexpr int LOADERS = FLASH_WS ? 128 : WG_THREADS;
-constexpr int BM = 64 * NWG;    // (position, head) rows per CTA
+constexpr int CONSUMER_REGS = (65536 / 128 - PRODUCER_REGS) / NWG / 8 * 8;
 
 template <int D>
 struct WgSmem {
-  static constexpr int BK = D <= 80 ? FLASH_BK : 64;  // keys per K/V block
-  static constexpr int STAGES =
-      FLASH_STAGES > 0 ? FLASH_STAGES : (D <= 80 ? 3 : 2);
-  static constexpr int AHEAD = STAGES - 1;  // blocks loaded ahead, no WS
+  static constexpr int BK = D <= 80 ? 128 : 64;   // keys per K/V block
+  static constexpr int STAGES = D <= 80 ? 3 : 2;  // K/V ring depth
   static constexpr int TILE = BK * D * 2;  // one K or V tile, bytes
   static constexpr int Q = BM * D * 2;
   static constexpr int BARS = 2 * STAGES * 8;  // full and empty mbarriers
@@ -776,8 +747,7 @@ __device__ __forceinline__ void pv(float (&acc)[D / 8][4],
 }
 
 template <int D>
-__global__ void __launch_bounds__(
-    WG_THREADS, !FLASH_WS && D <= 80 && NWG <= 2 ? 4 / NWG : 1)
+__global__ void __launch_bounds__(WG_THREADS, 1)
 flash_wgmma_kernel(Params p) {
   static_assert(D % 16 == 0 && D <= 128, "head_dim: a multiple of 16, ≤ 128");
   constexpr int WBK = WgSmem<D>::BK;  // keys per K/V block
@@ -785,7 +755,7 @@ flash_wgmma_kernel(Params p) {
   constexpr int NT = WBK / 8;   // n8 column tiles of the score tile
   constexpr int DT = D / 8;     // n8 column tiles of the output
   constexpr int PT = WBK / 16;  // k-steps of P·V
-  constexpr int STAGES = WgSmem<D>::STAGES, AHEAD = WgSmem<D>::AHEAD;
+  constexpr int STAGES = WgSmem<D>::STAGES;
   constexpr int TILE = WgSmem<D>::TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t sQ = smem_u32(smem_raw);
@@ -832,9 +802,9 @@ flash_wgmma_kernel(Params p) {
   const int qlo = q0 + p.q_offset, qhi = q1 - 1 + p.q_offset;
   int kb0, kb1;
   kv_band<WBK>(p, qlo, qhi, kb0, kb1);
-  // Block kb lives in stage (kb − kb0) % STAGES: K, then V.  With
-  // FLASH_WS the stage's full mbarrier sits at bars + 8·s, its empty one
-  // at bars + 8·(STAGES + s).
+  // Block kb lives in stage (kb − kb0) % STAGES: K, then V.  The stage's
+  // full mbarrier sits at bars + 8·s, its empty one at bars + 8·(STAGES +
+  // s).
   const uint32_t bars = sKV + STAGES * 2 * TILE;
   auto load_block = [&](const KvChunks<D>& kvc, int kb) {
     const long long k0 = (long long)kb * WBK;
@@ -843,44 +813,34 @@ flash_wgmma_kernel(Params p) {
     kvc.load(dst, kg + k0 * kv_pitch, nvalid);
     kvc.load(dst + TILE, vg + k0 * kv_pitch, nvalid);
   };
-  if constexpr (FLASH_WS) {
-    if (tid == 0) {
-      for (int s = 0; s < STAGES; ++s) {
-        mbar_init(bars + 8 * s, LOADERS);
-        mbar_init(bars + 8 * (STAGES + s), 128 * NWG);
-      }
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, LOADERS);
+      mbar_init(bars + 8 * (STAGES + s), 128 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();  // Q has landed, the mbarriers are set
+  if (wg == NWG) {
+    // The producer: refills stage s once the consumers have released it,
+    // its copies arriving on the stage's full mbarrier as they land.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        PRODUCER_REGS));
+    const KvChunks<D> kvc(kv_pitch, tid - 128 * NWG);
+    for (int kb = kb0; kb < kb1; ++kb) {
+      const int j = kb - kb0, s = j % STAGES;
+      if (j >= STAGES)
+        mbar_wait(bars + 8 * (STAGES + s), (j / STAGES - 1) & 1);
+      load_block(kvc, kb);
+      mbar_arrive_cp_async(bars + 8 * s);
     }
     cp_async_wait<0>();
-    fence_proxy_async();
-    __syncthreads();  // Q has landed, the mbarriers are set
-    if (wg == NWG) {
-      // The producer: refills stage s once the consumers have released
-      // it, its copies arriving on the stage's full mbarrier as they land.
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-          PRODUCER_REGS));
-      const KvChunks<D> kvc(kv_pitch, tid - 128 * NWG);
-      for (int kb = kb0; kb < kb1; ++kb) {
-        const int j = kb - kb0, s = j % STAGES;
-        if (j >= STAGES)
-          mbar_wait(bars + 8 * (STAGES + s), (j / STAGES - 1) & 1);
-        load_block(kvc, kb);
-        mbar_arrive_cp_async(bars + 8 * s);
-      }
-      cp_async_wait<0>();
-      return;
-    }
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-        CONSUMER_REGS));
+    return;
   }
-  const KvChunks<D> kv_chunks(kv_pitch, tid);
-  if constexpr (!FLASH_WS) {
-#pragma unroll
-    for (int j = 0; j < AHEAD; ++j) {
-      if (kb0 + j < kb1) load_block(kv_chunks, kb0 + j);
-      cp_async_commit();
-    }
-  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      CONSUMER_REGS));
 
   // This thread's two rows: r0 and r0 + 8 of its warpgroup's 64.
   const int r0 = wg * 64 + warp * 16 + g;
@@ -898,36 +858,16 @@ flash_wgmma_kernel(Params p) {
   const float c = (p.softcap > 0.f ? 1.f : p.scale) * LOG2E;
 
   // Block kb's K tile in shared memory, its V tile TILE bytes on, once it
-  // has landed.  Without FLASH_WS every thread loads: it waits for its
-  // own copies, then a barrier for everyone's, and keeps the ring AHEAD
-  // blocks ahead.
+  // has landed.
   auto next_block = [&](int kb) {
     const int j = kb - kb0, stage = j % STAGES;
-    if constexpr (FLASH_WS) {
-      mbar_wait(bars + 8 * stage, (j / STAGES) & 1);
-      fence_proxy_async();
-    } else {
-      if constexpr (AHEAD == 0) {
-        load_block(kv_chunks, kb);
-        cp_async_commit();
-        cp_async_wait<0>();
-      } else {
-        cp_async_wait<AHEAD - 1>();  // kb has landed (this thread's part)
-      }
-      fence_proxy_async();
-      __syncthreads();  // ... every thread's part; the stage reloaded next
-                        // is no longer read by any warpgroup
-      if constexpr (AHEAD > 0) {
-        if (kb + AHEAD < kb1) load_block(kv_chunks, kb + AHEAD);
-        cp_async_commit();  // one group per block, empty or not
-      }
-    }
+    mbar_wait(bars + 8 * stage, (j / STAGES) & 1);
+    fence_proxy_async();
     return sKV + stage * 2 * TILE;
   };
   // This warpgroup's products no longer read block kb's stage.
   auto release = [&](int kb) {
-    if constexpr (FLASH_WS)
-      mbar_arrive(bars + 8 * (STAGES + (kb - kb0) % STAGES));
+    mbar_arrive(bars + 8 * (STAGES + (kb - kb0) % STAGES));
   };
   // S = Q Kᵀ as one fenced stage, issued and committed: KT k-steps of 16
   // columns (256 bytes, 16 descriptor units).  K is the B operand K-major
@@ -945,7 +885,7 @@ flash_wgmma_kernel(Params p) {
   auto softmax = [&](int kb, float (&s)[NT][4], float (&corr)[2]) {
     const int k0 = kb * WBK;
     // Blocks wholly inside the band of rows [qlo, qhi] skip the masks.
-    bool inside = !FLASH_MASK_ALL && k0 + WBK <= p.Skv;
+    bool inside = k0 + WBK <= p.Skv;
     if (p.causal) inside = inside && k0 + WBK - 1 <= qlo;
     if (p.window > 0) inside = inside && qhi - k0 < p.window;
     float mx[2] = {NEG_INF, NEG_INF};
@@ -1008,10 +948,7 @@ flash_wgmma_kernel(Params p) {
     pin(acc);
     pin(pa);
     release(kb);
-    if constexpr (!FLASH_WS && AHEAD == 0)
-      __syncthreads();  // the stage is reloaded next
   }
-  cp_async_wait<0>();
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1196,7 +1133,7 @@ cudaError_t launch(K kernel, int bytes, int threads, dim3 grid,
 }
 
 // Query heads stacked into one wgmma CTA: the whole GQA group when it fits.
-int wgmma_group(int n_rep) { return FLASH_GROUPED ? min(n_rep, BM) : 1; }
+int wgmma_group(int n_rep) { return min(n_rep, BM); }
 
 template <int D>
 cudaError_t launch_d(int bf16, int B, Params p, cudaStream_t s) {
@@ -1219,13 +1156,13 @@ cudaError_t launch_d(int bf16, int B, Params p, cudaStream_t s) {
   }
 }
 
-// out[0..8]: registers per thread, local (spill) bytes per thread, dynamic
+// out[0..6]: registers per thread, local (spill) bytes per thread, dynamic
 // shared bytes per CTA, threads per CTA, resident CTAs per SM, query rows
-// per CTA, keys per KV block, K/V ring stages, and 1 if a CTA stacks the
-// query heads of a GQA group (rows are (position, head) pairs) else 0.
+// per CTA (the wgmma kernel's are (position, head) pairs of one GQA
+// group) and keys per KV block.
 template <typename K>
 cudaError_t describe(K kernel, int bytes, int threads, int rows, int bk,
-                     int stages, int grouped, int* out) {
+                     int* out) {
   cudaFuncAttributes a;
   int per_sm = 0;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1235,9 +1172,9 @@ cudaError_t describe(K kernel, int bytes, int threads, int rows, int bk,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         threads, bytes);
   if (err != cudaSuccess) return err;
-  const int vals[9] = {a.numRegs, static_cast<int>(a.localSizeBytes),
-                       bytes, threads, per_sm, rows, bk, stages, grouped};
-  for (int i = 0; i < 9; ++i) out[i] = vals[i];
+  const int vals[7] = {a.numRegs, static_cast<int>(a.localSizeBytes),
+                       bytes, threads, per_sm, rows, bk};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
   return cudaSuccess;
 }
 
@@ -1245,13 +1182,13 @@ template <int D>
 cudaError_t describe_d(int bf16, int* out) {
   if (!bf16)
     return describe(flash_simt_kernel<D>, SimtSmem<D>::BYTES, THREADS, BQ, BK,
-                    1, 0, out);
+                    out);
   if constexpr (D >= 64) {
     return describe(flash_wgmma_kernel<D>, WgSmem<D>::BYTES, WG_THREADS, BM,
-                    WgSmem<D>::BK, WgSmem<D>::STAGES, FLASH_GROUPED, out);
+                    WgSmem<D>::BK, out);
   } else {
-    return describe(flash_mma_kernel<D>, MmaSmem<D>::BYTES, THREADS, BQ, BK, 1,
-                    0, out);
+    return describe(flash_mma_kernel<D>, MmaSmem<D>::BYTES, THREADS, BQ, BK,
+                    out);
   }
 }
 
@@ -1284,7 +1221,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 }
 
 // The kernel that flash_attention_launch runs for (bf16, D), described
-// into out[9] (see describe); returns a cudaError_t.
+// into out[7] (see describe); returns a cudaError_t.
 extern "C" int flash_attention_kernel_info(int bf16, int D, int* out) {
   cudaError_t err;
   switch (D) {

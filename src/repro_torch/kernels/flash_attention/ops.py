@@ -31,9 +31,9 @@ _MAX_GRID_YZ = 65535   # gridDim.y (heads) and gridDim.z (batch)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
              _P]
-# flash_attention_kernel_info's out[9], in order (csrc: describe).
+# flash_attention_kernel_info's out[7], in order (csrc: describe).
 _INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "threads",
-              "ctas_per_sm", "rows", "block_kv", "stages", "grouped")
+              "ctas_per_sm", "rows", "block_kv")
 
 
 def _library():
