@@ -192,11 +192,13 @@ REPLACES = {
         "src/repro/kernels/filter_gains/kernel_logistic.py:55",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:88",
 }
-# Device kernels per counted wrapper call: the regression filter engine
-# is a base pass over the G guess bases plus a sample pass over the G*m
-# states; the A-optimality engine is one launch over the G*m states; the
-# logistic kernels make the per-row old log-likelihood terms, then sweep.
-LAUNCHES_PER_CALL = {"regression_gains": 1, "filter_gains": 2,
+# Device kernels per counted wrapper call: the regression singleton sweep
+# is a split-d partial pass plus its fixed-order epilogue; the regression
+# filter engine is a base pass over the G guess bases plus a sample pass
+# over the G*m states; the A-optimality engine is one launch over the G*m
+# states; the logistic kernels make the per-row old log-likelihood terms,
+# then sweep.
+LAUNCHES_PER_CALL = {"regression_gains": 2, "filter_gains": 2,
                      "aopt_gains": 1, "aopt_filter_gains": 1,
                      "logistic_gains": 2, "logistic_filter_gains": 2,
                      "flash_attention": 1}
@@ -309,6 +311,9 @@ def phase_kernels(torch, cases):
         regression_gains_ref,
     )
 
+    from repro_torch.kernels.marginal_gains.ops import split_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = {"regression_gains": 0.0, "filter_gains": 0.0}
     for (d, n, k, b, m, g) in cases:
         X, Q, D, R, csq = make_operands(torch, d, n, k, b, m, g, seed=d + n)
@@ -316,9 +321,21 @@ def phase_kernels(torch, cases):
         for prec in ("f32", "bf16"):
             tol = STREAM_PARITY_TOL[prec]["kernel_vs_ref"]
             Xq = quantize(X, prec)
+            gains = regression_gains(X, Q, r, csq, precision=prec)
+            # The split-d sum has a fixed order: a second call must give
+            # the same bits.
+            same = torch.equal(gains, regression_gains(X, Q, r, csq,
+                                                       precision=prec))
+            xb = 4 if prec == "f32" else 2
+            wide = (n * xb) % 16 == 0 and (k * 4) % 16 == 0
+            log(f"[kernels] regression_gains {prec:4s} d={d} n={n} k={k} "
+                f"G={g}: S={split_plan(g, d, n, k, sms)[0]} "
+                f"copies={'16-byte' if wide else 'element'} "
+                f"deterministic={'yes' if same else 'NO'}")
+            need(same, f"regression_gains {prec} differs between two calls "
+                       f"at d={d} n={n} k={k} G={g}")
             for name, got, want in (
-                ("regression_gains",
-                 regression_gains(X, Q, r, csq, precision=prec),
+                ("regression_gains", gains,
                  regression_gains_ref(Xq, Q, r, csq)),
                 ("filter_gains",
                  filter_gains(X, Q, D, R, csq, precision=prec),
@@ -1311,22 +1328,47 @@ def phase_timing(torch, worst, launches):
         regression_gains,
         regression_gains_ref,
     )
+    from repro_torch.kernels.marginal_gains.ops import (
+        kernel_info,
+        split_plan,
+        workspace_elems,
+    )
 
     d, n, k = MAIN["d"], MAIN["n"], MAIN["k"]
     G, m, b = MAIN["n_guesses"], MAIN["n_samples"], MAIN_BLOCK
     X, Q, D, R, csq = make_operands(torch, d, n, k, b, m, G, seed=7)
     q1, r1 = Q[:1].contiguous(), R[:1, 0].contiguous()
+    rG = R[:, 0].contiguous()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for prec in ("f32", "bf16"):
         xb = 4 if prec == "f32" else 2
         Xs = X.to(torch.float32 if prec == "f32" else torch.bfloat16)
         Xq = quantize(X, prec)
-        # regression_gains at greedy's shape (one lane, full kcap basis).
+        # regression_gains at greedy's shape (one lane, full kcap basis)
+        # and at DASH's current-state call (G lanes).
         b1, by1 = bound(2.0 * d * n * (k + 1),
                         xb * d * n + 4 * (d * k + d + 2 * n))
         t1 = time_ms(torch, lambda: regression_gains(Xs, q1, r1, csq,
                                                      precision=prec))
         p1 = time_ms(torch, lambda: regression_gains_ref(Xq, q1, r1, csq))
+        bG, _ = bound(2.0 * d * n * (k + 1) * G,
+                      xb * d * n + 4 * (G * d * k + G * d + n + G * n))
+        tG = time_ms(torch, lambda: regression_gains(Xs, Q, rG, csq,
+                                                     precision=prec))
+        info = kernel_info(Xs.dtype)
+        for lanes, t, bd in ((1, t1, b1), (G, tG, bG)):
+            s_, rps = split_plan(lanes, d, n, k, sms)
+            log(f"[timing] regression_gains {prec:4s} G={lanes}: "
+                f"kernel_ms={t:.4f} bound_ms={bd:.4f} bound/kernel="
+                f"{bd / t:.3f} achieved "
+                f"{2.0 * d * n * (k + 1) * lanes / t / 1e9:.1f} TFLOP/s; "
+                f"S={s_} ({rps} rows per slice), workspace "
+                f"{4 * workspace_elems(lanes, n, k, s_)} bytes; partial "
+                f"kernel {info['registers']} registers/thread, "
+                f"{info['spill_bytes']} spill bytes, {info['smem_bytes']} B "
+                f"shared/CTA, {info['threads']} threads/CTA, "
+                f"{info['ctas_per_sm']} CTAs/SM")
         # filter_gains at DASH's lattice shape.
         b2, by2 = bound(2.0 * d * n * (G * k + G * m * (b + 1)),
                         xb * d * n + 4 * (G * d * k + G * m * d * b
@@ -1620,6 +1662,8 @@ def main() -> int:
         (1000, 1537, 37, 1, 3, 2),      # ragged n, b = 1, G > 1, m > 1
         (257, 513, 0, 3, 4, 2),         # odd d, k = 0
         (513, 777, 130, 17, 2, 3),      # k, b above one basis tile
+        (1023, 777, 37, 3, 2, 2),       # S > 1, ragged slice; element copies
+        (24, 1000, 4, 1, 2, 1),         # d below one 32-row stage
     ])
     dd, dn, dk, dm = (DESIGN["d"], DESIGN["n"], DESIGN["k"],
                       DESIGN["n_samples"])

@@ -7,42 +7,301 @@
 //     c = x_aᵀ r_g,  s = ‖Q_gᵀ x_a‖²,  gain = c² / (‖x_a‖² − s)
 //
 // span-guarded (0 when ‖x_a‖² − s ≤ span_tol·max(‖x_a‖², 1)).  The lane
-// axis G carries the DASH guess lattice (one launch serves every guess's
+// axis G carries the DASH guess lattice (one call serves every guess's
 // current-state gain); greedy and top-k call it with G = 1.
 //
 // What bounds it on the H100: f32 arithmetic.  One call is 2·d·n·(k+1)
 // flops over d·n elements of X — at d = n = 8192, k = 128 about 17.3
 // GFLOP against 268 MB, i.e. ~0.26 ms at the 67 TFLOP/s non-tensor f32
-// peak versus ~0.08 ms for the bytes.  The design therefore keeps each X
-// element in a register against 8 basis vectors and each basis element
-// against 4 columns (a 4 × 8 FMA micro-tile per thread, operands staged
-// in shared memory; see proj_gain.cuh).  It reads X once when k < 128 and
-// once per 128 basis columns above that.  Tensor cores are not used: TF32
-// would break parity with the f32 reference; a faster design is later work.
-#include "proj_gain.cuh"
+// peak versus ~0.08 ms for the bytes.  Tensor cores are not used: TF32
+// breaks the 2e-4 parity with the f32 reference.
+//
+// Design, two kernels per call:
+//   1. gains_partial_kernel, grid (G · basis tiles, ⌈n / BN⌉, S).  Each
+//      CTA reduces one contiguous slice of d (rows_per_slice rows, a
+//      multiple of TR) for a BM-basis × BN-column tile, so one lane fills
+//      the card: the wrapper picks S (ops.py::split_plan) from G, d, n, k
+//      and the SM count.  256 threads each keep an 8 × 8 register tile of
+//      Q_gᵀX (64 FMAs per 4 shared-memory vector loads), and the c of
+//      their 8 columns over 2 of every TR rows.  The CTA writes its
+//      partial projections and c to a workspace (S, G, kp + 1, np).
+//   2. gains_epilogue_kernel sums the S partials of each (basis vector,
+//      column) in a fixed order, squares, sums over the basis and applies
+//      the gain and the span guard.  No atomics: two calls on the same
+//      inputs give bitwise-equal gains, so greedy's argmax cannot flip
+//      between runs on a near-tie.
+// Staging: TR rows of X (upcast on use) and of Q, with r, per step in
+// shared memory, by 16-byte loads where every row of X and Q is 16-byte
+// aligned ("wide", the wrapper's choice) and element by element
+// otherwise.  Ragged d, n and k are zero-filled; k = 0 still computes c.
+#include <cstddef>
+#include <cstdint>
+
+#include "stream.cuh"
 
 using namespace repro_torch;
 
-constexpr int MG_BN = 64;
-constexpr int MG_KT = 128;
+namespace {
+
+constexpr int BM = 128;       // basis vectors per CTA tile
+constexpr int BN = 128;       // columns per CTA tile
+constexpr int TR = 32;        // rows of d per stage
+constexpr int THREADS = 256;  // 16 × 16 threads, an 8 × 8 tile each
+constexpr int EPI_COLS = 32;  // epilogue CTA: 32 columns × 8 basis strides
+constexpr int EPI_SPLIT = 8;
+
+template <typename T>
+struct Stage {
+  T x[TR][BN];
+  float q[TR][BM];
+  float r[TR];
+};
+
+// The 8 values a thread uses from one staged row: elements 4t..4t+3 and
+// 64+4t..64+4t+3 (two conflict-free vector loads per warp).
+__device__ __forceinline__ void load8(const float* row, int t, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(row + 4 * t);
+  const float4 b = *reinterpret_cast<const float4*>(row + 64 + 4 * t);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* row, int t,
+                                      float (&v)[8]) {
+  const uint2 a = *reinterpret_cast<const uint2*>(row + 4 * t);
+  const uint2 b = *reinterpret_cast<const uint2*>(row + 64 + 4 * t);
+  const uint32_t w[4] = {a.x, a.y, b.x, b.y};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // bf16 → f32 is exact: the high half
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// rows × cols tile of src (row stride ld) from (r0, c0) into dst, zero
+// outside rows < r1 and columns < c1.  WIDE: 16-byte chunks, which needs
+// every source row 16-byte aligned; a chunk is then wholly in or out.
+template <bool WIDE, int COLS, typename T>
+__device__ __forceinline__ void stage_tile(T (*dst)[COLS], const T* src,
+                                           long long ld, int r0, int r1,
+                                           int c0, int c1, int tid) {
+  if constexpr (WIDE) {
+    constexpr int CH = 16 / sizeof(T);
+    constexpr int CPR = COLS / CH;
+#pragma unroll
+    for (int e = tid; e < TR * CPR; e += THREADS) {
+      const int row = e / CPR, cc = (e % CPR) * CH;
+      const int gr = r0 + row, gc = c0 + cc;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (gr < r1 && gc < c1)
+        v = __ldg(reinterpret_cast<const uint4*>(src + gr * ld + gc));
+      *reinterpret_cast<uint4*>(&dst[row][cc]) = v;
+    }
+  } else {
+#pragma unroll 4
+    for (int e = tid; e < TR * COLS; e += THREADS) {
+      const int row = e / COLS, cc = e % COLS;
+      const int gr = r0 + row, gc = c0 + cc;
+      dst[row][cc] = (gr < r1 && gc < c1) ? src[gr * ld + gc] : stream_zero<T>();
+    }
+  }
+}
+
+template <typename T, bool WIDE>
+__global__ void __launch_bounds__(THREADS, 2)
+gains_partial_kernel(const T* __restrict__ X, int d, int n, int G,
+                     const float* __restrict__ Q, int k,
+                     const float* __restrict__ R, int rows_per_slice,
+                     float* __restrict__ ws, int kp, int np) {
+  __shared__ __align__(16) Stage<T> st;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int g = blockIdx.x % G, k0 = (blockIdx.x / G) * BM;
+  const int col0 = blockIdx.y * BN;
+  const int r0 = blockIdx.z * rows_per_slice;
+  const int r1 = min(r0 + rows_per_slice, d);
+  const bool do_c = k0 == 0;
+  const float* Qg = Q + (long long)g * d * k;
+  const float* Rg = R + (long long)g * d;
+
+  float acc[8][8];
+  float c[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    c[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int s0 = r0; s0 < r1; s0 += TR) {
+    stage_tile<WIDE, BN>(st.x, X, n, s0, r1, col0, n, tid);
+    stage_tile<WIDE, BM>(st.q, Qg, k, s0, r1, k0, k, tid);
+    if (tid < TR) st.r[tid] = s0 + tid < r1 ? Rg[s0 + tid] : 0.f;
+    __syncthreads();
+#pragma unroll 8
+    for (int r = 0; r < TR; ++r) {
+      float x[8], b[8];
+      load8(st.x[r], tx, x);
+      load8(st.q[r], ty, b);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x[i], b[j], acc[i][j]);
+    }
+    if (do_c) {
+#pragma unroll
+      for (int h = 0; h < TR / 16; ++h) {
+        float x[8];
+        load8(st.x[ty + 16 * h], tx, x);
+        const float rv = st.r[ty + 16 * h];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) c[i] = fmaf(x[i], rv, c[i]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // Partial projections: row k0 + j of this (slice, lane) block, for the
+  // basis vectors below k; the workspace rows are np ≥ n wide, so the
+  // 16-byte stores need no column mask.
+  float* wsg = ws + ((long long)blockIdx.z * G + g) * (long long)(kp + 1) * np;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int gj = k0 + (j < 4 ? 4 * ty + j : 64 + 4 * ty + j - 4);
+    if (gj >= k) continue;
+    float* row = wsg + (long long)gj * np + col0;
+    *reinterpret_cast<float4*>(row + 4 * tx) =
+        make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+    *reinterpret_cast<float4*>(row + 64 + 4 * tx) =
+        make_float4(acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
+  }
+  if (!do_c) return;
+  // c over the 16 row classes, summed in a fixed order into row kp.
+  float(*red)[BN] = reinterpret_cast<float(*)[BN]>(&st.q[0][0]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    red[ty][4 * tx + i] = c[i];
+    red[ty][64 + 4 * tx + i] = c[4 + i];
+  }
+  __syncthreads();
+  if (tid < BN) {
+    float s = 0.f;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) s += red[t][tid];
+    wsg[(long long)kp * np + col0 + tid] = s;
+  }
+}
+
+__global__ void __launch_bounds__(EPI_COLS * EPI_SPLIT)
+gains_epilogue_kernel(const float* __restrict__ ws, int S, int G, int n,
+                      int k, int kp, int np, const float* __restrict__ col_sq,
+                      float* __restrict__ out, float span_tol) {
+  __shared__ float red[EPI_SPLIT][EPI_COLS];
+  const int cx = threadIdx.x, jy = threadIdx.y;
+  const int col = blockIdx.x * EPI_COLS + cx;
+  const int g = blockIdx.y;
+  const long long slice = (long long)G * (kp + 1) * np;
+  const float* base = ws + (long long)g * (kp + 1) * np + col;
+  float ss = 0.f;
+  if (col < n) {
+    for (int j = jy; j < k; j += EPI_SPLIT) {
+      const float* p = base + (long long)j * np;
+      float b = 0.f;
+#pragma unroll 4
+      for (int s = 0; s < S; ++s) b += p[s * slice];
+      ss = fmaf(b, b, ss);
+    }
+  }
+  red[jy][cx] = ss;
+  __syncthreads();
+  if (jy != 0 || col >= n) return;
+  float s = 0.f;
+#pragma unroll
+  for (int t = 0; t < EPI_SPLIT; ++t) s += red[t][cx];
+  float cv = 0.f;
+  const float* pc = base + (long long)kp * np;
+  for (int t = 0; t < S; ++t) cv += pc[t * slice];
+  const float csq = col_sq[col];
+  const float denom = csq - s;
+  const float floor_ = span_tol * fmaxf(csq, 1.f);
+  const float gain = (cv * cv) / fmaxf(denom, 1e-30f);
+  out[(long long)g * n + col] = denom > floor_ ? gain : 0.f;
+}
+
+template <typename T, bool WIDE>
+cudaError_t launch(const void* X, int d, int n, int G, const void* Q, int k,
+                   const void* R, int S, int rows_per_slice, float* ws,
+                   int kp, int np, cudaStream_t stream) {
+  const dim3 grid(G * (kp / BM), np / BN, S);
+  gains_partial_kernel<T, WIDE><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(X), d, n, G, static_cast<const float*>(Q), k,
+      static_cast<const float*>(R), rows_per_slice, ws, kp, np);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t describe(int* out) {
+  cudaFuncAttributes a;
+  int per_sm = 0;
+  cudaError_t err = cudaFuncGetAttributes(&a, gains_partial_kernel<T, true>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gains_partial_kernel<T, true>, THREADS, 0);
+  if (err != cudaSuccess) return err;
+  const int smem = static_cast<int>(a.sharedSizeBytes);
+  const int vals[5] = {a.numRegs, static_cast<int>(a.localSizeBytes), smem,
+                       THREADS, per_sm};
+  for (int i = 0; i < 5; ++i) out[i] = vals[i];
+  return cudaSuccess;
+}
+
+}  // namespace
 
 // X: (d, n) f32 or bf16 (x_bf16 != 0); Q: (G, d, k) f32; R: (G, d) f32;
-// col_sq: (n,) f32; out: (G, n) f32.  All contiguous, on the card.
-extern "C" int regression_gains_launch(const void* X, int x_bf16, int d,
-                                       int n, int G, const void* Q, int k,
-                                       const void* R, const void* col_sq,
-                                       void* out, float span_tol,
-                                       void* stream) {
+// col_sq: (n,) f32; out: (G, n) f32; ws: ws_elems f32 of scratch, at least
+// S · G · (kp + 1) · np with kp = 128·max(1, ⌈k/128⌉), np = 128·⌈n/128⌉.
+// wide != 0 promises 16-byte-aligned rows of X and Q.  Slice z of the S
+// covers rows [z·rows_per_slice, min((z+1)·rows_per_slice, d)), none empty.
+extern "C" int regression_gains_launch(const void* X, int x_bf16, int wide,
+                                       int d, int n, int G, const void* Q,
+                                       int k, const void* R,
+                                       const void* col_sq, void* out,
+                                       float span_tol, int S,
+                                       int rows_per_slice, void* ws,
+                                       long long ws_elems, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long q_stride = (long long)d * k;
+  const int kp = BM * (k > 0 ? (k + BM - 1) / BM : 1);
+  const int np = BN * ((n + BN - 1) / BN);
+  if (G < 1 || n < 1 || S < 1 || rows_per_slice < TR ||
+      rows_per_slice % TR != 0 || (long long)S * rows_per_slice < d ||
+      (d > 0 && (long long)(S - 1) * rows_per_slice >= d) ||
+      ws_elems < (long long)S * G * (kp + 1) * np)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* w = static_cast<float*>(ws);
+  cudaError_t err;
   if (x_bf16) {
-    launch_proj_gain<__nv_bfloat16, MG_BN, MG_KT, true, true>(
-        X, d, n, G, Q, k, q_stride, R, d, col_sq, nullptr, 1, out, span_tol,
-        s);
+    err = wide ? launch<__nv_bfloat16, true>(X, d, n, G, Q, k, R, S,
+                                             rows_per_slice, w, kp, np, s)
+               : launch<__nv_bfloat16, false>(X, d, n, G, Q, k, R, S,
+                                              rows_per_slice, w, kp, np, s);
   } else {
-    launch_proj_gain<float, MG_BN, MG_KT, true, true>(
-        X, d, n, G, Q, k, q_stride, R, d, col_sq, nullptr, 1, out, span_tol,
-        s);
+    err = wide ? launch<float, true>(X, d, n, G, Q, k, R, S, rows_per_slice,
+                                     w, kp, np, s)
+               : launch<float, false>(X, d, n, G, Q, k, R, S, rows_per_slice,
+                                      w, kp, np, s);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 egrid((n + EPI_COLS - 1) / EPI_COLS, G);
+  gains_epilogue_kernel<<<egrid, dim3(EPI_COLS, EPI_SPLIT), 0, s>>>(
+      w, S, G, n, k, kp, np, static_cast<const float*>(col_sq),
+      static_cast<float*>(out), span_tol);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The partial kernel (wide staging) for X in bf16 (bf16 != 0) or f32,
+// described into out[5]: registers per thread, spill (local) bytes,
+// shared-memory bytes per CTA, threads per CTA, CTAs per SM.
+extern "C" int regression_gains_kernel_info(int bf16, int* out) {
+  return static_cast<int>(bf16 ? describe<__nv_bfloat16>(out)
+                               : describe<float>(out));
 }

@@ -1,14 +1,18 @@
 """Wrapper of the regression singleton-gain kernel.
 
-On a CUDA tensor ``regression_gains`` launches the hand-written kernel of
-``csrc/marginal_gains.cu`` (it raises on what the kernel cannot take and
-on a failed launch); on a CPU tensor it runs the plain version of
-``ref.py``.  ``regression_gains.launches`` counts kernel launches.
+On a CUDA tensor ``regression_gains`` launches the hand-written kernels of
+``csrc/marginal_gains.cu`` (it raises on what they cannot take and on a
+failed launch); on a CPU tensor it runs the plain version of ``ref.py``.
+``regression_gains.launches`` counts wrapper calls that launch (each is
+two device kernels: the split-d partial sweep and its epilogue).
+``split_plan`` is the split of d that a launch uses; ``kernel_info``
+describes the partial kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,16 +26,76 @@ from repro_torch.kernels.common import (
 )
 from repro_torch.kernels.marginal_gains.ref import SPAN_TOL, regression_gains_ref
 
+# The kernel's tile (csrc/marginal_gains.cu: BN, BM, TR) and the CTAs an
+# SM holds at once (registers: 256 threads at up to 128 each).
+BLOCK_COLS = 128
+BASIS_TILE = 128
+STAGE_ROWS = 32
+CTAS_PER_SM = 2
+_MAX_COL_BLOCKS = 65535  # gridDim.y: 128-column panels; also the lanes G
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, ctypes.c_float, _P]
-_MAX_COL_BLOCKS = 65535  # gridDim.y of the launch; 64 columns per block
+_ARGTYPES = [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, ctypes.c_float,
+             _I, _I, _P, ctypes.c_longlong, _P]
+# regression_gains_kernel_info's out[5], in order (csrc: describe).
+_INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "threads",
+              "ctas_per_sm")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(g: int, d: int, n: int, k: int, sms: int) -> tuple[int, int]:
+    """(S, rows_per_slice): how many contiguous slices of d the partial
+    kernel's grid (G · basis tiles, ⌈n/128⌉, S) reduces, and the rows of
+    each (a multiple of STAGE_ROWS; the last slice is ragged, none empty).
+
+    As many slices as keep the grid within one wave of the SMs' CTA
+    slots, so S = 1 once the other grid axes fill them: more slices would
+    add a wave and workspace traffic, not parallelism."""
+    ctas = g * max(1, _cdiv(k, BASIS_TILE)) * _cdiv(n, BLOCK_COLS)
+    stages = max(1, _cdiv(d, STAGE_ROWS))
+    s = max(1, min(stages, CTAS_PER_SM * sms // ctas))
+    rows = _cdiv(stages, s) * STAGE_ROWS
+    return max(1, _cdiv(d, rows)), rows
+
+
+def workspace_elems(g: int, n: int, k: int, s: int) -> int:
+    """f32 elements of the (S, G, kp + 1, np) partial workspace."""
+    kp = BASIS_TILE * max(1, _cdiv(k, BASIS_TILE))
+    return s * g * (kp + 1) * BLOCK_COLS * _cdiv(n, BLOCK_COLS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _library():
-    lib = _build.load("marginal_gains")
-    fn = lib.regression_gains_launch
+    fn = _build.load("marginal_gains").regression_gains_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
+
+
+def kernel_info(dtype) -> dict:
+    """Registers, spill bytes, shared memory, threads and CTAs per SM of
+    the partial kernel that ``regression_gains`` launches for X in
+    ``dtype`` (needs the card: it asks the CUDA runtime)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"regression_gains: no kernel for {dtype}")
+    fn = _build.load("marginal_gains").regression_gains_kernel_info
+    fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], ctypes.c_int
+    out = (_I * len(_INFO_KEYS))()
+    _build.check(fn(int(dtype == torch.bfloat16), out),
+                 "regression_gains_kernel_info")
+    return dict(zip(_INFO_KEYS, out))
+
+
+def _aligned(t: torch.Tensor, row: int) -> bool:
+    """Every row of ``row`` elements of ``t`` starts on 16 bytes."""
+    return t.data_ptr() % 16 == 0 and (row * t.element_size()) % 16 == 0
 
 
 def _launch(X, Q, resid, col_sq, span_tol):
@@ -42,15 +106,21 @@ def _launch(X, Q, resid, col_sq, span_tol):
     check_tensor("Q", Q, (g, d, k), (torch.float32,), dev)
     check_tensor("resid", resid, (g, d), (torch.float32,), dev)
     check_tensor("col_sq", col_sq, (n,), (torch.float32,), dev)
-    if g < 1 or n < 1 or -(-n // 64) > _MAX_COL_BLOCKS:
+    if (g < 1 or n < 1 or _cdiv(n, BLOCK_COLS) > _MAX_COL_BLOCKS
+            or g > _MAX_COL_BLOCKS):
         raise ValueError(f"regression_gains: unsupported shape G={g}, n={n}")
+    s, rows = split_plan(g, d, n, k, _sm_count(dev.index or 0))
+    elems = workspace_elems(g, n, k, s)
+    ws = torch.empty(elems, dtype=torch.float32, device=dev)
     out = torch.empty((g, n), dtype=torch.float32, device=dev)
+    wide = _aligned(X, n) and _aligned(Q, k)
     fn = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(X.data_ptr(), int(X.dtype == torch.bfloat16), d, n, g,
-                  Q.data_ptr(), k, resid.data_ptr(), col_sq.data_ptr(),
-                  out.data_ptr(), float(span_tol), stream)
+        code = fn(X.data_ptr(), int(X.dtype == torch.bfloat16), int(wide), d,
+                  n, g, Q.data_ptr(), k, resid.data_ptr(), col_sq.data_ptr(),
+                  out.data_ptr(), float(span_tol), s, rows, ws.data_ptr(),
+                  elems, stream)
     _build.check(code, "regression_gains")
     regression_gains.launches += 1
     return out
@@ -58,7 +128,7 @@ def _launch(X, Q, resid, col_sq, span_tol):
 
 def regression_gains(X, Q, resid, col_sq, *, precision: str | None = None,
                      span_tol: float = SPAN_TOL):
-    """Batched regression gains: the CUDA kernel on the card, the plain
+    """Batched regression gains: the CUDA kernels on the card, the plain
     version on the CPU.
 
     X: (d, n) in f32 or already in the stream dtype; Q: (d, k) or, with a

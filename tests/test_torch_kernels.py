@@ -47,6 +47,11 @@ from repro_torch.kernels.marginal_gains import (  # noqa: E402
     regression_gains,
     regression_gains_ref,
 )
+from repro_torch.kernels.marginal_gains.ops import (  # noqa: E402
+    CTAS_PER_SM,
+    STAGE_ROWS,
+    split_plan,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = STREAM_PARITY_TOL["f32"]["kernel_vs_ref"]
@@ -169,6 +174,33 @@ def test_quantize_bitwise_equals_jax():
         assert got.dtype == np.float32
         np.testing.assert_array_equal(got.view(np.uint32),
                                       want.view(np.uint32))
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("g", [1, 2, 6])
+def test_regression_split_plan_covers_d_once(g, sms):
+    """The split of d that the card's regression_gains uses: every slice
+    non-empty, the slices cover d exactly once, and S = 1 whenever the
+    lanes, basis tiles and column panels already fill the CTA slots."""
+    for d in (1, 5, 31, 32, 33, 1000, 1023, 8192):
+        for n in (1, 129, 777, 4099, 8192):
+            for k in (0, 37, 128, 130):
+                s, rows = split_plan(g, d, n, k, sms)
+                assert s >= 1 and rows > 0 and rows % STAGE_ROWS == 0
+                cover = np.zeros(d, np.int64)
+                for z in range(s):
+                    lo, hi = z * rows, min((z + 1) * rows, d)
+                    assert lo < hi, (g, d, n, k, sms, s, rows)
+                    cover[lo:hi] += 1
+                assert (cover == 1).all(), (g, d, n, k, sms, s, rows)
+                ctas = g * max(1, -(-k // 128)) * -(-n // 128)
+                if ctas >= CTAS_PER_SM * sms:
+                    assert s == 1, (g, d, n, k, sms, s)
+    # greedy's call on the H100: one lane, 64 panels, d split into one
+    # wave of 2 CTAs per SM.
+    if (g, sms) == (1, 132):
+        s, rows = split_plan(1, 8192, 8192, 128, 132)
+        assert s > 1 and 64 * s <= CTAS_PER_SM * 132 and s * rows >= 8192
 
 
 def test_cpu_wrappers_count_no_launches():
