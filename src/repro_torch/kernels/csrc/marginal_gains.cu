@@ -30,10 +30,14 @@
 //      the gain and the span guard.  No atomics: two calls on the same
 //      inputs give bitwise-equal gains, so greedy's argmax cannot flip
 //      between runs on a near-tie.
-// Staging: TR rows of X (upcast on use) and of Q, with r, per step in
-// shared memory, by 16-byte loads where every row of X and Q is 16-byte
-// aligned ("wide", the wrapper's choice) and element by element
-// otherwise.  Ragged d, n and k are zero-filled; k = 0 still computes c.
+// Staging: a 3-stage cp.async ring of TR-row stages of X (upcast on use),
+// Q and r in shared memory, one barrier per stage: the copies of stage
+// t + 2 are in flight while stage t is multiplied.  The copies are 16
+// bytes where every row of X and Q is 16-byte aligned ("wide", the
+// wrapper's choice from n, k and the pointers) and one element each
+// otherwise (4-byte cp.async; plain loads for bf16, which cp.async cannot
+// copy alone).  Ragged d, n and k are zero-filled, no row is read past its
+// end, and k = 0 still computes c.
 #include <cstddef>
 #include <cstdint>
 
@@ -46,6 +50,7 @@ namespace {
 constexpr int BM = 128;       // basis vectors per CTA tile
 constexpr int BN = 128;       // columns per CTA tile
 constexpr int TR = 32;        // rows of d per stage
+constexpr int STAGES = 3;     // depth of the cp.async ring
 constexpr int THREADS = 256;  // 16 × 16 threads, an 8 × 8 tile each
 constexpr int EPI_COLS = 32;  // epilogue CTA: 32 columns × 8 basis strides
 constexpr int EPI_SPLIT = 8;
@@ -78,32 +83,61 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* row, int t,
   }
 }
 
-// rows × cols tile of src (row stride ld) from (r0, c0) into dst, zero
-// outside rows < r1 and columns < c1.  WIDE: 16-byte chunks, which needs
-// every source row 16-byte aligned; a chunk is then wholly in or out.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// BYTES from global src to shared dst without passing through registers;
+// dst is zero-filled and src not read when !ok.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool ok) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// TR × COLS tile of src (row stride ld) from (r0, c0) into dst, zero
+// outside rows < r1 and columns < c1.  WIDE: 16-byte copies, which needs
+// every source row 16-byte aligned; a copy is then wholly in or out.  A
+// thread's copies share one column and step RSTEP rows apart, so each
+// costs a pointer increment and one row test.
 template <bool WIDE, int COLS, typename T>
 __device__ __forceinline__ void stage_tile(T (*dst)[COLS], const T* src,
                                            long long ld, int r0, int r1,
                                            int c0, int c1, int tid) {
-  if constexpr (WIDE) {
-    constexpr int CH = 16 / sizeof(T);
-    constexpr int CPR = COLS / CH;
+  constexpr int CH = WIDE ? 16 / sizeof(T) : 1;  // elements per copy
+  constexpr int CPR = COLS / CH;                 // copies per row
+  constexpr int RSTEP = THREADS / CPR;
+  const int row = tid / CPR, cc = (tid % CPR) * CH;
+  const bool col_ok = c0 + cc < c1;
+  const T* p = src + (long long)(r0 + row) * ld + c0 + cc;
 #pragma unroll
-    for (int e = tid; e < TR * CPR; e += THREADS) {
-      const int row = e / CPR, cc = (e % CPR) * CH;
-      const int gr = r0 + row, gc = c0 + cc;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < r1 && gc < c1)
-        v = __ldg(reinterpret_cast<const uint4*>(src + gr * ld + gc));
-      *reinterpret_cast<uint4*>(&dst[row][cc]) = v;
-    }
-  } else {
-#pragma unroll 4
-    for (int e = tid; e < TR * COLS; e += THREADS) {
-      const int row = e / COLS, cc = e % COLS;
-      const int gr = r0 + row, gc = c0 + cc;
-      dst[row][cc] = (gr < r1 && gc < c1) ? src[gr * ld + gc] : stream_zero<T>();
-    }
+  for (int i = 0; i < TR / RSTEP; ++i, p += RSTEP * ld) {
+    const bool ok = col_ok && r0 + row + i * RSTEP < r1;
+    T* d = &dst[row + i * RSTEP][cc];
+    if constexpr (WIDE)
+      cp_async<16>(d, ok ? p : src, ok);
+    else if constexpr (sizeof(T) == 4)
+      cp_async<4>(d, ok ? p : src, ok);
+    else
+      *d = ok ? *p : stream_zero<T>();
   }
 }
 
@@ -113,16 +147,38 @@ gains_partial_kernel(const T* __restrict__ X, int d, int n, int G,
                      const float* __restrict__ Q, int k,
                      const float* __restrict__ R, int rows_per_slice,
                      float* __restrict__ ws, int kp, int np) {
-  __shared__ __align__(16) Stage<T> st;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Stage<T>* ring = reinterpret_cast<Stage<T>*>(smem);
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  // A warp covers 8 column groups × 4 basis groups, so each of its
+  // vector loads of a staged row reads 128 or 64 distinct bytes.
+  const int lane = tid & 31, warp = tid >> 5;
+  const int tx = (warp & 1) * 8 + (lane & 7);
+  const int ty = (warp >> 1) * 4 + (lane >> 3);
   const int g = blockIdx.x % G, k0 = (blockIdx.x / G) * BM;
   const int col0 = blockIdx.y * BN;
   const int r0 = blockIdx.z * rows_per_slice;
   const int r1 = min(r0 + rows_per_slice, d);
+  const int steps = (r1 - r0 + TR - 1) / TR;
   const bool do_c = k0 == 0;
   const float* Qg = Q + (long long)g * d * k;
   const float* Rg = R + (long long)g * d;
+
+  // Stage t of this slice into ring slot t % STAGES; one commit group per
+  // call, empty past the last stage, so wait_group counts stay uniform.
+  auto issue = [&](int t) {
+    if (t < steps) {
+      Stage<T>& st = ring[t % STAGES];
+      const int s0 = r0 + t * TR;
+      stage_tile<WIDE, BN>(st.x, X, n, s0, r1, col0, n, tid);
+      stage_tile<WIDE, BM>(st.q, Qg, k, s0, r1, k0, k, tid);
+      if (tid < TR) {
+        const bool ok = s0 + tid < r1;
+        cp_async<4>(&st.r[tid], ok ? Rg + s0 + tid : Rg, ok);
+      }
+    }
+    cp_async_commit();
+  };
 
   float acc[8][8];
   float c[8];
@@ -133,11 +189,13 @@ gains_partial_kernel(const T* __restrict__ X, int d, int n, int G,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   }
 
-  for (int s0 = r0; s0 < r1; s0 += TR) {
-    stage_tile<WIDE, BN>(st.x, X, n, s0, r1, col0, n, tid);
-    stage_tile<WIDE, BM>(st.q, Qg, k, s0, r1, k0, k, tid);
-    if (tid < TR) st.r[tid] = s0 + tid < r1 ? Rg[s0 + tid] : 0.f;
-    __syncthreads();
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) issue(t);
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of stage t landed
+    __syncthreads();              // everyone's did; slot (t-1) % 3 is free
+    issue(t + STAGES - 1);
+    const Stage<T>& st = ring[t % STAGES];
 #pragma unroll 8
     for (int r = 0; r < TR; ++r) {
       float x[8], b[8];
@@ -158,8 +216,9 @@ gains_partial_kernel(const T* __restrict__ X, int d, int n, int G,
         for (int i = 0; i < 8; ++i) c[i] = fmaf(x[i], rv, c[i]);
       }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+  __syncthreads();
 
   // Partial projections: row k0 + j of this (slice, lane) block, for the
   // basis vectors below k; the workspace rows are np ≥ n wide, so the
@@ -177,7 +236,7 @@ gains_partial_kernel(const T* __restrict__ X, int d, int n, int G,
   }
   if (!do_c) return;
   // c over the 16 row classes, summed in a fixed order into row kp.
-  float(*red)[BN] = reinterpret_cast<float(*)[BN]>(&st.q[0][0]);
+  float(*red)[BN] = reinterpret_cast<float(*)[BN]>(smem);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     red[ty][4 * tx + i] = c[i];
@@ -228,12 +287,34 @@ gains_epilogue_kernel(const float* __restrict__ ws, int S, int G, int n,
   out[(long long)g * n + col] = denom > floor_ ? gain : 0.f;
 }
 
+template <typename T>
+constexpr int RING_BYTES = STAGES * sizeof(Stage<T>);
+
+// Lets the kernel take its ring (over the 48 KB default) and two CTAs'
+// rings per SM; once per kernel.
+template <typename T, bool WIDE>
+cudaError_t prepare() {
+  static const cudaError_t err = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        gains_partial_kernel<T, WIDE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, RING_BYTES<T>);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(gains_partial_kernel<T, WIDE>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
+  return err;
+}
+
 template <typename T, bool WIDE>
 cudaError_t launch(const void* X, int d, int n, int G, const void* Q, int k,
                    const void* R, int S, int rows_per_slice, float* ws,
                    int kp, int np, cudaStream_t stream) {
+  const cudaError_t err = prepare<T, WIDE>();
+  if (err != cudaSuccess) return err;
   const dim3 grid(G * (kp / BM), np / BN, S);
-  gains_partial_kernel<T, WIDE><<<grid, THREADS, 0, stream>>>(
+  gains_partial_kernel<T, WIDE><<<grid, THREADS, RING_BYTES<T>, stream>>>(
       static_cast<const T*>(X), d, n, G, static_cast<const float*>(Q), k,
       static_cast<const float*>(R), rows_per_slice, ws, kp, np);
   return cudaGetLastError();
@@ -243,12 +324,14 @@ template <typename T>
 cudaError_t describe(int* out) {
   cudaFuncAttributes a;
   int per_sm = 0;
-  cudaError_t err = cudaFuncGetAttributes(&a, gains_partial_kernel<T, true>);
+  cudaError_t err = prepare<T, true>();
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&a, gains_partial_kernel<T, true>);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, gains_partial_kernel<T, true>, THREADS, 0);
+        &per_sm, gains_partial_kernel<T, true>, THREADS, RING_BYTES<T>);
   if (err != cudaSuccess) return err;
-  const int smem = static_cast<int>(a.sharedSizeBytes);
+  const int smem = static_cast<int>(a.sharedSizeBytes) + RING_BYTES<T>;
   const int vals[5] = {a.numRegs, static_cast<int>(a.localSizeBytes), smem,
                        THREADS, per_sm};
   for (int i = 0; i < 5; ++i) out[i] = vals[i];

@@ -28,6 +28,7 @@ from repro_torch.kernels.common import (  # noqa: E402
     STREAM_PARITY_TOL,
     quantize,
     set_full_f32_matmul,
+    stream_dtype,
 )
 from repro_torch.kernels.filter_gains import (  # noqa: E402
     aopt_filter_gains,
@@ -43,6 +44,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.marginal_gains import (  # noqa: E402
     regression_gains,
     regression_gains_ref,
+)
+from repro_torch.kernels.marginal_gains.ops import (  # noqa: E402
+    _aligned,
+    split_plan,
 )
 
 pytestmark = pytest.mark.gpu
@@ -106,6 +111,49 @@ def test_filter_gains_kernel(cuda, d, n, k, b, m, g, precision):
     assert filter_gains.launches == before + 1
     want = filter_gains_lattice_ref(quantize(X, precision), Q, D, R, csq)
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+# regression_gains' split-d kernel: (d, n, k, G, S > 1 expected, 16-byte
+# copies expected in f32).  S comes from split_plan with the card's SMs.
+REGRESSION_SPLIT_SHAPES = [
+    (1000, 300, 7, 1, True, False),      # 32 one-stage slices, last of 8 rows
+    (1023, 4099, 37, 1, True, False),    # slices of 128 rows, last of 127
+    (1000, 1024, 128, 2, True, True),    # full basis tile, ragged last slice
+    (5, 300, 2, 1, False, False),        # d below one 32-row stage
+    (257, 1024, 0, 2, True, True),       # k = 0: c alone
+    (513, 1024, 130, 1, True, False),    # k above one basis tile
+    (1000, 777, 37, 2, True, False),     # unaligned n and k: element copies
+    (1000, 4099, 16, 6, False, False),   # DASH's G = 6: the lanes fill the card
+]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,k,g,split,wide", REGRESSION_SPLIT_SHAPES)
+def test_regression_gains_split_d(cuda, d, n, k, g, split, wide, precision):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (split_plan(g, d, n, k, sms)[0] > 1) == split
+    X, Q, _, R, csq = _problem(cuda, d, n, k, 1, 1, g)
+    Xs = X.to(stream_dtype(precision))
+    assert (_aligned(Xs, n) and _aligned(Q, k)) == (wide and (
+        precision == "f32" or n % 8 == 0))
+    got = regression_gains(Xs, Q, R[:, 0].contiguous(), csq,
+                           precision=precision)
+    torch.cuda.synchronize()
+    want = regression_gains_ref(quantize(X, precision), Q, R[:, 0], csq)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,k,g", [(1023, 4099, 37, 1),
+                                     (1000, 1024, 128, 2)])
+def test_regression_gains_is_deterministic(cuda, d, n, k, g, precision):
+    """The S partial sums are added in a fixed order: two calls on the same
+    inputs give the same bits."""
+    X, Q, _, R, csq = _problem(cuda, d, n, k, 1, 1, g)
+    r = R[:, 0].contiguous()
+    a = regression_gains(X, Q, r, csq, precision=precision)
+    b = regression_gains(X, Q, r, csq, precision=precision)
+    assert torch.equal(a, b)
 
 
 def test_wrappers_reject_what_the_kernel_cannot_take(cuda):
