@@ -301,7 +301,11 @@ def _errs(got, want):
 
 
 def phase_kernels(torch, cases):
-    from repro_torch.kernels.common import STREAM_PARITY_TOL, quantize
+    from repro_torch.kernels.common import (
+        STREAM_PARITY_TOL,
+        quantize,
+        stream_dtype,
+    )
     from repro_torch.kernels.filter_gains import (
         filter_gains,
         filter_gains_lattice_ref,
@@ -311,7 +315,7 @@ def phase_kernels(torch, cases):
         regression_gains_ref,
     )
 
-    from repro_torch.kernels.marginal_gains.ops import split_plan
+    from repro_torch.kernels.marginal_gains.ops import split_plan, wide_copies
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = {"regression_gains": 0.0, "filter_gains": 0.0}
@@ -326,8 +330,7 @@ def phase_kernels(torch, cases):
             # the same bits.
             same = torch.equal(gains, regression_gains(X, Q, r, csq,
                                                        precision=prec))
-            xb = 4 if prec == "f32" else 2
-            wide = (n * xb) % 16 == 0 and (k * 4) % 16 == 0
+            wide = wide_copies(X.to(stream_dtype(prec)), Q)
             log(f"[kernels] regression_gains {prec:4s} d={d} n={n} k={k} "
                 f"G={g}: S={split_plan(g, d, n, k, sms)[0]} "
                 f"copies={'16-byte' if wide else 'element'} "

@@ -38,7 +38,6 @@
 // otherwise (4-byte cp.async; plain loads for bf16, which cp.async cannot
 // copy alone).  Ragged d, n and k are zero-filled, no row is read past its
 // end, and k = 0 still computes c.
-#include <cstddef>
 #include <cstdint>
 
 #include "stream.cuh"

@@ -5,8 +5,8 @@ On a CUDA tensor ``regression_gains`` launches the hand-written kernels of
 failed launch); on a CPU tensor it runs the plain version of ``ref.py``.
 ``regression_gains.launches`` counts wrapper calls that launch (each is
 two device kernels: the split-d partial sweep and its epilogue).
-``split_plan`` is the split of d that a launch uses; ``kernel_info``
-describes the partial kernel.
+``split_plan`` is the split of d that a launch uses, ``wide_copies`` its
+choice of copy width, and ``kernel_info`` describes the partial kernel.
 """
 
 from __future__ import annotations
@@ -74,7 +74,8 @@ def _sm_count(index: int) -> int:
 
 
 def _library():
-    fn = _build.load("marginal_gains").regression_gains_launch
+    lib = _build.load("marginal_gains")
+    fn = lib.regression_gains_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
 
@@ -93,9 +94,12 @@ def kernel_info(dtype) -> dict:
     return dict(zip(_INFO_KEYS, out))
 
 
-def _aligned(t: torch.Tensor, row: int) -> bool:
-    """Every row of ``row`` elements of ``t`` starts on 16 bytes."""
-    return t.data_ptr() % 16 == 0 and (row * t.element_size()) % 16 == 0
+def wide_copies(X: torch.Tensor, Q: torch.Tensor) -> bool:
+    """Whether the kernel stages X (d, n) and Q (G, d, k) by 16-byte copies:
+    every row of both starts on 16 bytes.  Otherwise it copies one element
+    at a time."""
+    return all(t.data_ptr() % 16 == 0
+               and (t.shape[-1] * t.element_size()) % 16 == 0 for t in (X, Q))
 
 
 def _launch(X, Q, resid, col_sq, span_tol):
@@ -113,7 +117,7 @@ def _launch(X, Q, resid, col_sq, span_tol):
     elems = workspace_elems(g, n, k, s)
     ws = torch.empty(elems, dtype=torch.float32, device=dev)
     out = torch.empty((g, n), dtype=torch.float32, device=dev)
-    wide = _aligned(X, n) and _aligned(Q, k)
+    wide = wide_copies(X, Q)
     fn = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

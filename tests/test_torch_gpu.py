@@ -46,8 +46,8 @@ from repro_torch.kernels.marginal_gains import (  # noqa: E402
     regression_gains_ref,
 )
 from repro_torch.kernels.marginal_gains.ops import (  # noqa: E402
-    _aligned,
     split_plan,
+    wide_copies,
 )
 
 pytestmark = pytest.mark.gpu
@@ -134,8 +134,8 @@ def test_regression_gains_split_d(cuda, d, n, k, g, split, wide, precision):
     assert (split_plan(g, d, n, k, sms)[0] > 1) == split
     X, Q, _, R, csq = _problem(cuda, d, n, k, 1, 1, g)
     Xs = X.to(stream_dtype(precision))
-    assert (_aligned(Xs, n) and _aligned(Q, k)) == (wide and (
-        precision == "f32" or n % 8 == 0))
+    assert wide_copies(Xs, Q) == (wide and (precision == "f32"
+                                            or n % 8 == 0))
     got = regression_gains(Xs, Q, R[:, 0].contiguous(), csq,
                            precision=precision)
     torch.cuda.synchronize()
