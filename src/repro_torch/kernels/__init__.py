@@ -12,9 +12,9 @@ Kernels:
                    (greedy's oracle, DASH's current-state fallback)
   aopt_gains     — the A-optimality Sherman–Morrison singleton sweep
                    against the cached shared solve W = M⁻¹X
-  logistic_gains — the 1-D-Newton logistic singleton sweep (per-row
-                   old log-likelihood terms, then steps Newton
-                   iterations per column)
+  logistic_gains — the 1-D-Newton logistic singleton sweep: steps
+                   Newton iterations per column, X held on chip across
+                   a cluster of CTAs, one device kernel per call
   filter_gains   — sample-batched filter engine with the regression, the
                    A-optimality (Woodbury) and the logistic (Newton
                    sweep) epilogues (DASH's inner-loop hot spot)

@@ -1,5 +1,7 @@
 // The per-column scalar-Newton recurrence of the logistic kernels
-// (logistic_gains.cu, logistic_filter_gains.cu): the role the shared
+// (logistic_filter_gains.cu; logistic_gains.cu takes row_loglik and
+// softplus_f32 from here and keeps its own form of the Newton steps, with
+// the labels staged and an approximate exponential): the role the shared
 // newton_gain_sweep of src/repro/kernels/logistic_gains/kernel.py plays
 // for the TPU kernels.
 //

@@ -5,13 +5,17 @@ On a CUDA tensor ``logistic_gains`` launches the hand-written kernel of
 on a failed launch); on a CPU tensor it runs the plain version of
 ``ref.py``.  There is no size threshold above which the plain version
 takes over.  ``logistic_gains.launches`` counts wrapper calls that
-launch: two device kernels per call (the per-row old log-likelihood
-terms, then the sweep).
+launch: one device kernel per call.  ``cluster_plan`` is the geometry a
+launch uses (clusters of CTAs over d, panel width, slab rows, tail),
+``wide_copies`` its choice of copy width, and ``kernel_info`` describes
+the kernel at a plan.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -25,9 +29,106 @@ from repro_torch.kernels.common import (
 )
 from repro_torch.kernels.logistic_gains.ref import logistic_gains_ref
 
+# The kernel's geometry (csrc/logistic_gains.cu): 256 threads, each owning
+# 4 adjacent columns of a panel of BN columns; clusters of at most 8 CTAs
+# (the portable size) split the panel's rows.
+THREADS = 256
+WIDTHS = (32, 16, 8, 4)          # panel widths BN, widest first
+MAX_CLUSTER = 8
+RECORD_BYTES = 16                # per slab row: η, a, s, ℓ_i(η) in f32
+FIXED_SMEM = 4 * 64 * 11         # reduction scratch: 11 × 64 f32
+# Dynamic shared memory a CTA may take when k CTAs share an SM's 233,472
+# bytes, less 1 KB reserved for each (one CTA may opt in to 227 KB).
+SMEM_PER_CTA = {2: 233_472 // 2 - 1024, 1: 232_448}
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P]
-_MAX_COL_BLOCKS = 65535  # gridDim.y of the launch; 32 columns per block
+_ARGTYPES = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+# logistic_gains_kernel_info's out[5], in order (csrc: describe).
+_INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "threads",
+              "active_clusters")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class ClusterPlan(NamedTuple):
+    """A launch's geometry: clusters of ``cluster`` CTAs over each panel
+    of ``bn`` columns; CTA c holds rows [c·rows, (c+1)·rows) of the panel
+    in shared memory (its slab) and reads tail rows [cluster·rows +
+    c·tail_per_cta, … + tail_per_cta) from global memory in every pass."""
+
+    cluster: int
+    rows: int
+    bn: int
+    smem_bytes: int     # dynamic shared memory per CTA
+    ctas: int           # the grid: ⌈n / bn⌉ · cluster
+    ctas_per_sm: int    # 2 or 1, as the shared memory allows
+    tail_rows: int      # rows of d not held on chip
+    tail_per_cta: int
+
+
+def smem_bytes(rows: int, bn: int, elem: int) -> int:
+    """A CTA's dynamic shared memory: the slab (16-byte aligned), one
+    record per slab row, the reduction scratch (csrc: smem_bytes)."""
+    return (_cdiv(rows * bn * elem, 16) * 16 + RECORD_BYTES * rows
+            + FIXED_SMEM)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(g: int, d: int, n: int, dtype: torch.dtype,
+                 sms: int) -> ClusterPlan:
+    """The cluster geometry for X (d, n) in ``dtype`` on a card of ``sms``
+    SMs.  Every CTA loops over the G lanes with its slab, so G does not
+    change the geometry.
+
+    The widest panel whose slab holds all d rows in the smallest cluster
+    that can (1, 2, 4 or 8 CTAs) at two CTAs per SM, else at one: a
+    wider panel shares each barrier and row record among more columns,
+    and a second CTA per SM works while the first waits.  The
+    cluster is then widened (up to 8) while the grid stays within one
+    wave of CTA slots and every CTA keeps a row, so a short panel count
+    still spreads over the card.  Past the largest capacity (BN = 4, 8 CTAs, one per SM, as
+    many rows as fit) the rest of d is the tail, split over the cluster."""
+    if g < 1 or d < 1 or n < 1:
+        raise ValueError(f"cluster_plan: G={g}, d={d}, n={n}")
+    elem = torch.empty((), dtype=dtype).element_size()
+    for per_sm, budget in SMEM_PER_CTA.items():
+        for bn in WIDTHS:
+            for c in (1, 2, 4, 8):
+                if smem_bytes(_cdiv(d, c), bn, elem) > budget:
+                    continue
+                panels = _cdiv(n, bn)
+                while (c < MAX_CLUSTER and panels * 2 * c <= per_sm * sms
+                       and _cdiv(d, 2 * c) * (2 * c - 1) < d):
+                    c *= 2
+                rows = _cdiv(d, c)
+                return ClusterPlan(c, rows, bn, smem_bytes(rows, bn, elem),
+                                   panels * c, per_sm, 0, 0)
+    bn, c = WIDTHS[-1], MAX_CLUSTER
+    rows = (SMEM_PER_CTA[1] - FIXED_SMEM - 16) // (bn * elem + RECORD_BYTES)
+    tail = d - c * rows
+    return ClusterPlan(c, rows, bn, smem_bytes(rows, bn, elem),
+                       _cdiv(n, bn) * c, 1, tail, _cdiv(tail, c))
+
+
+def wide_copies(X: torch.Tensor, bn: int) -> bool:
+    """Whether the kernel stages X (d, n) by 16-byte copies: every row of
+    X starts on 16 bytes and a panel row is at least 16 bytes.  Otherwise
+    it copies one element at a time."""
+    e = X.element_size()
+    return (X.data_ptr() % 16 == 0 and (X.shape[-1] * e) % 16 == 0
+            and bn * e >= 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """SMs of a CUDA device (what ``cluster_plan`` is given)."""
+    return _sm_count(torch.device(device).index or 0)
 
 
 def _library():
@@ -35,6 +136,22 @@ def _library():
     fn = lib.logistic_gains_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
+
+
+def kernel_info(dtype, plan: ClusterPlan, n: int) -> dict:
+    """Registers, spill bytes, shared memory per CTA, threads per CTA and
+    the clusters the card holds at once, for the kernel that
+    ``logistic_gains`` launches at ``plan`` for X in ``dtype`` with n
+    columns (needs the card: it asks the CUDA runtime)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"logistic_gains: no kernel for {dtype}")
+    fn = _build.load("logistic_gains").logistic_gains_kernel_info
+    fn.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+    fn.restype = ctypes.c_int
+    out = (_I * len(_INFO_KEYS))()
+    _build.check(fn(int(dtype == torch.bfloat16), plan.bn, n, plan.cluster,
+                    plan.rows, out), "logistic_gains_kernel_info")
+    return dict(zip(_INFO_KEYS, out))
 
 
 def check_steps(steps) -> int:
@@ -51,16 +168,17 @@ def _launch(X, y, eta, steps):
     check_tensor("X", X, (d, n), (torch.float32, torch.bfloat16), dev)
     check_tensor("y", y, (d,), (torch.float32,), dev)
     check_tensor("eta", eta, (g, d), (torch.float32,), dev)
-    if g < 1 or d < 1 or n < 1 or -(-n // 32) > _MAX_COL_BLOCKS:
+    if g < 1 or d < 1 or n < 1:
         raise ValueError(
             f"logistic_gains: unsupported shape G={g}, d={d}, n={n}")
-    c_old = torch.empty((g, d), dtype=torch.float32, device=dev)
+    plan = cluster_plan(g, d, n, X.dtype, sm_count(dev))
     out = torch.empty((g, n), dtype=torch.float32, device=dev)
     fn = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(),
-                  eta.data_ptr(), d, n, g, steps, c_old.data_ptr(),
+                  eta.data_ptr(), d, n, g, steps, plan.cluster, plan.rows,
+                  plan.bn, plan.tail_per_cta, int(wide_copies(X, plan.bn)),
                   out.data_ptr(), stream)
     _build.check(code, "logistic_gains")
     logistic_gains.launches += 1

@@ -405,6 +405,68 @@ def test_logistic_filter_gains_kernel(cuda, d, n, g, m, steps, precision):
     _f64_gate(got, want, y, etas)
 
 
+# logistic_gains' cluster kernel: (d, n, G, steps, what the plan must be).
+# "C1": one CTA holds d; "split": C > 1; "ragged": C > 1 with a ragged
+# last CTA; "tail": d past the on-chip capacity, the rest read from
+# global memory in every pass.
+LOGISTIC_CLUSTER_SHAPES = [
+    (257, 8193, 2, 1, "C1"),         # n ragged against BN = 32
+    (1001, 1537, 3, 4, "ragged"),    # 4 CTAs of 251 rows, the last 248
+    (8192, 777, 6, 3, "split"),      # DASH's G = 6 at greedy's d, ragged n
+    (601, 700, 1, 0, "ragged"),      # steps = 0: every gain 0
+    (100_000, 100, 1, 3, "tail"),    # 57,400 f32 (76,536 bf16) rows on chip
+]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,g,steps,kind", LOGISTIC_CLUSTER_SHAPES)
+def test_logistic_gains_cluster_plan(cuda, d, n, g, steps, kind, precision):
+    from repro_torch.kernels.logistic_gains import (
+        logistic_gains,
+        logistic_gains_ref,
+    )
+    from repro_torch.kernels.logistic_gains.ops import (
+        cluster_plan,
+        kernel_info,
+        sm_count,
+    )
+
+    X, y, E, _ = _logistic_problem(cuda, d, n, g, 1)
+    Xs = X.to(stream_dtype(precision))
+    plan = cluster_plan(g, d, n, Xs.dtype, sm_count(cuda))
+    if kind == "C1":
+        assert plan.cluster == 1 and plan.tail_rows == 0, plan
+    elif kind in ("split", "ragged"):
+        assert plan.cluster > 1 and plan.tail_rows == 0, plan
+        assert (plan.cluster * plan.rows > d) == (kind == "ragged"), plan
+    else:
+        assert plan.tail_rows > 0, plan
+    info = kernel_info(Xs.dtype, plan, n)
+    assert info["smem_bytes"] == plan.smem_bytes, (info, plan)
+    assert info["active_clusters"] >= 1, info
+    got = logistic_gains(Xs, y, E, steps=steps, precision=precision)
+    torch.cuda.synchronize()
+    X64 = quantize(X, precision).double()
+    want = torch.stack([logistic_gains_ref(X64, y.double(), e.double(),
+                                           steps=steps) for e in E])
+    _f64_gate(got, want, y, E)
+    if steps == 0:
+        assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,g", [(1001, 1537, 3), (100_000, 100, 1)])
+def test_logistic_gains_is_deterministic(cuda, d, n, g, precision):
+    """The cluster's sums close in rank order: two calls on the same
+    inputs give the same bits."""
+    from repro_torch.kernels.logistic_gains import logistic_gains
+
+    X, y, E, _ = _logistic_problem(cuda, d, n, g, 1)
+    a = logistic_gains(X, y, E, precision=precision)
+    b = logistic_gains(X, y, E, precision=precision)
+    assert torch.equal(a, b)
+
+
 def test_logistic_wrappers_reject_what_the_kernel_cannot_take(cuda):
     from repro_torch.kernels.filter_gains import logistic_filter_gains
     from repro_torch.kernels.logistic_gains import logistic_gains

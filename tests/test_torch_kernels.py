@@ -47,6 +47,11 @@ from repro_torch.kernels.marginal_gains import (  # noqa: E402
     regression_gains,
     regression_gains_ref,
 )
+from repro_torch.kernels.logistic_gains.ops import (  # noqa: E402
+    SMEM_PER_CTA,
+    cluster_plan as logistic_cluster_plan,
+    smem_bytes as lg_smem_bytes,
+)
 from repro_torch.kernels.marginal_gains.ops import (  # noqa: E402
     CTAS_PER_SM,
     STAGE_ROWS,
@@ -201,6 +206,59 @@ def test_regression_split_plan_covers_d_once(g, sms):
     if (g, sms) == (1, 132):
         s, rows = split_plan(1, 8192, 8192, 128, 132)
         assert s > 1 and 64 * s <= CTAS_PER_SM * 132 and s * rows >= 8192
+
+
+# d, n, dtype: the main shapes (greedy's and DASH's calls share one plan),
+# the card tests' shapes and edges: d = 1, d below one CTA, d ragged over
+# the cluster, d past the on-chip capacity (f32 and bf16), n = 1.
+CLUSTER_PLAN_SHAPES = [
+    (8192, 8192), (1, 1), (5, 3), (32, 64), (257, 8193), (1001, 1537),
+    (600, 700), (20000, 100), (30000, 4096), (60000, 1000), (100000, 100),
+    (250000, 7), (8192, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,n", CLUSTER_PLAN_SHAPES)
+def test_logistic_cluster_plan_covers_d_once(d, n, dtype):
+    """The geometry of the card's logistic_gains: every row of d lies in
+    exactly one CTA's slab or in exactly one CTA's tail, no slab is empty,
+    the cluster is portable, a CTA's shared memory fits the card (and two
+    CTAs share an SM where the plan says so), the grid is C per panel."""
+    for sms in (132, 8):
+        p = logistic_cluster_plan(1, d, n, dtype, sms)
+        assert p == logistic_cluster_plan(6, d, n, dtype, sms)  # G-free
+        assert p.cluster in (1, 2, 4, 8) and p.bn in (4, 8, 16, 32)
+        assert p.ctas == -(-n // p.bn) * p.cluster
+        elem = torch.empty((), dtype=dtype).element_size()
+        assert p.smem_bytes == lg_smem_bytes(p.rows, p.bn, elem)
+        assert p.smem_bytes <= SMEM_PER_CTA[p.ctas_per_sm]
+        assert p.smem_bytes <= 232_448  # the card's 227 KB per CTA
+        cover = np.zeros(d, np.int64)
+        for c in range(p.cluster):
+            lo, hi = c * p.rows, min((c + 1) * p.rows, d)
+            assert lo < hi, (d, n, p)
+            cover[lo:hi] += 1
+            t0 = p.cluster * p.rows + c * p.tail_per_cta
+            cover[t0:min(t0 + p.tail_per_cta, d)] += 1
+        assert (cover == 1).all(), (d, n, p)
+        assert p.tail_rows == max(0, d - p.cluster * p.rows)
+        if p.tail_rows:  # only past the largest capacity
+            assert (p.bn, p.cluster, p.ctas_per_sm) == (4, 8, 1)
+
+
+def test_logistic_cluster_plan_holds_greedy_on_chip():
+    """Greedy's call (d = n = 8192, G = 1) on the H100: all of X on chip,
+    at two CTAs per SM; the tail starts only past the largest capacity."""
+    for dtype, bn in ((torch.float32, 16), (torch.bfloat16, 32)):
+        p = logistic_cluster_plan(1, 8192, 8192, dtype, 132)
+        assert (p.tail_rows, p.ctas_per_sm, p.bn) == (0, 2, bn), p
+        assert p.cluster * p.rows >= 8192
+    assert logistic_cluster_plan(1, 257, 8193, torch.float32, 132).cluster == 1
+    assert logistic_cluster_plan(1, 100_000, 100, torch.float32,
+                                 132).tail_rows > 0
+    with pytest.raises(ValueError):
+        logistic_cluster_plan(1, 0, 10, torch.float32, 132)
 
 
 def test_cpu_wrappers_count_no_launches():
