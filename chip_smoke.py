@@ -488,7 +488,7 @@ def phase_logistic_kernels(torch, cases):
     a fixed order); its line names the cluster plan.  A case with
     ``engine`` false (d past the engine's one-column slab) checks kernel
     6 alone."""
-    from repro_torch.kernels.common import quantize, stream_dtype
+    from repro_torch.kernels.common import quantize, sm_count, stream_dtype
     from repro_torch.kernels.filter_gains import (
         logistic_filter_gains,
         logistic_filter_gains_lattice_ref,
@@ -497,7 +497,7 @@ def phase_logistic_kernels(torch, cases):
         logistic_gains,
         logistic_gains_ref,
     )
-    from repro_torch.kernels.logistic_gains.ops import cluster_plan, sm_count
+    from repro_torch.kernels.logistic_gains.ops import cluster_plan
 
     def lanes_ref(Xq, y, E, steps):
         return torch.stack([logistic_gains_ref(Xq, y, e, steps=steps)
@@ -514,7 +514,8 @@ def phase_logistic_kernels(torch, cases):
             gains = logistic_gains(X, y, E, steps=steps, precision=prec)
             same = torch.equal(gains, logistic_gains(X, y, E, steps=steps,
                                                      precision=prec))
-            p = cluster_plan(g, d, n, stream_dtype(prec), sm_count(X.device))
+            p = cluster_plan(g, d, n, stream_dtype(prec),
+                             sm_count(X.device))
             log(f"[kernels] logistic_gains        {prec:4s} d={d} n={n} "
                 f"G={g}: C={p.cluster} R={p.rows} BN={p.bn} "
                 f"tail_rows={p.tail_rows} deterministic="
@@ -1528,7 +1529,7 @@ def logistic_bound(d, n, states, steps, xb):
 
 
 def phase_logistic_timing(torch, worst, launches):
-    from repro_torch.kernels.common import quantize
+    from repro_torch.kernels.common import quantize, sm_count
     from repro_torch.kernels.filter_gains import (
         logistic_filter_gains,
         logistic_filter_gains_lattice_ref,
@@ -1540,7 +1541,6 @@ def phase_logistic_timing(torch, worst, launches):
     from repro_torch.kernels.logistic_gains.ops import (
         cluster_plan,
         kernel_info,
-        sm_count,
     )
 
     d, n = CLASS["d"], CLASS["n"]
@@ -1558,7 +1558,7 @@ def phase_logistic_timing(torch, worst, launches):
         # current-state call (G lanes); the engine over the G*m states of
         # DASH's lattice.
         plan = cluster_plan(1, d, n, Xs.dtype, sm_count(X.device))
-        info = kernel_info(Xs.dtype, plan, n)
+        info = kernel_info(Xs.dtype, plan)
         bG, _, _ = logistic_bound(d, n, G, steps, xb)
         tG = time_ms(torch, lambda: logistic_gains(Xs, y, E, steps=steps,
                                                    precision=prec))

@@ -21,6 +21,8 @@ kernel and plain version compute the same function per precision.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 PRECISIONS = ("f32", "bf16")
@@ -94,6 +96,16 @@ def use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain route for device {t.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return _sm_count(torch.device(device).index or 0)
 
 
 def set_full_f32_matmul() -> None:

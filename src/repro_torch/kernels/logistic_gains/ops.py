@@ -24,6 +24,7 @@ from repro_torch.kernels.common import (
     check_tensor,
     quantize,
     resolve_precision,
+    sm_count,
     stream_dtype,
     use_kernel,
 )
@@ -32,7 +33,6 @@ from repro_torch.kernels.logistic_gains.ref import logistic_gains_ref
 # The kernel's geometry (csrc/logistic_gains.cu): 256 threads, each owning
 # 4 adjacent columns of a panel of BN columns; clusters of at most 8 CTAs
 # (the portable size) split the panel's rows.
-THREADS = 256
 WIDTHS = (32, 16, 8, 4)          # panel widths BN, widest first
 MAX_CLUSTER = 8
 RECORD_BYTES = 16                # per slab row: η, a, s, ℓ_i(η) in f32
@@ -85,11 +85,12 @@ def cluster_plan(g: int, d: int, n: int, dtype: torch.dtype,
     The widest panel whose slab holds all d rows in the smallest cluster
     that can (1, 2, 4 or 8 CTAs) at two CTAs per SM, else at one: a
     wider panel shares each barrier and row record among more columns,
-    and a second CTA per SM works while the first waits.  The
-    cluster is then widened (up to 8) while the grid stays within one
-    wave of CTA slots and every CTA keeps a row, so a short panel count
-    still spreads over the card.  Past the largest capacity (BN = 4, 8 CTAs, one per SM, as
-    many rows as fit) the rest of d is the tail, split over the cluster."""
+    and a second CTA per SM works while the first waits.  The cluster is
+    then widened (up to 8) while the grid stays within one wave of CTA
+    slots and every CTA keeps a row, so a short panel count still spreads
+    over the card.  Past the largest capacity (BN = 4, 8 CTAs, one per
+    SM, as many rows as fit) the rest of d is the tail, split over the
+    cluster."""
     if g < 1 or d < 1 or n < 1:
         raise ValueError(f"cluster_plan: G={g}, d={d}, n={n}")
     elem = torch.empty((), dtype=dtype).element_size()
@@ -121,16 +122,6 @@ def wide_copies(X: torch.Tensor, bn: int) -> bool:
             and bn * e >= 16)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def sm_count(device) -> int:
-    """SMs of a CUDA device (what ``cluster_plan`` is given)."""
-    return _sm_count(torch.device(device).index or 0)
-
-
 def _library():
     lib = _build.load("logistic_gains")
     fn = lib.logistic_gains_launch
@@ -138,18 +129,18 @@ def _library():
     return fn
 
 
-def kernel_info(dtype, plan: ClusterPlan, n: int) -> dict:
+def kernel_info(dtype, plan: ClusterPlan) -> dict:
     """Registers, spill bytes, shared memory per CTA, threads per CTA and
     the clusters the card holds at once, for the kernel that
-    ``logistic_gains`` launches at ``plan`` for X in ``dtype`` with n
-    columns (needs the card: it asks the CUDA runtime)."""
+    ``logistic_gains`` launches at ``plan`` for X in ``dtype`` (needs the
+    card: it asks the CUDA runtime)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"logistic_gains: no kernel for {dtype}")
     fn = _build.load("logistic_gains").logistic_gains_kernel_info
-    fn.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+    fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
     fn.restype = ctypes.c_int
     out = (_I * len(_INFO_KEYS))()
-    _build.check(fn(int(dtype == torch.bfloat16), plan.bn, n, plan.cluster,
+    _build.check(fn(int(dtype == torch.bfloat16), plan.bn, plan.cluster,
                     plan.rows, out), "logistic_gains_kernel_info")
     return dict(zip(_INFO_KEYS, out))
 

@@ -425,10 +425,10 @@ def test_logistic_gains_cluster_plan(cuda, d, n, g, steps, kind, precision):
         logistic_gains,
         logistic_gains_ref,
     )
+    from repro_torch.kernels.common import sm_count
     from repro_torch.kernels.logistic_gains.ops import (
         cluster_plan,
         kernel_info,
-        sm_count,
     )
 
     X, y, E, _ = _logistic_problem(cuda, d, n, g, 1)
@@ -441,7 +441,7 @@ def test_logistic_gains_cluster_plan(cuda, d, n, g, steps, kind, precision):
         assert (plan.cluster * plan.rows > d) == (kind == "ragged"), plan
     else:
         assert plan.tail_rows > 0, plan
-    info = kernel_info(Xs.dtype, plan, n)
+    info = kernel_info(Xs.dtype, plan)
     assert info["smem_bytes"] == plan.smem_bytes, (info, plan)
     assert info["active_clusters"] >= 1, info
     got = logistic_gains(Xs, y, E, steps=steps, precision=precision)
