@@ -7,7 +7,7 @@ Run from the root of a checkout.  Phases, each of which raises (and so
 exits nonzero, with no result line) when a check fails:
 
   1. device  — the card's name, count and power limit; TF32 off
-  2. build   — nvcc builds the seven CUDA sources from the checkout,
+  2. build   — nvcc builds the six CUDA sources from the checkout,
                all at once; ptxas register/spill lines, seconds
   3. kernels — each kernel against its plain PyTorch version on the card,
                f32 and bf16, at the main-path shapes and ragged ones, at
@@ -18,9 +18,9 @@ exits nonzero, with no result line) when a check fails:
                expand_logits' perturbed states), each error measured
                against the plain version in float64 beside the f32 plain
                version's, under rtol 2e-4 and atol 2e-4 + ε_f32·√d·ℓ_abs;
-               the logistic singleton sweep (kernel 6) also bitwise equal
-               in two calls, its cluster plan logged, and past its
-               on-chip capacity (d = 100,000)
+               both logistic kernels (6 and 7, one template) also bitwise
+               equal in two calls, their cluster plans logged, and past
+               their on-chip capacity (d = 100,000)
   4. main    — the port's quickstart (greedy, DASH over 6 OPT guesses
                × 8 samples, TOP-K, RANDOM) on the paper's D1 protocol at
                d = n = 8192, k = 128, with the kernels' launch counters
@@ -200,12 +200,12 @@ REPLACES = {
 # is a split-d partial pass plus its fixed-order epilogue; the regression
 # filter engine is a base pass over the G guess bases plus a sample pass
 # over the G*m states; the A-optimality engine is one launch over the G*m
-# states; the logistic singleton sweep makes its old log-likelihood terms
-# inside its one launch; the logistic engine makes them first, then
-# sweeps.
+# states; the logistic singleton sweep and the logistic engine (one kernel
+# template, at 1 and at several states per pass) make their old
+# log-likelihood terms inside their one launch.
 LAUNCHES_PER_CALL = {"regression_gains": 2, "filter_gains": 2,
                      "aopt_gains": 1, "aopt_filter_gains": 1,
-                     "logistic_gains": 1, "logistic_filter_gains": 2,
+                     "logistic_gains": 1, "logistic_filter_gains": 1,
                      "flash_attention": 1}
 SOURCES = {
     "regression_gains": "src/repro_torch/kernels/csrc/marginal_gains.cu",
@@ -213,8 +213,7 @@ SOURCES = {
     "aopt_gains": "src/repro_torch/kernels/csrc/aopt_gains.cu",
     "aopt_filter_gains": "src/repro_torch/kernels/csrc/aopt_filter_gains.cu",
     "logistic_gains": "src/repro_torch/kernels/csrc/logistic_gains.cu",
-    "logistic_filter_gains":
-        "src/repro_torch/kernels/csrc/logistic_filter_gains.cu",
+    "logistic_filter_gains": "src/repro_torch/kernels/csrc/logistic_gains.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 
@@ -263,7 +262,7 @@ def phase_build():
     t0 = time.perf_counter()
     info = _build.build("marginal_gains", "filter_gains", "aopt_gains",
                         "aopt_filter_gains", "logistic_gains",
-                        "logistic_filter_gains", "flash_attention")
+                        "flash_attention")
     for name, bi in info.items():
         log(f"[build] {name}: {bi.seconds:.1f} s -> {bi.library.name}")
         for line in bi.ptxas.splitlines():
@@ -483,11 +482,11 @@ def phase_logistic_kernels(torch, cases):
     card, beside the f32 plain version: the kernel must lie within rtol
     2e-4 and atol 2e-4 + ε_f32·√d·ℓ_abs of the float64 result.  The
     f32 plain version's error is printed, not gated: it keeps the
-    reference's formula, whose ℓ_new − ℓ_old cancels in f32.  Kernel 6
-    must also give the same bits in two calls (its cluster sums close in
-    a fixed order); its line names the cluster plan.  A case with
-    ``engine`` false (d past the engine's one-column slab) checks kernel
-    6 alone."""
+    reference's formula, whose ℓ_new − ℓ_old cancels in f32.  Both must
+    also give the same bits in two calls (their cluster sums close in a
+    fixed order); each line names its cluster plan and states per
+    pass.  The engine's closing pass takes log1pf's fast path without its
+    branch: it must give log1pf's bits at every float in [0, 1]."""
     from repro_torch.kernels.common import quantize, sm_count, stream_dtype
     from repro_torch.kernels.filter_gains import (
         logistic_filter_gains,
@@ -497,44 +496,56 @@ def phase_logistic_kernels(torch, cases):
         logistic_gains,
         logistic_gains_ref,
     )
-    from repro_torch.kernels.logistic_gains.ops import cluster_plan
+    from repro_torch.kernels.logistic_gains.ops import (
+        ENGINE_STATES_PER_PASS,
+        cluster_plan,
+        log1p_check,
+    )
+
+    bad = log1p_check()
+    log(f"[kernels] the engine's branch-free log1pf against the library's "
+        f"over every float in [0, 1]: {bad} differ in a bit")
+    need(bad == 0, f"log1pf_01 differs from log1pf at {bad} floats")
 
     def lanes_ref(Xq, y, E, steps):
         return torch.stack([logistic_gains_ref(Xq, y, e, steps=steps)
                             for e in E])
 
     worst = {"logistic_gains": 0.0, "logistic_filter_gains": 0.0}
-    for (d, n, g, m, b, n_sel, steps, engine) in cases:
+    for (d, n, g, m, b, n_sel, steps) in cases:
         X, y, E, etas = make_logistic_operands(torch, d, n, g, m, b, n_sel,
                                                seed=d + n + n_sel)
         y64 = y.double()
         for prec in ("f32", "bf16"):
             Xq = quantize(X, prec)
             X64 = Xq.double()
-            gains = logistic_gains(X, y, E, steps=steps, precision=prec)
-            same = torch.equal(gains, logistic_gains(X, y, E, steps=steps,
-                                                     precision=prec))
-            p = cluster_plan(g, d, n, stream_dtype(prec),
-                             sm_count(X.device))
-            log(f"[kernels] logistic_gains        {prec:4s} d={d} n={n} "
-                f"G={g}: C={p.cluster} R={p.rows} BN={p.bn} "
-                f"tail_rows={p.tail_rows} deterministic="
-                f"{'yes' if same else 'NO'}")
-            need(same, f"logistic_gains {prec} differs between two calls "
-                       f"at d={d} n={n} G={g}")
-            checks = [("logistic_gains", E, gains,
-                       lanes_ref(X64, y64, E.double(), steps),
-                       lanes_ref(Xq, y, E, steps))]
-            if engine:
-                checks.append((
-                    "logistic_filter_gains", etas,
-                    logistic_filter_gains(X, y, etas, steps=steps,
-                                          precision=prec),
-                    logistic_filter_gains_lattice_ref(X64, y64,
-                                                      etas.double(),
-                                                      steps=steps),
-                    logistic_filter_gains_lattice_ref(Xq, y, etas,
-                                                      steps=steps)))
+            checks = []
+            for name, states, L, run, want, plain in (
+                ("logistic_gains", E, 1,
+                 lambda: logistic_gains(X, y, E, steps=steps,
+                                        precision=prec),
+                 lambda: lanes_ref(X64, y64, E.double(), steps),
+                 lambda: lanes_ref(Xq, y, E, steps)),
+                ("logistic_filter_gains", etas, ENGINE_STATES_PER_PASS,
+                 lambda: logistic_filter_gains(X, y, etas, steps=steps,
+                                               precision=prec),
+                 lambda: logistic_filter_gains_lattice_ref(
+                     X64, y64, etas.double(), steps=steps),
+                 lambda: logistic_filter_gains_lattice_ref(
+                     Xq, y, etas, steps=steps)),
+            ):
+                got = run()
+                same = torch.equal(got, run())
+                p = cluster_plan(states[..., 0].numel(), d, n,
+                                 stream_dtype(prec), sm_count(X.device), L)
+                log(f"[kernels] {name:21s} {prec:4s} d={d} n={n} "
+                    f"states={states[..., 0].numel()}: C={p.cluster} "
+                    f"R={p.rows} BN={p.bn} L={p.states_per_pass} "
+                    f"tail_rows={p.tail_rows} deterministic="
+                    f"{'yes' if same else 'NO'}")
+                need(same, f"{name} {prec} differs between two calls at "
+                           f"d={d} n={n} G={g} m={m}")
+                checks.append((name, states, got, want(), plain()))
             for name, states, got, want, plain in checks:
                 torch.cuda.synchronize()
                 need(bool(torch.isfinite(got).all()), f"{name}: non-finite")
@@ -556,7 +567,7 @@ def phase_logistic_kernels(torch, cases):
                 if prec == "f32":
                     worst[name] = max(worst[name], float(err.max()))
                 del got, want, plain, err, limit
-            del Xq, X64, gains, checks
+            del Xq, X64, checks
         del X, y, E, etas
     return worst
 
@@ -1512,8 +1523,9 @@ def logistic_bound(d, n, states, steps, xb):
     """The least time for ``states`` Newton sweeps over X (d, n): the
     larger of the bytes (X once in its storage type, y, the logits and
     the gains), the f32 flops and the transcendentals on the
-    special-function units.  Counted per element and state from
-    newton_sweep.cuh: each Newton step 11 flops, one expf and one divide;
+    special-function units.  Counted per element and state from the
+    reference's recurrence (csrc/logistic_gains.cu's header): each Newton
+    step 11 flops, one exponential and one reciprocal;
     the closing pass 8 flops, one expf and one log1pf; per row and state
     the old log-likelihood term, 5 flops, one expf and one log1pf.
     Returns (bound_ms, bound_by, {term: ms})."""
@@ -1539,6 +1551,7 @@ def phase_logistic_timing(torch, worst, launches):
         logistic_gains_ref,
     )
     from repro_torch.kernels.logistic_gains.ops import (
+        ENGINE_STATES_PER_PASS,
         cluster_plan,
         kernel_info,
     )
@@ -1557,8 +1570,10 @@ def phase_logistic_timing(torch, worst, launches):
         # logistic_gains at greedy's shape (one lane) and at DASH's
         # current-state call (G lanes); the engine over the G*m states of
         # DASH's lattice.
-        plan = cluster_plan(1, d, n, Xs.dtype, sm_count(X.device))
-        info = kernel_info(Xs.dtype, plan)
+        sms = sm_count(X.device)
+        plans = {"logistic_gains": cluster_plan(1, d, n, Xs.dtype, sms),
+                 "logistic_filter_gains": cluster_plan(
+                     G * m, d, n, Xs.dtype, sms, ENGINE_STATES_PER_PASS)}
         bG, _, _ = logistic_bound(d, n, G, steps, xb)
         tG = time_ms(torch, lambda: logistic_gains(Xs, y, E, steps=steps,
                                                    precision=prec))
@@ -1578,17 +1593,20 @@ def phase_logistic_timing(torch, worst, launches):
             bd, by, terms = logistic_bound(d, n, states, steps, xb)
             t = time_ms(torch, run)
             p = time_ms(torch, plain, iters=3, warmup=1)
-            extra = ""
-            if name == "logistic_gains":
-                extra = (f"; plan C={plan.cluster} R={plan.rows} "
-                         f"BN={plan.bn} slab {plan.smem_bytes} bytes/CTA "
-                         f"tail_rows={plan.tail_rows} CTAs={plan.ctas}; "
-                         f"{info['registers']} registers/thread, "
-                         f"{info['spill_bytes']} spill bytes, "
-                         f"{info['smem_bytes']} B shared/CTA, "
-                         f"{info['threads']} threads/CTA, "
-                         f"{info['active_clusters']} active clusters of "
-                         f"{plan.cluster}")
+            plan = plans[name]
+            info = kernel_info(Xs.dtype, plan)
+            extra = (f"; plan C={plan.cluster} R={plan.rows} BN={plan.bn} "
+                     f"L={plan.states_per_pass} slab {plan.smem_bytes} "
+                     f"bytes/CTA tail_rows={plan.tail_rows} "
+                     f"CTAs={plan.ctas}; {info['registers']} "
+                     f"registers/thread, {info['spill_bytes']} spill bytes, "
+                     f"{info['smem_bytes']} B shared/CTA, "
+                     f"{info['threads']} threads/CTA, "
+                     f"{info['active_clusters']} active clusters of "
+                     f"{plan.cluster}")
+            need(info["spill_bytes"] == 0
+                 and info["smem_bytes"] == plan.smem_bytes,
+                 f"{name} {prec}: {info} at {plan}")
             log(f"[timing] {name:21s} {prec:4s} states={states:2d} "
                 f"kernel_ms={t:.4f} plain_ms={p:.4f} bound_ms={bd:.4f} "
                 f"({by}: bytes {terms['bytes']:.4f}, f32 flops "
@@ -1733,17 +1751,18 @@ def main() -> int:
     cd, cn, cg, cm = CLASS["d"], CLASS["n"], CLASS["n_guesses"], \
         CLASS["n_samples"]
     worst.update(phase_logistic_kernels(torch, [
-        # d, n, G, m, b, |S|, steps, engine too
-        (cd, cn, cg, cm, CLASS_BLOCK, 64, 3, True),  # the main lattice
-        (cd, cn, 1, 1, CLASS_BLOCK, CLASS["k"] - 1, 3, True),  # greedy's last
-        (cd, cn, 1, 1, CLASS_BLOCK, 0, 3, True),     # greedy's first: η = 0
-        (1000, 1537, 2, 3, 5, 7, 1, True),           # ragged d, n; 1 step
-        (1000, 1537, 2, 3, 5, 7, 4, True),           # 4 steps
-        (600, 700, 5, 8, 4, 9, 3, True),             # G*m = 40 > 16 warps
-        (20000, 300, 1, 4, 5, 3, 3, True),           # slabs of 2 (4) columns
-        # kernel 6 past its on-chip capacity (the tail read from global
-        # memory); d is past the engine's slab, so kernel 6 alone
-        (100_000, 100, 1, 1, 5, 3, 3, False),
+        # d, n, G, m, b, |S|, steps
+        (cd, cn, cg, cm, CLASS_BLOCK, 64, 3),    # the main lattice
+        (cd, cn, 1, 1, CLASS_BLOCK, CLASS["k"] - 1, 3),  # greedy's last
+        (cd, cn, 1, 1, CLASS_BLOCK, 0, 3),       # greedy's first: η = 0
+        (cd, cn, 1, 7, CLASS_BLOCK, 64, 3),      # 7 states: a ragged batch
+        (1000, 1537, 2, 3, 5, 7, 1),             # ragged d, n; 1 step
+        (1000, 1537, 2, 3, 5, 7, 4),             # 4 steps
+        (600, 700, 5, 8, 4, 9, 3),               # G*m = 40
+        (20000, 300, 1, 4, 5, 3, 3),             # the engine at 1 CTA/SM
+        # past the on-chip capacity: the tail read from global memory
+        # (and past the 58,080 rows the engine's first port could hold)
+        (100_000, 100, 1, 3, 5, 3, 3),
     ]))
     lm_worst = phase_lm_kernels(torch, LM_FLASH_CASES)
     log(f"[kernels] done at {time.perf_counter() - t0:.1f} s")

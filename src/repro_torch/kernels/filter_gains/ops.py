@@ -5,17 +5,17 @@ On a CUDA tensor ``filter_gains`` (regression epilogue,
 pass over the G·m perturbed states), ``aopt_filter_gains``
 (A-optimality Woodbury epilogue, ``csrc/aopt_filter_gains.cu``: one
 launch over the G·m states) and ``logistic_filter_gains`` (logistic
-Newton-sweep epilogue, ``csrc/logistic_filter_gains.cu``: the per-row
-old log-likelihood terms, then one sweep over the G·m states) run their
-engine on the current stream, and raise on what the kernel cannot take
-and on a failed launch.  On a CPU tensor they run the plain lattice
-versions of ``ref.py``.  The guess axis is always explicit: the port
-carries the DASH lattice as a leading lane axis instead of batching a
-kernel under ``vmap``.  ``filter_gains.launches``,
-``aopt_filter_gains.launches`` and ``logistic_filter_gains.launches``
-count wrapper calls that launch an engine: two device kernels per call
-for ``filter_gains`` and ``logistic_filter_gains``, one for
-``aopt_filter_gains``.
+Newton-sweep epilogue: one launch of ``csrc/logistic_gains.cu``'s kernel
+template over the G·m states, several states per pass, the old
+log-likelihood terms made in the same launch) run their engine on the
+current stream, and raise on what the kernel cannot take and on a failed
+launch.  On a CPU tensor they run the plain lattice versions of
+``ref.py``.  The guess axis is always explicit: the port carries the
+DASH lattice as a leading lane axis instead of batching a kernel under
+``vmap``.  ``filter_gains.launches``, ``aopt_filter_gains.launches`` and
+``logistic_filter_gains.launches`` count wrapper calls that launch an
+engine: two device kernels per call for ``filter_gains``, one for
+``aopt_filter_gains`` and ``logistic_filter_gains``.
 """
 
 from __future__ import annotations
@@ -38,7 +38,11 @@ from repro_torch.kernels.filter_gains.ref import (
     filter_gains_lattice_ref,
     logistic_filter_gains_lattice_ref,
 )
-from repro_torch.kernels.logistic_gains.ops import check_steps
+from repro_torch.kernels.logistic_gains.ops import (
+    ENGINE_STATES_PER_PASS,
+    check_steps,
+)
+from repro_torch.kernels.logistic_gains.ops import launch as logistic_launch
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P,
@@ -172,44 +176,6 @@ aopt_filter_gains.launches = 0
 # logistic epilogue
 # ---------------------------------------------------------------------------
 
-_LOGISTIC_ARGTYPES = [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P]
-
-
-def _logistic_library():
-    lib = _build.load("logistic_filter_gains")
-    fn = lib.logistic_filter_gains_launch
-    fn.argtypes, fn.restype = _LOGISTIC_ARGTYPES, ctypes.c_int
-    cols = lib.logistic_filter_gains_columns
-    cols.argtypes, cols.restype = [_I, _I], ctypes.c_int
-    return fn, cols
-
-
-def _logistic_launch(X, y, etas, steps):
-    d, n = X.shape
-    s = etas.shape[0]
-    dev = X.device
-    check_tensor("X", X, (d, n), (torch.float32, torch.bfloat16), dev)
-    check_tensor("y", y, (d,), (torch.float32,), dev)
-    check_tensor("etas", etas, (s, d), (torch.float32,), dev)
-    if s < 1 or d < 1 or n < 1:
-        raise ValueError(f"logistic_filter_gains: unsupported shape "
-                         f"G*m={s}, d={d}, n={n}")
-    fn, cols = _logistic_library()
-    bf16 = int(X.dtype == torch.bfloat16)
-    if cols(d, bf16) == 0:
-        raise ValueError(
-            f"logistic_filter_gains: d={d} rows of one {X.dtype} column do "
-            "not fit in the kernel's shared-memory slab (227 KB)")
-    c_old = torch.empty((s, d), dtype=torch.float32, device=dev)
-    out = torch.empty((s, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(X.data_ptr(), bf16, y.data_ptr(), etas.data_ptr(), d, n, s,
-                  steps, c_old.data_ptr(), out.data_ptr(), stream)
-    _build.check(code, "logistic_filter_gains")
-    logistic_filter_gains.launches += 1
-    return out
-
 
 def logistic_filter_gains(X, y, etas, *, steps: int = 3,
                           precision: str | None = None):
@@ -231,8 +197,11 @@ def logistic_filter_gains(X, y, etas, *, steps: int = 3,
     g, m, d = etas.shape
     if use_kernel(X):
         check_tensor("etas", etas, (g, m, d), (torch.float32,), X.device)
-        out = _logistic_launch(X.to(stream_dtype(prec)), y,
-                               etas.view(g * m, d), steps)
+        out = logistic_launch(X.to(stream_dtype(prec)), y,
+                              etas.view(g * m, d), steps,
+                              ENGINE_STATES_PER_PASS,
+                              "logistic_filter_gains")
+        logistic_filter_gains.launches += 1
         return out.reshape(g, m, -1)
     return logistic_filter_gains_lattice_ref(quantize(X, prec), y, etas,
                                              steps=steps)

@@ -361,9 +361,9 @@ def _f64_gate(got, want64, y, etas):
 LOGISTIC_SHAPES = [  # d, n, g, m, steps
     (32, 64, 1, 2, 3),
     (257, 513, 2, 3, 1),          # odd d, ragged n, one step
-    (1000, 1537, 3, 8, 4),        # G·m = 24 above one CTA's 16 states
+    (1000, 1537, 3, 8, 4),        # G·m = 24
     (600, 700, 5, 8, 3),          # G·m = 40
-    (20000, 100, 1, 2, 3),        # slabs of 2 f32 (4 bf16) columns
+    (20000, 100, 1, 2, 3),        # the engine at one CTA per SM
 ]
 
 
@@ -482,10 +482,107 @@ def test_logistic_wrappers_reject_what_the_kernel_cannot_take(cuda):
         logistic_filter_gains(X, y, etas.transpose(0, 1))         # layout
     with pytest.raises(ValueError):
         logistic_filter_gains(X, y.double(), etas)                # dtype
-    big = torch.zeros((60000, 2), device=cuda)                    # slab
-    with pytest.raises(ValueError):
-        logistic_filter_gains(big, torch.zeros(60000, device=cuda),
-                              torch.zeros((1, 1, 60000), device=cuda))
+
+
+def test_logistic_branch_free_log1pf_is_log1pf(cuda):
+    """The engine's closing pass takes log1pf's fast path without its
+    branch for special arguments: the same bits as the library's log1pf
+    at every float in [0, 1] (the range of e^(−|v|))."""
+    from repro_torch.kernels.logistic_gains.ops import log1p_check
+
+    assert log1p_check() == 0
+
+
+# The logistic filter engine (kernel 6's template at several states per
+# pass): (d, n, G, m, steps, what the plan must be).  "C1", "split",
+# "ragged" and "tail" as for kernel 6; d = 60,000 and 100,000 lie past the
+# 58,080 f32 rows that one CTA of the engine's first port could hold.
+LOGISTIC_ENGINE_SHAPES = [
+    (257, 8193, 1, 3, 1, "C1"),       # n ragged against BN = 32
+    (1001, 1537, 2, 3, 4, "ragged"),  # G·m = 6: a ragged batch
+    (8192, 777, 6, 8, 3, "split"),    # the lattice's d and G·m
+    (601, 700, 1, 7, 0, "ragged"),    # steps = 0: every gain 0
+    (60_000, 100, 1, 3, 3, "tail"),
+    (100_000, 100, 1, 3, 3, "tail"),
+]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,g,m,steps,kind", LOGISTIC_ENGINE_SHAPES)
+def test_logistic_filter_gains_cluster_plan(cuda, d, n, g, m, steps, kind,
+                                            precision):
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.filter_gains import (
+        logistic_filter_gains,
+        logistic_filter_gains_lattice_ref,
+    )
+    from repro_torch.kernels.logistic_gains.ops import (
+        ENGINE_STATES_PER_PASS,
+        cluster_plan,
+        kernel_info,
+    )
+
+    X, y, _, etas = _logistic_problem(cuda, d, n, g, m)
+    Xs = X.to(stream_dtype(precision))
+    plan = cluster_plan(g * m, d, n, Xs.dtype, sm_count(cuda),
+                        ENGINE_STATES_PER_PASS)
+    if kind == "C1":
+        assert plan.cluster == 1 and plan.tail_rows == 0, plan
+    elif kind in ("split", "ragged"):
+        assert plan.cluster > 1 and plan.tail_rows == 0, plan
+        assert (plan.cluster * plan.rows > d) == (kind == "ragged"), plan
+    else:
+        assert plan.tail_rows > 0, plan
+    info = kernel_info(Xs.dtype, plan)
+    assert info["smem_bytes"] == plan.smem_bytes, (info, plan)
+    assert info["spill_bytes"] == 0, info
+    assert info["active_clusters"] >= 1, info
+    before = logistic_filter_gains.launches
+    got = logistic_filter_gains(Xs, y, etas, steps=steps,
+                                precision=precision)
+    torch.cuda.synchronize()
+    assert logistic_filter_gains.launches == before + 1
+    want = logistic_filter_gains_lattice_ref(
+        quantize(X, precision).double(), y.double(), etas.double(),
+        steps=steps)
+    _f64_gate(got, want, y, etas)
+    if steps == 0:
+        assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,g,m", [(1001, 1537, 6, 8), (100_000, 100, 1, 3)])
+def test_logistic_filter_gains_is_deterministic(cuda, d, n, g, m,
+                                                precision):
+    """The engine's cluster sums close in rank order: two calls on the
+    same inputs give the same bits."""
+    from repro_torch.kernels.filter_gains import logistic_filter_gains
+
+    X, y, _, etas = _logistic_problem(cuda, d, n, g, m)
+    a = logistic_filter_gains(X, y, etas, precision=precision)
+    b = logistic_filter_gains(X, y, etas, precision=precision)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n", [(8192, 1000), (1001, 1537)])
+def test_logistic_filter_gains_state_does_not_see_the_others(cuda, d, n,
+                                                             precision):
+    """State s of a 48-state call has the bits of the same state in a
+    1-state call and in a 7-state call (a ragged batch), wherever it sits
+    in its batch: the plan does not depend on the state count, and a
+    state's sums take the same order in every slot."""
+    from repro_torch.kernels.filter_gains import logistic_filter_gains
+
+    X, y, _, etas = _logistic_problem(cuda, d, n, 6, 8)
+    flat = etas.reshape(48, d)
+    full = logistic_filter_gains(X, y, etas,
+                                 precision=precision).reshape(48, n)
+    for lo, count in ((0, 1), (5, 1), (3, 7), (41, 7)):
+        part = logistic_filter_gains(
+            X, y, flat[lo:lo + count].contiguous().view(1, count, d),
+            precision=precision)
+        assert torch.equal(part[0], full[lo:lo + count]), (lo, count)
 
 
 def test_classification_dash_on_card_matches_cpu(cuda):

@@ -48,8 +48,10 @@ from repro_torch.kernels.marginal_gains import (  # noqa: E402
     regression_gains_ref,
 )
 from repro_torch.kernels.logistic_gains.ops import (  # noqa: E402
+    ENGINE_STATES_PER_PASS,
     SMEM_PER_CTA,
     cluster_plan as logistic_cluster_plan,
+    scratch_bytes as lg_scratch_bytes,
     smem_bytes as lg_smem_bytes,
 )
 from repro_torch.kernels.marginal_gains.ops import (  # noqa: E402
@@ -210,30 +212,47 @@ def test_regression_split_plan_covers_d_once(g, sms):
 
 # d, n, dtype: the main shapes (greedy's and DASH's calls share one plan),
 # the card tests' shapes and edges: d = 1, d below one CTA, d ragged over
-# the cluster, d past the on-chip capacity (f32 and bf16), n = 1.
+# the cluster, d past the on-chip capacity (f32 and bf16; 58,081 is one
+# row past what one CTA of the engine's first port could hold), n = 1.
 CLUSTER_PLAN_SHAPES = [
     (8192, 8192), (1, 1), (5, 3), (32, 64), (257, 8193), (1001, 1537),
-    (600, 700), (20000, 100), (30000, 4096), (60000, 1000), (100000, 100),
-    (250000, 7), (8192, 1),
+    (600, 700), (20000, 100), (30000, 4096), (58081, 100), (60000, 1000),
+    (100000, 100), (250000, 7), (8192, 1),
 ]
 
 
+def _pr18_smem_bytes(rows, bn, elem):
+    """The singleton sweep's shared memory before the engine shared its
+    kernel: one 16-byte record per slab row, 11 × 64 f32 of scratch."""
+    return -(-rows * bn * elem // 16) * 16 + 16 * rows + 4 * 64 * 11
+
+
+@pytest.mark.parametrize("states_per_pass", [1, 2, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,n", CLUSTER_PLAN_SHAPES)
-def test_logistic_cluster_plan_covers_d_once(d, n, dtype):
-    """The geometry of the card's logistic_gains: every row of d lies in
-    exactly one CTA's slab or in exactly one CTA's tail, no slab is empty,
-    the cluster is portable, a CTA's shared memory fits the card (and two
-    CTAs share an SM where the plan says so), the grid is C per panel."""
+def test_logistic_cluster_plan_covers_d_once(d, n, dtype, states_per_pass):
+    """The geometry of the card's logistic kernel at L states per pass:
+    every row of d lies in exactly one CTA's slab or in exactly one CTA's
+    tail, no slab is empty, the cluster is portable, a CTA's shared memory
+    (slab, L state records and a label per row, scratch for L states)
+    fits the card (and two CTAs share an SM where the plan says so), the
+    grid is C per panel, the plan does not depend on the state count, and
+    at L = 1 it is the singleton sweep's plan as it was."""
+    L = states_per_pass
+    elem = torch.empty((), dtype=dtype).element_size()
     for sms in (132, 8):
-        p = logistic_cluster_plan(1, d, n, dtype, sms)
-        assert p == logistic_cluster_plan(6, d, n, dtype, sms)  # G-free
+        p = logistic_cluster_plan(1, d, n, dtype, sms, L)
+        for g in (6, 7, 48):  # G-free
+            assert p == logistic_cluster_plan(g, d, n, dtype, sms, L)
+        assert p.states_per_pass == L
         assert p.cluster in (1, 2, 4, 8) and p.bn in (4, 8, 16, 32)
         assert p.ctas == -(-n // p.bn) * p.cluster
-        elem = torch.empty((), dtype=dtype).element_size()
-        assert p.smem_bytes == lg_smem_bytes(p.rows, p.bn, elem)
+        assert p.smem_bytes == lg_smem_bytes(p.rows, p.bn, elem, L)
         assert p.smem_bytes <= SMEM_PER_CTA[p.ctas_per_sm]
         assert p.smem_bytes <= 232_448  # the card's 227 KB per CTA
+        if L == 1:
+            assert p == logistic_cluster_plan(1, d, n, dtype, sms)
+            assert p.smem_bytes == _pr18_smem_bytes(p.rows, p.bn, elem)
         cover = np.zeros(d, np.int64)
         for c in range(p.cluster):
             lo, hi = c * p.rows, min((c + 1) * p.rows, d)
@@ -243,8 +262,14 @@ def test_logistic_cluster_plan_covers_d_once(d, n, dtype):
             cover[t0:min(t0 + p.tail_per_cta, d)] += 1
         assert (cover == 1).all(), (d, n, p)
         assert p.tail_rows == max(0, d - p.cluster * p.rows)
-        if p.tail_rows:  # only past the largest capacity
-            assert (p.bn, p.cluster, p.ctas_per_sm) == (4, 8, 1)
+        # A tail only past the largest capacity: 8 CTAs of BN = 4, one
+        # per SM, as many rows as fit.
+        cap = 8 * ((SMEM_PER_CTA[1] - lg_scratch_bytes(4, L) - 16)
+                   // (4 * elem + 8 * L + 8))
+        assert (p.tail_rows > 0) == (d > cap), (d, cap, p)
+        if p.tail_rows:
+            assert (p.bn, p.cluster, p.ctas_per_sm, p.rows) == (4, 8, 1,
+                                                               cap // 8)
 
 
 def test_logistic_cluster_plan_holds_greedy_on_chip():
@@ -259,6 +284,28 @@ def test_logistic_cluster_plan_holds_greedy_on_chip():
                                  132).tail_rows > 0
     with pytest.raises(ValueError):
         logistic_cluster_plan(1, 0, 10, torch.float32, 132)
+    with pytest.raises(ValueError):
+        logistic_cluster_plan(1, 10, 10, torch.float32, 132, 0)
+
+
+def test_logistic_engine_plan_holds_the_lattice_on_chip():
+    """The filter engine's plan at the classification lattice (d = n =
+    8192, G·m = 48) on the H100: 16-column panels over clusters of 8 at
+    two CTAs per SM in f32 and bf16 (bf16's 32 columns would take
+    117,760 bytes with four states' records), all of X on chip; the same
+    plan for 1, 7 and 48 states."""
+    L = ENGINE_STATES_PER_PASS
+    assert L in (2, 4)
+    want = {torch.float32: 112_128, torch.bfloat16: 79_360} if L == 4 else {}
+    for dtype in (torch.float32, torch.bfloat16):
+        p = logistic_cluster_plan(48, 8192, 8192, dtype, 132, L)
+        assert (p.cluster, p.rows, p.bn, p.ctas_per_sm, p.tail_rows) == (
+            8, 1024, 16 if L == 4 or dtype == torch.float32 else 32, 2, 0)
+        assert p.smem_bytes == want.get(dtype, p.smem_bytes)
+        assert p == logistic_cluster_plan(1, 8192, 8192, dtype, 132, L)
+        assert p == logistic_cluster_plan(7, 8192, 8192, dtype, 132, L)
+    elem = 2
+    assert lg_smem_bytes(1024, 32, elem, 4) == 117_760 > SMEM_PER_CTA[2]
 
 
 def test_cpu_wrappers_count_no_launches():
