@@ -41,8 +41,8 @@ from repro_torch.kernels.filter_gains.ref import (
 from repro_torch.kernels.logistic_gains.ops import (
     ENGINE_STATES_PER_PASS,
     check_steps,
+    launch as logistic_launch,
 )
-from repro_torch.kernels.logistic_gains.ops import launch as logistic_launch
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P,

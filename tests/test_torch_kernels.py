@@ -304,8 +304,7 @@ def test_logistic_engine_plan_holds_the_lattice_on_chip():
         assert p.smem_bytes == want.get(dtype, p.smem_bytes)
         assert p == logistic_cluster_plan(1, 8192, 8192, dtype, 132, L)
         assert p == logistic_cluster_plan(7, 8192, 8192, dtype, 132, L)
-    elem = 2
-    assert lg_smem_bytes(1024, 32, elem, 4) == 117_760 > SMEM_PER_CTA[2]
+    assert lg_smem_bytes(1024, 32, 2, 4) == 117_760 > SMEM_PER_CTA[2]
 
 
 def test_cpu_wrappers_count_no_launches():
