@@ -485,7 +485,7 @@ def phase_logistic_kernels(torch, cases):
     reference's formula, whose ℓ_new − ℓ_old cancels in f32.  Both must
     also give the same bits in two calls (their cluster sums close in a
     fixed order); each line names its cluster plan and states per
-    pass.  The engine's closing pass takes log1pf's fast path without its
+    pass.  Both kernels take log1pf's fast path without its
     branch: it must give log1pf's bits at every float in [0, 1]."""
     from repro_torch.kernels.common import quantize, sm_count, stream_dtype
     from repro_torch.kernels.filter_gains import (
@@ -503,7 +503,7 @@ def phase_logistic_kernels(torch, cases):
     )
 
     bad = log1p_check()
-    log(f"[kernels] the engine's branch-free log1pf against the library's "
+    log(f"[kernels] the kernels' branch-free log1pf against the library's "
         f"over every float in [0, 1]: {bad} differ in a bit")
     need(bad == 0, f"log1pf_01 differs from log1pf at {bad} floats")
 
@@ -1519,19 +1519,27 @@ def phase_aopt_timing(torch, worst, launches):
     return rows
 
 
+# f32 flops of one log1pf (csrc/logistic_gains.cu::log1pf_01): 4 adds
+# and multiplies and 11 FMAs of 2 flops.
+LOG1PF_FLOPS = 26.0
+
+
 def logistic_bound(d, n, states, steps, xb):
     """The least time for ``states`` Newton sweeps over X (d, n): the
     larger of the bytes (X once in its storage type, y, the logits and
     the gains), the f32 flops and the transcendentals on the
     special-function units.  Counted per element and state from the
     reference's recurrence (csrc/logistic_gains.cu's header): each Newton
-    step 11 flops, one exponential and one reciprocal;
-    the closing pass 8 flops, one expf and one log1pf; per row and state
-    the old log-likelihood term, 5 flops, one expf and one log1pf.
-    Returns (bound_ms, bound_by, {term: ms})."""
+    step 11 flops, one exponential and one reciprocal on the
+    special-function units; the closing pass 8 flops, one expf there and
+    one log1pf; per row and state the old log-likelihood term, 5 flops,
+    one expf and one log1pf.  log1pf takes no special-function unit: it
+    is integer arithmetic and a polynomial, LOG1PF_FLOPS f32 flops
+    (csrc: log1pf_01).  Returns (bound_ms, bound_by, {term: ms})."""
     elems = states * d * n
-    flops = elems * (11.0 * steps + 8.0) + states * d * 5.0
-    sfu = elems * (2.0 * steps + 2.0) + states * d * 2.0
+    flops = (elems * (11.0 * steps + 8.0 + LOG1PF_FLOPS)
+             + states * d * (5.0 + LOG1PF_FLOPS))
+    sfu = elems * (2.0 * steps + 1.0) + states * d * 1.0
     nbytes = xb * d * n + 4.0 * (d + states * d + states * n)
     terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "f32_flops": flops / F32_PEAK_FLOPS * 1e3,

@@ -41,8 +41,9 @@ MAX_CLUSTER = 8
 LABEL_BYTES = 8                  # per slab row: a, s in f32
 STATE_BYTES = 8                  # per slab row and state: η, ℓ_i(η) in f32
 # States per pass of the filter engine's instance (csrc: ENGINE_L); the
-# singleton sweep runs L = 1.
+# singleton sweep runs L = 1.  No other instance is built.
 ENGINE_STATES_PER_PASS = 4
+STATES_PER_PASS = (1, ENGINE_STATES_PER_PASS)
 # Dynamic shared memory a CTA may take when k CTAs share an SM's 233,472
 # bytes, less 1 KB reserved for each (one CTA may opt in to 227 KB).
 SMEM_PER_CTA = {2: 233_472 // 2 - 1024, 1: 232_448}
@@ -100,7 +101,8 @@ def cluster_plan(g: int, d: int, n: int, dtype: torch.dtype, sms: int,
     """The cluster geometry for X (d, n) in ``dtype`` on a card of ``sms``
     SMs, for the kernel instance that sweeps ``states_per_pass`` states
     per pass (1: the singleton sweep; ``ENGINE_STATES_PER_PASS``: the
-    filter engine).  Every CTA loops over the G lanes (or states) with its
+    filter engine; no other instance is built, so any other L raises).
+    Every CTA loops over the G lanes (or states) with its
     slab, so G does not change the geometry.
 
     The widest panel whose slab holds all d rows in the smallest cluster
@@ -113,9 +115,10 @@ def cluster_plan(g: int, d: int, n: int, dtype: torch.dtype, sms: int,
     SM, as many rows as fit) the rest of d is the tail, split over the
     cluster."""
     L = states_per_pass
-    if g < 1 or d < 1 or n < 1 or L < 1:
+    if g < 1 or d < 1 or n < 1 or L not in STATES_PER_PASS:
         raise ValueError(f"cluster_plan: G={g}, d={d}, n={n}, "
-                         f"states_per_pass={L}")
+                         f"states_per_pass={L} (instances: "
+                         f"{STATES_PER_PASS})")
     elem = torch.empty((), dtype=dtype).element_size()
     for per_sm, budget in SMEM_PER_CTA.items():
         for bn in WIDTHS:
@@ -172,7 +175,7 @@ def kernel_info(dtype, plan: ClusterPlan) -> dict:
 
 
 def log1p_check() -> int:
-    """The floats a in [0, 1] where the engine's branch-free log1pf and
+    """The floats a in [0, 1] where the kernels' branch-free log1pf and
     the CUDA math library's log1pf differ in a bit: all 1,065,353,217 are
     tried on the card (0 expected)."""
     fn = _build.load("logistic_gains").logistic_log1p_check

@@ -485,8 +485,8 @@ def test_logistic_wrappers_reject_what_the_kernel_cannot_take(cuda):
 
 
 def test_logistic_branch_free_log1pf_is_log1pf(cuda):
-    """The engine's closing pass takes log1pf's fast path without its
-    branch for special arguments: the same bits as the library's log1pf
+    """The logistic kernels take log1pf's fast path without its branch
+    for special arguments: the same bits as the library's log1pf
     at every float in [0, 1] (the range of e^(−|v|))."""
     from repro_torch.kernels.logistic_gains.ops import log1p_check
 

@@ -50,6 +50,7 @@ from repro_torch.kernels.marginal_gains import (  # noqa: E402
 from repro_torch.kernels.logistic_gains.ops import (  # noqa: E402
     ENGINE_STATES_PER_PASS,
     SMEM_PER_CTA,
+    STATES_PER_PASS,
     cluster_plan as logistic_cluster_plan,
     scratch_bytes as lg_scratch_bytes,
     smem_bytes as lg_smem_bytes,
@@ -227,49 +228,51 @@ def _pr18_smem_bytes(rows, bn, elem):
     return -(-rows * bn * elem // 16) * 16 + 16 * rows + 4 * 64 * 11
 
 
-@pytest.mark.parametrize("states_per_pass", [1, 2, 4])
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("states_per_pass", STATES_PER_PASS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,n", CLUSTER_PLAN_SHAPES)
-def test_logistic_cluster_plan_covers_d_once(d, n, dtype, states_per_pass):
-    """The geometry of the card's logistic kernel at L states per pass:
-    every row of d lies in exactly one CTA's slab or in exactly one CTA's
-    tail, no slab is empty, the cluster is portable, a CTA's shared memory
-    (slab, L state records and a label per row, scratch for L states)
-    fits the card (and two CTAs share an SM where the plan says so), the
-    grid is C per panel, the plan does not depend on the state count, and
-    at L = 1 it is the singleton sweep's plan as it was."""
+def test_logistic_cluster_plan_covers_d_once(d, n, dtype, states_per_pass,
+                                             sms):
+    """The geometry of the card's logistic kernel at L states per pass
+    (each instance that is built) on a card of ``sms`` SMs: every row of
+    d lies in exactly one CTA's slab or in exactly one CTA's tail, no slab
+    is empty, the cluster is portable, a CTA's shared memory (slab, L
+    state records and a label per row, scratch for L states) fits the
+    card (and two CTAs share an SM where the plan says so), the grid is C
+    per panel, the plan does not depend on the state count, and at L = 1
+    it is the singleton sweep's plan as it was."""
     L = states_per_pass
     elem = torch.empty((), dtype=dtype).element_size()
-    for sms in (132, 8):
-        p = logistic_cluster_plan(1, d, n, dtype, sms, L)
-        for g in (6, 7, 48):  # G-free
-            assert p == logistic_cluster_plan(g, d, n, dtype, sms, L)
-        assert p.states_per_pass == L
-        assert p.cluster in (1, 2, 4, 8) and p.bn in (4, 8, 16, 32)
-        assert p.ctas == -(-n // p.bn) * p.cluster
-        assert p.smem_bytes == lg_smem_bytes(p.rows, p.bn, elem, L)
-        assert p.smem_bytes <= SMEM_PER_CTA[p.ctas_per_sm]
-        assert p.smem_bytes <= 232_448  # the card's 227 KB per CTA
-        if L == 1:
-            assert p == logistic_cluster_plan(1, d, n, dtype, sms)
-            assert p.smem_bytes == _pr18_smem_bytes(p.rows, p.bn, elem)
-        cover = np.zeros(d, np.int64)
-        for c in range(p.cluster):
-            lo, hi = c * p.rows, min((c + 1) * p.rows, d)
-            assert lo < hi, (d, n, p)
-            cover[lo:hi] += 1
-            t0 = p.cluster * p.rows + c * p.tail_per_cta
-            cover[t0:min(t0 + p.tail_per_cta, d)] += 1
-        assert (cover == 1).all(), (d, n, p)
-        assert p.tail_rows == max(0, d - p.cluster * p.rows)
-        # A tail only past the largest capacity: 8 CTAs of BN = 4, one
-        # per SM, as many rows as fit.
-        cap = 8 * ((SMEM_PER_CTA[1] - lg_scratch_bytes(4, L) - 16)
-                   // (4 * elem + 8 * L + 8))
-        assert (p.tail_rows > 0) == (d > cap), (d, cap, p)
-        if p.tail_rows:
-            assert (p.bn, p.cluster, p.ctas_per_sm, p.rows) == (4, 8, 1,
-                                                               cap // 8)
+    p = logistic_cluster_plan(1, d, n, dtype, sms, L)
+    for g in (6, 7, 48):  # G-free
+        assert p == logistic_cluster_plan(g, d, n, dtype, sms, L)
+    assert p.states_per_pass == L
+    assert p.cluster in (1, 2, 4, 8) and p.bn in (4, 8, 16, 32)
+    assert p.ctas == -(-n // p.bn) * p.cluster
+    assert p.smem_bytes == lg_smem_bytes(p.rows, p.bn, elem, L)
+    assert p.smem_bytes <= SMEM_PER_CTA[p.ctas_per_sm]
+    assert p.smem_bytes <= 232_448  # the card's 227 KB per CTA
+    if L == 1:
+        assert p == logistic_cluster_plan(1, d, n, dtype, sms)
+        assert p.smem_bytes == _pr18_smem_bytes(p.rows, p.bn, elem)
+    cover = np.zeros(d, np.int64)
+    for c in range(p.cluster):
+        lo, hi = c * p.rows, min((c + 1) * p.rows, d)
+        assert lo < hi, (d, n, p)
+        cover[lo:hi] += 1
+        t0 = p.cluster * p.rows + c * p.tail_per_cta
+        cover[t0:min(t0 + p.tail_per_cta, d)] += 1
+    assert (cover == 1).all(), (d, n, p)
+    assert p.tail_rows == max(0, d - p.cluster * p.rows)
+    # A tail only past the largest capacity: 8 CTAs of BN = 4, one per
+    # SM, as many rows as fit.
+    cap = 8 * ((SMEM_PER_CTA[1] - lg_scratch_bytes(4, L) - 16)
+               // (4 * elem + 8 * L + 8))
+    assert (p.tail_rows > 0) == (d > cap), (d, cap, p)
+    if p.tail_rows:
+        assert (p.bn, p.cluster, p.ctas_per_sm, p.rows) == (4, 8, 1,
+                                                           cap // 8)
 
 
 def test_logistic_cluster_plan_holds_greedy_on_chip():
@@ -295,16 +298,33 @@ def test_logistic_engine_plan_holds_the_lattice_on_chip():
     117,760 bytes with four states' records), all of X on chip; the same
     plan for 1, 7 and 48 states."""
     L = ENGINE_STATES_PER_PASS
-    assert L in (2, 4)
-    want = {torch.float32: 112_128, torch.bfloat16: 79_360} if L == 4 else {}
+    assert L == 4
+    want = {torch.float32: 112_128, torch.bfloat16: 79_360}
     for dtype in (torch.float32, torch.bfloat16):
         p = logistic_cluster_plan(48, 8192, 8192, dtype, 132, L)
         assert (p.cluster, p.rows, p.bn, p.ctas_per_sm, p.tail_rows) == (
-            8, 1024, 16 if L == 4 or dtype == torch.float32 else 32, 2, 0)
-        assert p.smem_bytes == want.get(dtype, p.smem_bytes)
+            8, 1024, 16, 2, 0)
+        assert p.smem_bytes == want[dtype]
         assert p == logistic_cluster_plan(1, 8192, 8192, dtype, 132, L)
         assert p == logistic_cluster_plan(7, 8192, 8192, dtype, 132, L)
     assert lg_smem_bytes(1024, 32, 2, 4) == 117_760 > SMEM_PER_CTA[2]
+
+
+@pytest.mark.parametrize("states_per_pass", [0, 2, 3, 8])
+def test_logistic_cluster_plan_rejects_an_instance_not_built(states_per_pass):
+    """The kernel is built at L = 1 and ENGINE_STATES_PER_PASS states per
+    pass only: the wrapper side plans no other instance."""
+    with pytest.raises(ValueError, match="states_per_pass"):
+        logistic_cluster_plan(48, 8192, 8192, torch.float32, 132,
+                              states_per_pass)
+
+
+def test_logistic_engine_states_per_pass_is_the_kernels():
+    """ENGINE_STATES_PER_PASS names the instance that
+    csrc/logistic_gains.cu builds as ENGINE_L."""
+    src = (REPO / "src/repro_torch/kernels/csrc/logistic_gains.cu").read_text()
+    got = re.findall(r"constexpr int ENGINE_L = (\d+);", src)
+    assert got == [str(ENGINE_STATES_PER_PASS)]
 
 
 def test_cpu_wrappers_count_no_launches():
