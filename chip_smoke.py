@@ -20,7 +20,10 @@ exits nonzero, with no result line) when a check fails:
                version's, under rtol 2e-4 and atol 2e-4 + ε_f32·√d·ℓ_abs;
                both logistic kernels (6 and 7, one template) also bitwise
                equal in two calls, their cluster plans logged, and past
-               their on-chip capacity (d = 100,000)
+               their on-chip capacity (d = 100,000); the regression
+               kernels 1 and 3 bitwise equal in two calls, kernel 3's
+               stacked basis width, split of d and copy width logged;
+               kernel 5 also at b = 128 (two rounds of 64 columns)
   4. main    — the port's quickstart (greedy, DASH over 6 OPT guesses
                × 8 samples, TOP-K, RANDOM) on the paper's D1 protocol at
                d = n = 8192, k = 128, with the kernels' launch counters
@@ -67,7 +70,8 @@ exits nonzero, with no result line) when a check fails:
                version and a library call, beside the kernel's bound
                from its shapes and the H100 SXM peaks (kernel 8 at the lm
                main prefill shape, SDPA with the same mask as its
-               yardstick)
+               yardstick); kernel 3's workspace bytes, registers, spills
+               and shared memory per CTA; kernel 5 at b = 128
  15. profile — greedy and DASH of the main phase, DASH of the design
                main phase, greedy and DASH of the classification main
                phase, one lm prefill and four
@@ -85,6 +89,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -196,13 +201,14 @@ REPLACES = {
         "src/repro/kernels/filter_gains/kernel_logistic.py:55",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:88",
 }
-# Device kernels per counted wrapper call: the regression singleton sweep
-# is a split-d partial pass plus its fixed-order epilogue; the regression
-# filter engine is a base pass over the G guess bases plus a sample pass
-# over the G*m states; the A-optimality engine is one launch over the G*m
-# states; the logistic singleton sweep and the logistic engine (one kernel
-# template, at 1 and at several states per pass) make their old
-# log-likelihood terms inside their one launch.
+# Hand-written device kernels per counted wrapper call: the regression
+# singleton sweep is a split-d partial pass plus its fixed-order epilogue;
+# the regression filter engine is the same partial pass over one stacked
+# basis of the G guess bases and the G*m states plus its own epilogue
+# (after PyTorch copies that pack the basis); the A-optimality engine is
+# one launch over the G*m states; the logistic singleton sweep and the
+# logistic engine (one kernel template, at 1 and at several states per
+# pass) make their old log-likelihood terms inside their one launch.
 LAUNCHES_PER_CALL = {"regression_gains": 2, "filter_gains": 2,
                      "aopt_gains": 1, "aopt_filter_gains": 1,
                      "logistic_gains": 1, "logistic_filter_gains": 1,
@@ -319,6 +325,7 @@ def phase_kernels(torch, cases):
         regression_gains_ref,
     )
 
+    from repro_torch.kernels.filter_gains.ops import engine_plan
     from repro_torch.kernels.marginal_gains.ops import split_plan, wide_copies
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -341,11 +348,22 @@ def phase_kernels(torch, cases):
                 f"deterministic={'yes' if same else 'NO'}")
             need(same, f"regression_gains {prec} differs between two calls "
                        f"at d={d} n={n} k={k} G={g}")
+            fgains = filter_gains(X, Q, D, R, csq, precision=prec)
+            fsame = torch.equal(fgains, filter_gains(X, Q, D, R, csq,
+                                                     precision=prec))
+            plan, fs, _ = engine_plan(g, m, d, n, k, b, sms)
+            fwide = wide_copies(X.to(stream_dtype(prec)),
+                                torch.empty((1, plan.kp), device="cuda"))
+            log(f"[kernels] filter_gains {prec:4s} d={d} n={n} k={k} b={b} "
+                f"m={m} G={g}: stacked kp={plan.kp} ({plan.width} vectors) "
+                f"S={fs} copies={'16-byte' if fwide else 'element'} "
+                f"deterministic={'yes' if fsame else 'NO'}")
+            need(fsame, f"filter_gains {prec} differs between two calls "
+                        f"at d={d} n={n} k={k} b={b} m={m} G={g}")
             for name, got, want in (
                 ("regression_gains", gains,
                  regression_gains_ref(Xq, Q, r, csq)),
-                ("filter_gains",
-                 filter_gains(X, Q, D, R, csq, precision=prec),
+                ("filter_gains", fgains,
                  filter_gains_lattice_ref(Xq, Q, D, R, csq)),
             ):
                 torch.cuda.synchronize()
@@ -1366,6 +1384,11 @@ def phase_timing(torch, worst, launches):
         regression_gains,
         regression_gains_ref,
     )
+    from repro_torch.kernels.filter_gains.ops import (
+        engine_plan,
+        kernel_info as engine_info,
+        workspace_elems as engine_workspace_elems,
+    )
     from repro_torch.kernels.marginal_gains.ops import (
         kernel_info,
         split_plan,
@@ -1413,6 +1436,18 @@ def phase_timing(torch, worst, launches):
                                           + G * m * d + n + G * m * n))
         t2 = time_ms(torch, lambda: filter_gains(Xs, Q, D, R, csq,
                                                  precision=prec))
+        plan, fs, frows = engine_plan(G, m, d, n, k, b, sms)
+        finfo = engine_info(Xs.dtype)
+        log(f"[timing] filter_gains     {prec:4s} G={G} m={m}: "
+            f"kernel_ms={t2:.4f} achieved "
+            f"{2.0 * d * n * plan.width / t2 / 1e9:.1f} TFLOP/s "
+            f"({2.0 * d * n * plan.kp / t2 / 1e9:.1f} with the padding); "
+            f"stacked kp={plan.kp} ({plan.width} vectors), S={fs} ({frows} "
+            f"rows per slice), workspace "
+            f"{4 * engine_workspace_elems(plan, n, fs)} bytes; partial "
+            f"kernel {finfo['registers']} registers/thread, "
+            f"{finfo['spill_bytes']} spill bytes, {finfo['smem_bytes']} B "
+            f"shared/CTA, {finfo['ctas_per_sm']} CTAs/SM")
         p2 = time_ms(torch, lambda: filter_gains_lattice_ref(Xq, Q, D, R,
                                                              csq))
         lib1 = lib2 = None
@@ -1454,6 +1489,10 @@ def phase_aopt_timing(torch, worst, launches):
     from repro_torch.kernels.filter_gains import (
         aopt_filter_gains,
         aopt_filter_gains_lattice_ref,
+    )
+    from repro_torch.kernels.filter_gains.ops import (
+        AOPT_ROUND_B,
+        aopt_scratch_elems,
     )
 
     d, n = DESIGN["d"], DESIGN["n"]
@@ -1512,6 +1551,23 @@ def phase_aopt_timing(torch, worst, launches):
                     "bound_ms": bd, "bound_by": by, "library_ms": lib,
                 })
         del Xs, Ws, Xq, Wq
+    # aopt_filter_gains past one pass: b = 128 Woodbury columns per sample
+    # in two rounds, at the 6 lanes of one α.
+    g, wb = DESIGN["n_guesses"], 2 * AOPT_ROUND_B
+    Ew = torch.randn((g, m, d, wb), device="cuda") * (0.1 / math.sqrt(d))
+    Fw = Ew.transpose(-1, -2) @ Ew
+    Wg = W[:g]
+    tw = time_ms(torch, lambda: aopt_filter_gains(X, Wg, Ew, Fw, isig2),
+                 iters=3, warmup=1)
+    bw, byw = bound(4.0 * d * n * g
+                    + g * m * n * (4.0 * d * wb + 2.0 * wb * wb
+                                   + 6.0 * wb + 6.0),
+                    4 * d * n * (1 + g) + 4 * g * m * (d * wb + wb * wb + n))
+    log(f"[timing] aopt_filter_gains f32  G={g:2d} b={wb} (rounds of "
+        f"{AOPT_ROUND_B}): kernel_ms={tw:.4f} bound_ms={bw:.4f} ({byw}) "
+        f"bound/kernel={bw / tw:.3f}; scratch "
+        f"{4 * aopt_scratch_elems(g, m, n, wb)} bytes")
+    del Ew, Fw, Wg
     log(f"[timing] shapes: d={d} n={n} m={m} b={b}; aopt_gains at G=1 "
         f"(no single library call computes it), aopt_filter_gains over "
         f"G*m states at G={DESIGN_LANES} (the design lattice) and "
@@ -1690,6 +1746,10 @@ def lm_profile_runs(torch, lm):
             "lm decode x4": decode4}
 
 
+# The kernels of csrc/*.cu by name, as the profiler lists them.
+OWN_KERNEL = re.compile(r"gains_|epilogue_kernel|aopt_filter|flash_")
+
+
 def phase_profile(torch, runs):
     """Replay each run under torch.profiler."""
     from torch.autograd import DeviceType
@@ -1714,7 +1774,10 @@ def phase_profile(torch, runs):
             continue
         log(f"[profile] {algo}: wall_s={wall:.4f} device_busy_s={busy:.4f} "
             f"busy_share={busy / wall:.4f} (under the profiler)")
-        for e in sorted(events, key=_device_us, reverse=True)[:8]:
+        ranked = sorted(events, key=_device_us, reverse=True)
+        # The 8 largest, then the port's own kernels further down.
+        for e in ranked[:8] + [e for e in ranked[8:]
+                               if OWN_KERNEL.search(e.key)]:
             log(f"[profile]   {_device_us(e) / 1e3:10.3f} ms  "
                 f"{e.count:6d} calls  {e.key[:90]}")
 
@@ -1743,6 +1806,7 @@ def main() -> int:
         (513, 777, 130, 17, 2, 3),      # k, b above one basis tile
         (1023, 777, 37, 3, 2, 2),       # S > 1, ragged slice; element copies
         (24, 1000, 4, 1, 2, 1),         # d below one 32-row stage
+        (600, 500, 120, 10, 2, 1),      # a state's segment across a tile
     ])
     dd, dn, dk, dm = (DESIGN["d"], DESIGN["n"], DESIGN["k"],
                       DESIGN["n_samples"])
@@ -1752,7 +1816,8 @@ def main() -> int:
         (dd, dn, 1, dm, DESIGN_BLOCK, dk - 1, 1.0),  # greedy's last state
         (1000, 1537, 2, 3, 1, 5, 0.5),   # ragged d and n, b = 1, σ² ≠ 1
         (257, 513, 2, 4, 0, 7, 1.0),     # b = 0: the singleton gain
-        (513, 777, 3, 2, 64, 9, 1.0),    # b at the cap: 8 groups of 8
+        (513, 777, 3, 2, 64, 9, 1.0),    # b at one pass: 8 groups of 8
+        (dd, 4099, 2, 4, 128, 40, 1.0),  # b = 128: two rounds of 64
         (100, 300, 1, 9, 3, 3, 2.0),     # m above one CTA's 8 samples
         (dd, 4099, 2, 8, 17, 40, 1.0),   # 3 groups, ragged last group
     ]))

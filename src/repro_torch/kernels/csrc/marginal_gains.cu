@@ -17,238 +17,26 @@
 // breaks the 2e-4 parity with the f32 reference.
 //
 // Design, two kernels per call:
-//   1. gains_partial_kernel, grid (G · basis tiles, ⌈n / BN⌉, S).  Each
-//      CTA reduces one contiguous slice of d (rows_per_slice rows, a
-//      multiple of TR) for a BM-basis × BN-column tile, so one lane fills
-//      the card: the wrapper picks S (ops.py::split_plan) from G, d, n, k
-//      and the SM count.  256 threads each keep an 8 × 8 register tile of
-//      Q_gᵀX (64 FMAs per 4 shared-memory vector loads), and the c of
-//      their 8 columns over 2 of every TR rows.  The CTA writes its
-//      partial projections and c to a workspace (S, G, kp + 1, np).
+//   1. gains_partial_kernel<T, WIDE, DO_C = true> of split_proj.cuh, grid
+//      (G · basis tiles, ⌈n / BN⌉, S).  Each CTA reduces one contiguous
+//      slice of d for a 128-basis × 128-column tile, so one lane fills the
+//      card: the wrapper picks S (ops.py::split_plan) from G, d, n, k and
+//      the SM count.  The CTA writes its partial projections and c to a
+//      workspace (S, G, kp + 1, np).  The filter engine (filter_gains.cu)
+//      runs the same kernel without c.
 //   2. gains_epilogue_kernel sums the S partials of each (basis vector,
 //      column) in a fixed order, squares, sums over the basis and applies
 //      the gain and the span guard.  No atomics: two calls on the same
 //      inputs give bitwise-equal gains, so greedy's argmax cannot flip
 //      between runs on a near-tie.
-// Staging: a 3-stage cp.async ring of TR-row stages of X (upcast on use),
-// Q and r in shared memory, one barrier per stage: the copies of stage
-// t + 2 are in flight while stage t is multiplied.  The copies are 16
-// bytes where every row of X and Q is 16-byte aligned ("wide", the
-// wrapper's choice from n, k and the pointers) and one element each
-// otherwise (4-byte cp.async; plain loads for bf16, which cp.async cannot
-// copy alone).  Ragged d, n and k are zero-filled, no row is read past its
-// end, and k = 0 still computes c.
-#include <cstdint>
-
-#include "stream.cuh"
-
-using namespace repro_torch;
+// The header describes the staging (a 3-stage cp.async ring, 16-byte or
+// element copies) and the 8 × 8 register tile.
+#include "split_proj.cuh"
 
 namespace {
 
-constexpr int BM = 128;       // basis vectors per CTA tile
-constexpr int BN = 128;       // columns per CTA tile
-constexpr int TR = 32;        // rows of d per stage
-constexpr int STAGES = 3;     // depth of the cp.async ring
-constexpr int THREADS = 256;  // 16 × 16 threads, an 8 × 8 tile each
 constexpr int EPI_COLS = 32;  // epilogue CTA: 32 columns × 8 basis strides
 constexpr int EPI_SPLIT = 8;
-
-template <typename T>
-struct Stage {
-  T x[TR][BN];
-  float q[TR][BM];
-  float r[TR];
-};
-
-// The 8 values a thread uses from one staged row: elements 4t..4t+3 and
-// 64+4t..64+4t+3 (two conflict-free vector loads per warp).
-__device__ __forceinline__ void load8(const float* row, int t, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(row + 4 * t);
-  const float4 b = *reinterpret_cast<const float4*>(row + 64 + 4 * t);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* row, int t,
-                                      float (&v)[8]) {
-  const uint2 a = *reinterpret_cast<const uint2*>(row + 4 * t);
-  const uint2 b = *reinterpret_cast<const uint2*>(row + 64 + 4 * t);
-  const uint32_t w[4] = {a.x, a.y, b.x, b.y};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16 → f32 is exact: the high half
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// BYTES from global src to shared dst without passing through registers;
-// dst is zero-filled and src not read when !ok.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool ok) {
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(ok ? 16 : 0)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(ok ? 4 : 0)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// TR × COLS tile of src (row stride ld) from (r0, c0) into dst, zero
-// outside rows < r1 and columns < c1.  WIDE: 16-byte copies, which needs
-// every source row 16-byte aligned; a copy is then wholly in or out.  A
-// thread's copies share one column and step RSTEP rows apart, so each
-// costs a pointer increment and one row test.
-template <bool WIDE, int COLS, typename T>
-__device__ __forceinline__ void stage_tile(T (*dst)[COLS], const T* src,
-                                           long long ld, int r0, int r1,
-                                           int c0, int c1, int tid) {
-  constexpr int CH = WIDE ? 16 / sizeof(T) : 1;  // elements per copy
-  constexpr int CPR = COLS / CH;                 // copies per row
-  constexpr int RSTEP = THREADS / CPR;
-  const int row = tid / CPR, cc = (tid % CPR) * CH;
-  const bool col_ok = c0 + cc < c1;
-  const T* p = src + (long long)(r0 + row) * ld + c0 + cc;
-#pragma unroll
-  for (int i = 0; i < TR / RSTEP; ++i, p += RSTEP * ld) {
-    const bool ok = col_ok && r0 + row + i * RSTEP < r1;
-    T* d = &dst[row + i * RSTEP][cc];
-    if constexpr (WIDE)
-      cp_async<16>(d, ok ? p : src, ok);
-    else if constexpr (sizeof(T) == 4)
-      cp_async<4>(d, ok ? p : src, ok);
-    else
-      *d = ok ? *p : stream_zero<T>();
-  }
-}
-
-template <typename T, bool WIDE>
-__global__ void __launch_bounds__(THREADS, 2)
-gains_partial_kernel(const T* __restrict__ X, int d, int n, int G,
-                     const float* __restrict__ Q, int k,
-                     const float* __restrict__ R, int rows_per_slice,
-                     float* __restrict__ ws, int kp, int np) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Stage<T>* ring = reinterpret_cast<Stage<T>*>(smem);
-  const int tid = threadIdx.x;
-  // A warp covers 8 column groups × 4 basis groups, so each of its
-  // vector loads of a staged row reads 128 or 64 distinct bytes.
-  const int lane = tid & 31, warp = tid >> 5;
-  const int tx = (warp & 1) * 8 + (lane & 7);
-  const int ty = (warp >> 1) * 4 + (lane >> 3);
-  const int g = blockIdx.x % G, k0 = (blockIdx.x / G) * BM;
-  const int col0 = blockIdx.y * BN;
-  const int r0 = blockIdx.z * rows_per_slice;
-  const int r1 = min(r0 + rows_per_slice, d);
-  const int steps = (r1 - r0 + TR - 1) / TR;
-  const bool do_c = k0 == 0;
-  const float* Qg = Q + (long long)g * d * k;
-  const float* Rg = R + (long long)g * d;
-
-  // Stage t of this slice into ring slot t % STAGES; one commit group per
-  // call, empty past the last stage, so wait_group counts stay uniform.
-  auto issue = [&](int t) {
-    if (t < steps) {
-      Stage<T>& st = ring[t % STAGES];
-      const int s0 = r0 + t * TR;
-      stage_tile<WIDE, BN>(st.x, X, n, s0, r1, col0, n, tid);
-      stage_tile<WIDE, BM>(st.q, Qg, k, s0, r1, k0, k, tid);
-      if (tid < TR) {
-        const bool ok = s0 + tid < r1;
-        cp_async<4>(&st.r[tid], ok ? Rg + s0 + tid : Rg, ok);
-      }
-    }
-    cp_async_commit();
-  };
-
-  float acc[8][8];
-  float c[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    c[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) issue(t);
-  for (int t = 0; t < steps; ++t) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of stage t landed
-    __syncthreads();              // everyone's did; slot (t-1) % 3 is free
-    issue(t + STAGES - 1);
-    const Stage<T>& st = ring[t % STAGES];
-#pragma unroll 8
-    for (int r = 0; r < TR; ++r) {
-      float x[8], b[8];
-      load8(st.x[r], tx, x);
-      load8(st.q[r], ty, b);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x[i], b[j], acc[i][j]);
-    }
-    if (do_c) {
-#pragma unroll
-      for (int h = 0; h < TR / 16; ++h) {
-        float x[8];
-        load8(st.x[ty + 16 * h], tx, x);
-        const float rv = st.r[ty + 16 * h];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) c[i] = fmaf(x[i], rv, c[i]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // Partial projections: row k0 + j of this (slice, lane) block, for the
-  // basis vectors below k; the workspace rows are np ≥ n wide, so the
-  // 16-byte stores need no column mask.
-  float* wsg = ws + ((long long)blockIdx.z * G + g) * (long long)(kp + 1) * np;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int gj = k0 + (j < 4 ? 4 * ty + j : 64 + 4 * ty + j - 4);
-    if (gj >= k) continue;
-    float* row = wsg + (long long)gj * np + col0;
-    *reinterpret_cast<float4*>(row + 4 * tx) =
-        make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
-    *reinterpret_cast<float4*>(row + 64 + 4 * tx) =
-        make_float4(acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
-  }
-  if (!do_c) return;
-  // c over the 16 row classes, summed in a fixed order into row kp.
-  float(*red)[BN] = reinterpret_cast<float(*)[BN]>(smem);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    red[ty][4 * tx + i] = c[i];
-    red[ty][64 + 4 * tx + i] = c[4 + i];
-  }
-  __syncthreads();
-  if (tid < BN) {
-    float s = 0.f;
-#pragma unroll
-    for (int t = 0; t < 16; ++t) s += red[t][tid];
-    wsg[(long long)kp * np + col0 + tid] = s;
-  }
-}
 
 __global__ void __launch_bounds__(EPI_COLS * EPI_SPLIT)
 gains_epilogue_kernel(const float* __restrict__ ws, int S, int G, int n,
@@ -286,57 +74,6 @@ gains_epilogue_kernel(const float* __restrict__ ws, int S, int G, int n,
   out[(long long)g * n + col] = denom > floor_ ? gain : 0.f;
 }
 
-template <typename T>
-constexpr int RING_BYTES = STAGES * sizeof(Stage<T>);
-
-// Lets the kernel take its ring (over the 48 KB default) and two CTAs'
-// rings per SM; once per kernel.
-template <typename T, bool WIDE>
-cudaError_t prepare() {
-  static const cudaError_t err = [] {
-    cudaError_t e = cudaFuncSetAttribute(
-        gains_partial_kernel<T, WIDE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, RING_BYTES<T>);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(gains_partial_kernel<T, WIDE>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    return e;
-  }();
-  return err;
-}
-
-template <typename T, bool WIDE>
-cudaError_t launch(const void* X, int d, int n, int G, const void* Q, int k,
-                   const void* R, int S, int rows_per_slice, float* ws,
-                   int kp, int np, cudaStream_t stream) {
-  const cudaError_t err = prepare<T, WIDE>();
-  if (err != cudaSuccess) return err;
-  const dim3 grid(G * (kp / BM), np / BN, S);
-  gains_partial_kernel<T, WIDE><<<grid, THREADS, RING_BYTES<T>, stream>>>(
-      static_cast<const T*>(X), d, n, G, static_cast<const float*>(Q), k,
-      static_cast<const float*>(R), rows_per_slice, ws, kp, np);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t describe(int* out) {
-  cudaFuncAttributes a;
-  int per_sm = 0;
-  cudaError_t err = prepare<T, true>();
-  if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&a, gains_partial_kernel<T, true>);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, gains_partial_kernel<T, true>, THREADS, RING_BYTES<T>);
-  if (err != cudaSuccess) return err;
-  const int smem = static_cast<int>(a.sharedSizeBytes) + RING_BYTES<T>;
-  const int vals[5] = {a.numRegs, static_cast<int>(a.localSizeBytes), smem,
-                       THREADS, per_sm};
-  for (int i = 0; i < 5; ++i) out[i] = vals[i];
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // X: (d, n) f32 or bf16 (x_bf16 != 0); Q: (G, d, k) f32; R: (G, d) f32;
@@ -362,15 +99,15 @@ extern "C" int regression_gains_launch(const void* X, int x_bf16, int wide,
   float* w = static_cast<float*>(ws);
   cudaError_t err;
   if (x_bf16) {
-    err = wide ? launch<__nv_bfloat16, true>(X, d, n, G, Q, k, R, S,
-                                             rows_per_slice, w, kp, np, s)
-               : launch<__nv_bfloat16, false>(X, d, n, G, Q, k, R, S,
-                                              rows_per_slice, w, kp, np, s);
+    err = wide ? launch_partial<__nv_bfloat16, true, true>(
+                     X, d, n, G, Q, k, R, S, rows_per_slice, w, kp, np, s)
+               : launch_partial<__nv_bfloat16, false, true>(
+                     X, d, n, G, Q, k, R, S, rows_per_slice, w, kp, np, s);
   } else {
-    err = wide ? launch<float, true>(X, d, n, G, Q, k, R, S, rows_per_slice,
-                                     w, kp, np, s)
-               : launch<float, false>(X, d, n, G, Q, k, R, S, rows_per_slice,
-                                      w, kp, np, s);
+    err = wide ? launch_partial<float, true, true>(
+                     X, d, n, G, Q, k, R, S, rows_per_slice, w, kp, np, s)
+               : launch_partial<float, false, true>(
+                     X, d, n, G, Q, k, R, S, rows_per_slice, w, kp, np, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 egrid((n + EPI_COLS - 1) / EPI_COLS, G);
@@ -384,6 +121,6 @@ extern "C" int regression_gains_launch(const void* X, int x_bf16, int wide,
 // described into out[5]: registers per thread, spill (local) bytes,
 // shared-memory bytes per CTA, threads per CTA, CTAs per SM.
 extern "C" int regression_gains_kernel_info(int bf16, int* out) {
-  return static_cast<int>(bf16 ? describe<__nv_bfloat16>(out)
-                               : describe<float>(out));
+  return static_cast<int>(bf16 ? describe_partial<__nv_bfloat16, true>(out)
+                               : describe_partial<float, true>(out));
 }

@@ -1,8 +1,9 @@
 """Wrappers of the sample-batched filter-engine kernels.
 
 On a CUDA tensor ``filter_gains`` (regression epilogue,
-``csrc/filter_gains.cu``: a base pass over the G guess bases and a sample
-pass over the G·m perturbed states), ``aopt_filter_gains``
+``csrc/filter_gains.cu``: the regression singleton sweep's split-d
+partial kernel over one stacked basis of the G guess bases and the G·m
+perturbed states, then a fixed-order epilogue), ``aopt_filter_gains``
 (A-optimality Woodbury epilogue, ``csrc/aopt_filter_gains.cu``: one
 launch over the G·m states) and ``logistic_filter_gains`` (logistic
 Newton-sweep epilogue: one launch of ``csrc/logistic_gains.cu``'s kernel
@@ -14,13 +15,17 @@ launch.  On a CPU tensor they run the plain lattice versions of
 DASH lattice as a leading lane axis instead of batching a kernel under
 ``vmap``.  ``filter_gains.launches``, ``aopt_filter_gains.launches`` and
 ``logistic_filter_gains.launches`` count wrapper calls that launch an
-engine: two device kernels per call for ``filter_gains``, one for
-``aopt_filter_gains`` and ``logistic_filter_gains``.
+engine: two hand-written device kernels per call for ``filter_gains``
+(after the copies that pack its basis), one for ``aopt_filter_gains``
+and ``logistic_filter_gains``.  ``StackPlan``, ``pack_basis`` and
+``engine_plan`` are the regression engine's layout and split of d.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -29,6 +34,7 @@ from repro_torch.kernels.common import (
     check_tensor,
     quantize,
     resolve_precision,
+    sm_count,
     stream_dtype,
     use_kernel,
 )
@@ -43,11 +49,100 @@ from repro_torch.kernels.logistic_gains.ops import (
     check_steps,
     launch as logistic_launch,
 )
+from repro_torch.kernels.marginal_gains.ops import (
+    BASIS_TILE,
+    BLOCK_COLS,
+    CTAS_PER_SM,
+    INFO_KEYS,
+    STAGE_ROWS,
+    split_plan,
+    wide_copies,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P,
-             ctypes.c_float, _P]
-_MAX_COL_BLOCKS = 65535  # gridDim.y of the launch; 64 columns per block
+_ARGTYPES = [_P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+             ctypes.c_float, _I, _I, _P, ctypes.c_longlong, _P]
+_MAX_COL_BLOCKS = 65535  # gridDim.y of the partial kernel: 128-column panels
+
+
+@dataclass(frozen=True)
+class StackPlan:
+    """Column layout of the regression engine's stacked basis (d, kp):
+    the k base vectors of each guess g < G, then for each state
+    s = g·m + i its b delta vectors and its residual r_s, then zero
+    columns up to kp, a multiple of BASIS_TILE (at least one tile)."""
+
+    g: int
+    m: int
+    k: int
+    b: int
+
+    @property
+    def width(self) -> int:
+        """Stacked vectors before the padding: G·k + G·m·(b+1)."""
+        return self.g * self.k + self.g * self.m * (self.b + 1)
+
+    @property
+    def kp(self) -> int:
+        return BASIS_TILE * max(1, -(-self.width // BASIS_TILE))
+
+    def base_cols(self, g: int) -> range:
+        """Columns of guess g's base vectors Q_g."""
+        return range(g * self.k, (g + 1) * self.k)
+
+    def state_cols(self, s: int) -> range:
+        """Columns of state s's deltas D_s; its residual follows them."""
+        lo = self.g * self.k + s * (self.b + 1)
+        return range(lo, lo + self.b)
+
+    def resid_col(self, s: int) -> int:
+        return self.g * self.k + s * (self.b + 1) + self.b
+
+
+def pack_basis(Q, D, R, plan: StackPlan) -> torch.Tensor:
+    """The stacked basis (d, kp) f32 of ``plan`` from Q (G, d, k), D (G, m,
+    d, b) and R (G, m, d), on their device: a few copies."""
+    g, d, k = Q.shape
+    gm, b = plan.g * plan.m, plan.b
+    B = torch.empty((d, plan.kp), dtype=torch.float32, device=Q.device)
+    B[:, :g * k].view(d, g, k).copy_(Q.permute(1, 0, 2))
+    states = B[:, g * k:plan.width].view(d, gm, b + 1)
+    states[:, :, :b].copy_(D.reshape(gm, d, b).permute(1, 0, 2))
+    states[:, :, b].copy_(R.reshape(gm, d).t())
+    B[:, plan.width:].zero_()
+    return B
+
+
+@functools.lru_cache(maxsize=None)
+def engine_plan(g: int, m: int, d: int, n: int, k: int, b: int,
+                sms: int) -> tuple[StackPlan, int, int]:
+    """(stack plan, S, rows per slice): the partial kernel runs one lane
+    of kp basis vectors over S contiguous slices of d.
+
+    S starts from the regression sweep's split (``split_plan``: one wave
+    of CTA slots, S = 1 once the basis tiles and column panels fill it)
+    and takes up to 3 more slices where that shortens the waves: a grid
+    of c CTAs per slice on w slots takes about ⌈S·c/w⌉ / S of one
+    unsplit CTA's time.  At the regression lattice on the H100 (704 CTAs
+    per slice, 264 slots) S = 3 fills its last wave."""
+    plan = StackPlan(g, m, k, b)
+    s, rows = split_plan(1, d, n, plan.kp, sms)
+    ctas = plan.kp // BASIS_TILE * -(-n // BLOCK_COLS)
+    slots = CTAS_PER_SM * sms
+    stages = -(-d // STAGE_ROWS)
+    waves = -(-s * ctas // slots)
+    for more in range(s + 1, min(s + 3, stages) + 1):
+        r = -(-stages // more) * STAGE_ROWS
+        t = -(-d // r)                     # slices that hold rows
+        w = -(-t * ctas // slots)
+        if w * s < waves * t:              # w / t < waves / s
+            s, rows, waves = t, r, w
+    return plan, s, rows
+
+
+def workspace_elems(plan: StackPlan, n: int, s: int) -> int:
+    """f32 elements of the (S, kp, np) partial workspace."""
+    return s * plan.kp * BLOCK_COLS * -(-n // BLOCK_COLS)
 
 
 def _library():
@@ -55,6 +150,20 @@ def _library():
     fn = lib.filter_gains_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
+
+
+def kernel_info(dtype) -> dict:
+    """Registers, spill bytes, shared memory, threads and CTAs per SM of
+    the partial kernel that ``filter_gains`` launches for X in ``dtype``
+    (needs the card: it asks the CUDA runtime)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"filter_gains: no kernel for {dtype}")
+    fn = _build.load("filter_gains").filter_gains_kernel_info
+    fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], ctypes.c_int
+    out = (_I * len(INFO_KEYS))()
+    _build.check(fn(int(dtype == torch.bfloat16), out),
+                 "filter_gains_kernel_info")
+    return dict(zip(INFO_KEYS, out))
 
 
 def _launch(X, Q, D, R, col_sq, span_tol):
@@ -67,18 +176,21 @@ def _launch(X, Q, D, R, col_sq, span_tol):
     check_tensor("D", D, (g, m, d, b), (torch.float32,), dev)
     check_tensor("R", R, (g, m, d), (torch.float32,), dev)
     check_tensor("col_sq", col_sq, (n,), (torch.float32,), dev)
-    if g < 1 or m < 1 or n < 1 or -(-n // 64) > _MAX_COL_BLOCKS:
+    if g < 1 or m < 1 or n < 1 or -(-n // BLOCK_COLS) > _MAX_COL_BLOCKS:
         raise ValueError(
             f"filter_gains: unsupported shape G={g}, m={m}, n={n}")
-    base = torch.empty((g, n), dtype=torch.float32, device=dev)
+    plan, s, rows = engine_plan(g, m, d, n, k, b, sm_count(dev))
+    basis = pack_basis(Q, D, R, plan)
+    elems = workspace_elems(plan, n, s)
+    ws = torch.empty(elems, dtype=torch.float32, device=dev)
     out = torch.empty((g, m, n), dtype=torch.float32, device=dev)
     fn = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(X.data_ptr(), int(X.dtype == torch.bfloat16), d, n, g, m,
-                  Q.data_ptr(), k, D.data_ptr(), b, R.data_ptr(),
-                  col_sq.data_ptr(), base.data_ptr(), out.data_ptr(),
-                  float(span_tol), stream)
+        code = fn(X.data_ptr(), int(X.dtype == torch.bfloat16),
+                  int(wide_copies(X, basis)), d, n, basis.data_ptr(),
+                  plan.kp, g, m, k, b, col_sq.data_ptr(), out.data_ptr(),
+                  float(span_tol), s, rows, ws.data_ptr(), elems, stream)
     _build.check(code, "filter_gains")
     filter_gains.launches += 1
     return out
@@ -109,8 +221,10 @@ filter_gains.launches = 0
 # ---------------------------------------------------------------------------
 
 _AOPT_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, ctypes.c_float,
-                  _P, _P]
-AOPT_MAX_B = 64            # Woodbury columns per sample the kernel holds
+                  _P, ctypes.c_longlong, _P, _P]
+# Woodbury columns per sample that the kernel holds in one pass; a wider
+# b runs in rounds of this many through a (G·m, b, np) scratch of t.
+AOPT_ROUND_B = 64
 _AOPT_MAX_COL_BLOCKS = 65535  # gridDim.y of the launch; 128 columns each
 
 
@@ -119,6 +233,14 @@ def _aopt_library():
     fn = lib.aopt_filter_gains_launch
     fn.argtypes, fn.restype = _AOPT_ARGTYPES, ctypes.c_int
     return fn
+
+
+def aopt_scratch_elems(g: int, m: int, n: int, b: int) -> int:
+    """f32 elements of the kernel's (G·m, b, np) scratch of t: none for
+    b ≤ AOPT_ROUND_B, which runs in one pass."""
+    if b <= AOPT_ROUND_B:
+        return 0
+    return g * m * b * 128 * -(-n // 128)
 
 
 def _aopt_launch(X, W, E, F, isig2):
@@ -130,19 +252,18 @@ def _aopt_launch(X, W, E, F, isig2):
     check_tensor("W", W, (g, d, n), (X.dtype,), dev)
     check_tensor("E", E, (g, m, d, b), (torch.float32,), dev)
     check_tensor("F", F, (g, m, b, b), (torch.float32,), dev)
-    if b > AOPT_MAX_B:
-        raise ValueError(f"aopt_filter_gains: b={b} Woodbury columns per "
-                         f"sample; the kernel holds at most {AOPT_MAX_B}")
     if g < 1 or m < 1 or n < 1 or -(-n // 128) > _AOPT_MAX_COL_BLOCKS:
         raise ValueError(
             f"aopt_filter_gains: unsupported shape G={g}, m={m}, n={n}")
     out = torch.empty((g, m, n), dtype=torch.float32, device=dev)
+    scratch = torch.empty(aopt_scratch_elems(g, m, n, b), dtype=torch.float32,
+                          device=dev)
     fn = _aopt_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(X.data_ptr(), W.data_ptr(), int(X.dtype == torch.bfloat16),
                   d, n, g, m, E.data_ptr(), F.data_ptr(), b, float(isig2),
-                  out.data_ptr(), stream)
+                  scratch.data_ptr(), scratch.numel(), out.data_ptr(), stream)
     _build.check(code, "aopt_filter_gains")
     aopt_filter_gains.launches += 1
     return out

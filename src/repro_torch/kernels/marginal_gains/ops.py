@@ -38,7 +38,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, ctypes.c_float,
              _I, _I, _P, ctypes.c_longlong, _P]
 # regression_gains_kernel_info's out[5], in order (csrc: describe).
-_INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "threads",
+INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "threads",
               "ctas_per_sm")
 
 
@@ -88,10 +88,10 @@ def kernel_info(dtype) -> dict:
         raise ValueError(f"regression_gains: no kernel for {dtype}")
     fn = _build.load("marginal_gains").regression_gains_kernel_info
     fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], ctypes.c_int
-    out = (_I * len(_INFO_KEYS))()
+    out = (_I * len(INFO_KEYS))()
     _build.check(fn(int(dtype == torch.bfloat16), out),
                  "regression_gains_kernel_info")
-    return dict(zip(_INFO_KEYS, out))
+    return dict(zip(INFO_KEYS, out))
 
 
 def wide_copies(X: torch.Tensor, Q: torch.Tensor) -> bool:

@@ -18,6 +18,8 @@ plain version rounds its scores to bf16 before the softmax, the kernel
 keeps them in f32).
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 
@@ -36,7 +38,10 @@ from repro_torch.kernels.filter_gains import (  # noqa: E402
     filter_gains,
     filter_gains_lattice_ref,
 )
-from repro_torch.kernels.filter_gains.ops import AOPT_MAX_B  # noqa: E402
+from repro_torch.kernels.filter_gains.ops import (  # noqa: E402
+    AOPT_ROUND_B,
+    engine_plan,
+)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_ref,
@@ -52,6 +57,11 @@ from repro_torch.kernels.marginal_gains.ops import (  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 TOL = STREAM_PARITY_TOL["f32"]["kernel_vs_ref"]
+
+
+def _digest(t):
+    """sha256 prefix of a tensor's bytes: a stored reading of its bits."""
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 @pytest.fixture
@@ -113,6 +123,45 @@ def test_filter_gains_kernel(cuda, d, n, k, b, m, g, precision):
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
 
 
+# filter_gains' stacked engine: (d, n, k, b, m, G, what the case must be).
+# "split": S > 1; "cross": a state's segment straddles a 128-column tile.
+# n = 4099 takes element copies of X.
+FILTER_ENGINE_SHAPES = [
+    (1000, 300, 7, 4, 2, 1, "split"),       # G = 1: d split over the card
+    (600, 500, 120, 10, 2, 1, "cross"),     # state 0 at columns 120-130
+    (1023, 4099, 37, 3, 2, 2, "split"),     # n = 4099: element copies
+    (257, 513, 6, 0, 3, 2, "split"),        # b = 0
+    (24, 1000, 4, 1, 2, 1, ""),             # d below one 32-row stage
+]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,k,b,m,g,what", FILTER_ENGINE_SHAPES)
+def test_filter_gains_engine_shapes(cuda, d, n, k, b, m, g, what, precision):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan, s, _ = engine_plan(g, m, d, n, k, b, sms)
+    if what == "split":
+        assert s > 1
+    elif what == "cross":
+        assert plan.state_cols(0).start // 128 != plan.resid_col(0) // 128
+    X, Q, D, R, csq = _problem(cuda, d, n, k, b, m, g)
+    got = filter_gains(X, Q, D, R, csq, precision=precision)
+    torch.cuda.synchronize()
+    want = filter_gains_lattice_ref(quantize(X, precision), Q, D, R, csq)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,k,b,m,g", [(1000, 300, 7, 4, 2, 1),
+                                         (513, 777, 130, 17, 3, 2)])
+def test_filter_gains_is_deterministic(cuda, d, n, k, b, m, g, precision):
+    """The S partials of each basis vector are added in a fixed order: two
+    calls on the same inputs give the same bits."""
+    X, Q, D, R, csq = _problem(cuda, d, n, k, b, m, g)
+    a = filter_gains(X, Q, D, R, csq, precision=precision)
+    assert torch.equal(a, filter_gains(X, Q, D, R, csq, precision=precision))
+
+
 # regression_gains' split-d kernel: (d, n, k, G, S > 1 expected, 16-byte
 # copies expected in f32).  S comes from split_plan with the card's SMs.
 REGRESSION_SPLIT_SHAPES = [
@@ -154,6 +203,35 @@ def test_regression_gains_is_deterministic(cuda, d, n, k, g, precision):
     a = regression_gains(X, Q, r, csq, precision=precision)
     b = regression_gains(X, Q, r, csq, precision=precision)
     assert torch.equal(a, b)
+
+
+# Kernel 1's outputs on fixed inputs, read on an NVIDIA H100 80GB HBM3
+# (700 W) before its partial kernel moved into split_proj.cuh
+# (scripts/filter_engine_ab.py's digests, parent and change equal):
+# (d, n, k, G) → (f32, bf16) sha256 prefixes of the (G, n) gains.
+REGRESSION_STORED_READINGS = {
+    (1000, 1537, 37, 2): ("149753f0867148bb", "616f7efdb1825d50"),
+    (2048, 4096, 128, 1): ("f3af4a2f51b754b5", "1899db4666c52998"),
+    (257, 1024, 0, 2): ("330df2b59f37228b", "89b847ae9ec64e38"),
+}
+
+
+@pytest.mark.parametrize("shape", list(REGRESSION_STORED_READINGS))
+def test_regression_gains_bits_unchanged(cuda, shape):
+    """The shared partial kernel gives kernel 1 the same bits as the
+    stored reading (inputs from numpy alone, small Q so no gain is
+    guarded to 0)."""
+    d, n, k, g = shape
+    rng = np.random.default_rng(list(REGRESSION_STORED_READINGS).index(shape))
+    X = rng.standard_normal((d, n), dtype=np.float32)
+    Q = rng.standard_normal((g, d, k), dtype=np.float32) * np.float32(
+        0.5 / np.sqrt(d))
+    r = rng.standard_normal((g, d), dtype=np.float32)
+    X, Q, r = (torch.from_numpy(a).to(cuda) for a in (X, Q, r))
+    csq = torch.sum(X * X, dim=0)
+    got = tuple(_digest(regression_gains(X, Q, r, csq, precision=p))
+                for p in ("f32", "bf16"))
+    assert got == REGRESSION_STORED_READINGS[shape]
 
 
 def test_wrappers_reject_what_the_kernel_cannot_take(cuda):
@@ -234,7 +312,7 @@ AOPT_SHAPES = [  # d, n, g, m, b, sigma2
     (1000, 1537, 2, 3, 1, 0.5),    # d % 16 != 0, n % 128 != 0, b = 1
     (257, 513, 2, 4, 0, 1.0),      # b = 0: the singleton gain
     (100, 300, 1, 9, 3, 2.0),      # m above the 8 samples of one CTA
-    (129, 333, 3, 2, AOPT_MAX_B, 1.0),   # b at the cap
+    (129, 333, 3, 2, AOPT_ROUND_B, 1.0),   # b at one pass's width
 ]
 
 
@@ -265,12 +343,61 @@ def test_aopt_filter_gains_kernel(cuda, d, n, g, m, b, sigma2, precision):
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,g,m,b", [
+    (513, 777, 2, 3, AOPT_ROUND_B + 1),    # one column past a pass
+    (1024, 4099, 2, 4, 128),               # two full rounds
+    (257, 1000, 1, 3, 300),                # five rounds, the last ragged
+])
+def test_aopt_filter_gains_in_rounds(cuda, d, n, g, m, b, precision):
+    """b > AOPT_ROUND_B: the Woodbury columns in rounds through the
+    scratch of t, on genuine operands."""
+    X, W, E, F, isig2 = _aopt_problem(cuda, d, n, g, m, b, n_sel=9)
+    before = aopt_filter_gains.launches
+    got = aopt_filter_gains(X, W, E, F, isig2, precision=precision)
+    torch.cuda.synchronize()
+    assert aopt_filter_gains.launches == before + 1
+    want = aopt_filter_gains_lattice_ref(quantize(X, precision),
+                                         quantize(W, precision), E, F, isig2)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+# Kernel 5's one-pass outputs (b ≤ 64) on fixed inputs, read on an NVIDIA
+# H100 80GB HBM3 (700 W) from the kernel as it was before b > 64 ran in
+# rounds (scripts/filter_engine_ab.py's digests, parent and change equal):
+# (d, n, G, m, b) → (f32, bf16) sha256 prefixes of the (G, m, n) gains.
+# A new CUDA toolkit may compile other bits: read them again from the
+# parent commit then.
+AOPT_STORED_READINGS = {
+    (1024, 4096, 2, 8, 8): ("6757b4ec81971f8c", "f6a3f97b6b1b5c00"),
+    (513, 777, 3, 2, 64): ("e56643bd12c57a6b", "d43fb01bcfab9de7"),
+    (100, 300, 1, 9, 3): ("625d710980cfa817", "9b025f74563f7d24"),
+    (257, 513, 2, 4, 0): ("e3aa9866bb3fddeb", "f54757c54f90e077"),
+}
+
+
+@pytest.mark.parametrize("shape", list(AOPT_STORED_READINGS))
+def test_aopt_filter_gains_one_pass_bits_unchanged(cuda, shape):
+    """b ≤ 64 keeps its one-pass kernel: the same bits as the stored
+    reading.  Inputs from numpy alone (no LAPACK), so every host makes
+    the same ones: W ≈ X / 2, small E, a symmetric F."""
+    d, n, g, m, b = shape
+    rng = np.random.default_rng(10 + list(AOPT_STORED_READINGS).index(shape))
+    X = rng.standard_normal((d, n), dtype=np.float32)
+    W = np.float32(0.5) * X + np.float32(0.1) * rng.standard_normal(
+        (g, d, n), dtype=np.float32)
+    E = rng.standard_normal((g, m, d, b), dtype=np.float32) * np.float32(0.01)
+    A = rng.standard_normal((g, m, b, b), dtype=np.float32)
+    F = (A + np.swapaxes(A, -1, -2)) * np.float32(0.5)
+    X, W, E, F = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                  for a in (X, W, E, F))
+    got = tuple(_digest(aopt_filter_gains(X, W, E, F, 0.5, precision=p))
+                for p in ("f32", "bf16"))
+    assert got == AOPT_STORED_READINGS[shape]
+
+
 def test_aopt_wrappers_reject_what_the_kernel_cannot_take(cuda):
     X, W, E, F, isig2 = _aopt_problem(cuda, 64, 100, 1, 2, 3)
-    big = torch.zeros((1, 2, 64, AOPT_MAX_B + 1), device=cuda)
-    big_f = torch.zeros((1, 2, AOPT_MAX_B + 1, AOPT_MAX_B + 1), device=cuda)
-    with pytest.raises(ValueError):
-        aopt_filter_gains(X, W, big, big_f, isig2)               # b > cap
     with pytest.raises(ValueError):
         aopt_filter_gains(X, W, E.double(), F, isig2)            # dtype
     with pytest.raises(ValueError):
@@ -310,6 +437,26 @@ def test_design_dash_on_card_matches_cpu(cuda):
                              torch.ones((1, i), dtype=torch.bool))
         top = torch.topk(obj.gains(st)[0], 2).values
         assert float(top[0] - top[1]) <= 2e-4 * float(top[0]), (i, top)
+    same_set = bool(torch.equal(dc.sel_mask, dg.sel_mask.cpu()))
+    assert same_set or abs(float(dc.value) - float(dg.value)) < 1e-3
+
+
+def test_design_dash_one_round_of_80_on_card_matches_cpu(cuda):
+    """DASH with r = 1 at k = 80 on a design: one block of b = 80 Woodbury
+    columns per sample, past one pass of the engine.  The card selects the
+    CPU's set, or its value agrees within 1e-3."""
+    from repro_torch.core import AOptimalityObjective, dash_auto
+    from repro_torch.core.random import SeedKey
+    from repro_torch.data.synthetic import make_d1_design
+
+    X = make_d1_design(seed=1, n_samples=512, n_features=128)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        obj = AOptimalityObjective(X, 80, device=dev)
+        runs[dev] = dash_auto(obj, 80, SeedKey(0, host=True), eps=0.25,
+                              alpha=0.3, r=1, n_samples=8, n_guesses=6,
+                              device=dev)
+    dc, dg = runs["cpu"], runs["cuda"]
     same_set = bool(torch.equal(dc.sel_mask, dg.sel_mask.cpu()))
     assert same_set or abs(float(dc.value) - float(dg.value)) < 1e-3
 

@@ -60,6 +60,11 @@ from repro_torch.kernels.marginal_gains.ops import (  # noqa: E402
     STAGE_ROWS,
     split_plan,
 )
+from repro_torch.kernels.filter_gains.ops import (  # noqa: E402
+    StackPlan,
+    engine_plan,
+    pack_basis,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = STREAM_PARITY_TOL["f32"]["kernel_vs_ref"]
@@ -209,6 +214,136 @@ def test_regression_split_plan_covers_d_once(g, sms):
     if (g, sms) == (1, 132):
         s, rows = split_plan(1, 8192, 8192, 128, 132)
         assert s > 1 and 64 * s <= CTAS_PER_SM * 132 and s * rows >= 8192
+
+
+# The regression engine's stacked basis: (G, m, k, b, what the case
+# exercises).  "cross": a state's segment straddles a 128-column tile.
+STACK_CASES = [
+    (1, 2, 0, 3, "k = 0"),
+    (2, 3, 5, 0, "b = 0"),
+    (2, 3, 130, 17, "k, b above one tile"),
+    (1, 2, 120, 10, "cross"),
+    (6, 8, 128, 10, "the lattice, G·m = 48"),
+]
+
+
+@pytest.mark.parametrize("g,m,k,b,what", STACK_CASES)
+def test_stack_plan_segments_tile_the_basis(g, m, k, b, what):
+    """Every stacked vector has one column: the G base segments, then per
+    state its b deltas and its residual, in order, then zero padding to
+    kp, the fewest 128-column tiles that hold them."""
+    plan = StackPlan(g, m, k, b)
+    cols = [c for gi in range(g) for c in plan.base_cols(gi)]
+    for s in range(g * m):
+        cols += [*plan.state_cols(s), plan.resid_col(s)]
+    assert cols == list(range(plan.width))
+    assert plan.width == g * k + g * m * (b + 1)
+    assert plan.kp % 128 == 0 and 0 <= plan.kp - plan.width < 128
+    assert plan.kp >= 128
+    crosses = [s for s in range(g * m)
+               if plan.state_cols(s).start // 128 != plan.resid_col(s) // 128]
+    if what == "cross" or (g, m) == (6, 8):
+        assert crosses
+    if (g, m, k, b) == (6, 8, 128, 10):
+        assert (plan.width, plan.kp) == (1296, 1408)
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("g,m,k,b,what", STACK_CASES)
+def test_engine_plan_covers_d_once(g, m, k, b, what, sms):
+    """The engine's split of d starts from the regression sweep's at one
+    lane of kp basis vectors and adds at most 3 slices, only where they
+    shorten the waves (⌈S·c/w⌉ / S of one unsplit CTA's time); the slices
+    cover d once."""
+    slots = CTAS_PER_SM * sms
+    for d in (1, 5, 24, 1000, 1023, 8192):
+        for n in (1, 300, 4099, 8192):
+            plan, s, rows = engine_plan(g, m, d, n, k, b, sms)
+            assert plan == StackPlan(g, m, k, b)
+            s0 = split_plan(1, d, n, plan.kp, sms)[0]
+            assert s0 <= s <= s0 + 3
+            assert rows % STAGE_ROWS == 0
+            cover = np.zeros(d, np.int64)
+            for z in range(s):
+                lo, hi = z * rows, min((z + 1) * rows, d)
+                assert lo < hi
+                cover[lo:hi] += 1
+            assert (cover == 1).all()
+            ctas = plan.kp // 128 * -(-n // 128)
+            assert -(-s * ctas // slots) * s0 <= -(-s0 * ctas // slots) * s
+    # The card test's G = 1 shape splits d; at the regression lattice on
+    # the H100 S = 3 fills the last of 8 waves of 264 slots.
+    assert engine_plan(1, 2, 1000, 300, 7, 4, 132)[1] > 1
+    assert engine_plan(6, 8, 8192, 8192, 128, 10, 132)[1:] == (3, 2752)
+
+
+@pytest.mark.parametrize("g,m,k,b,what", STACK_CASES)
+def test_pack_basis_places_every_segment(g, m, k, b, what):
+    rng = np.random.default_rng(11)
+    d = 24
+    Q, D, R = _t(rng.normal(size=(g, d, k)).astype(np.float32),
+                 rng.normal(size=(g, m, d, b)).astype(np.float32),
+                 rng.normal(size=(g, m, d)).astype(np.float32))
+    plan = StackPlan(g, m, k, b)
+    B = pack_basis(Q, D, R, plan)
+    assert B.shape == (d, plan.kp) and B.is_contiguous()
+    for gi in range(g):
+        assert torch.equal(B[:, plan.base_cols(gi)], Q[gi])
+        for i in range(m):
+            s = gi * m + i
+            assert torch.equal(B[:, plan.state_cols(s)], D[gi, i])
+            assert torch.equal(B[:, plan.resid_col(s)], R[gi, i])
+    assert not B[:, plan.width:].any()
+
+
+def _stacked_gains(X, Q, D, R, csq, span_tol=1e-6):
+    """The engine's formulation in plain torch: pack, one product, sums of
+    squares within each segment, the guarded ratio."""
+    g, m, b = Q.shape[0], D.shape[1], D.shape[3]
+    plan = StackPlan(g, m, Q.shape[2], b)
+    P = pack_basis(Q, D, R, plan).T @ X                       # (kp, n)
+    out = torch.empty((g, m, X.shape[1]))
+    for gi in range(g):
+        base = torch.sum(P[list(plan.base_cols(gi))] ** 2, dim=0)
+        for i in range(m):
+            s = gi * m + i
+            sd = torch.sum(P[list(plan.state_cols(s))] ** 2, dim=0)
+            c = P[plan.resid_col(s)]
+            denom = (csq - base) - sd
+            gain = c * c / torch.clamp(denom, min=1e-30)
+            out[gi, i] = torch.where(denom > span_tol * torch.clamp(csq, min=1.0),
+                                     gain, torch.zeros_like(gain))
+    return out
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,k,b,m,g", [
+    (64, 130, 5, 3, 4, 3),
+    (33, 257, 0, 1, 2, 2),          # k = 0
+    (100, 300, 8, 2, 8, 6),         # G·m = 48
+    (300, 200, 120, 10, 2, 1),      # a state's segment across a tile
+    (513, 140, 130, 17, 2, 2),      # k, b above one tile
+])
+def test_stacked_formulation_matches_jax(d, n, k, b, m, g, precision):
+    """Pack, one product, segment sums: equal to the port's plain version
+    and to the JAX reference and Pallas kernel (interpret mode)."""
+    X, Q, D, R, csq = _problem(12, d, n, k, b, m, g=g)
+    Xq = np.asarray(jax_quantize(jnp.asarray(X), precision))
+    Xt, Qt, Dt, Rt, ct = _t(X, Q, D, R, csq)
+    got = _stacked_gains(quantize(Xt, precision), Qt, Dt, Rt, ct)
+    _close(got, filter_gains_lattice_ref(quantize(Xt, precision), Qt, Dt,
+                                         Rt, ct))
+    _close(got, jax_filter_gains_lattice_ref(Xq, Q, D, R, csq))
+    _close(got, jax_filter_gains(X, Q, D, R, csq, interpret=True,
+                                 precision=precision))
+
+
+def test_stacked_formulation_takes_b_zero():
+    """b = 0: every state is its guess's base with c = r_sᵀx."""
+    X, Q, D, R, csq = _problem(13, 48, 90, 6, 0, 3, g=2)
+    Xt, Qt, Dt, Rt, ct = _t(X, Q, D, R, csq)
+    _close(_stacked_gains(Xt, Qt, Dt, Rt, ct),
+           filter_gains_lattice_ref(Xt, Qt, Dt, Rt, ct))
 
 
 # d, n, dtype: the main shapes (greedy's and DASH's calls share one plan),
