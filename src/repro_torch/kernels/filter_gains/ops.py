@@ -53,8 +53,8 @@ from repro_torch.kernels.marginal_gains.ops import (
     BASIS_TILE,
     BLOCK_COLS,
     CTAS_PER_SM,
-    INFO_KEYS,
     STAGE_ROWS,
+    partial_kernel_info,
     split_plan,
     wide_copies,
 )
@@ -153,17 +153,11 @@ def _library():
 
 
 def kernel_info(dtype) -> dict:
-    """Registers, spill bytes, shared memory, threads and CTAs per SM of
-    the partial kernel that ``filter_gains`` launches for X in ``dtype``
-    (needs the card: it asks the CUDA runtime)."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"filter_gains: no kernel for {dtype}")
-    fn = _build.load("filter_gains").filter_gains_kernel_info
-    fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], ctypes.c_int
-    out = (_I * len(INFO_KEYS))()
-    _build.check(fn(int(dtype == torch.bfloat16), out),
-                 "filter_gains_kernel_info")
-    return dict(zip(INFO_KEYS, out))
+    """The partial kernel that ``filter_gains`` launches for X in
+    ``dtype``: registers, spill bytes, shared memory, threads and CTAs per
+    SM (needs the card)."""
+    return partial_kernel_info("filter_gains", "filter_gains_kernel_info",
+                               dtype)
 
 
 def _launch(X, Q, D, R, col_sq, span_tol):

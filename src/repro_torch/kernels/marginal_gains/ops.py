@@ -37,8 +37,8 @@ _MAX_COL_BLOCKS = 65535  # gridDim.y: 128-column panels; also the lanes G
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, ctypes.c_float,
              _I, _I, _P, ctypes.c_longlong, _P]
-# regression_gains_kernel_info's out[5], in order (csrc: describe).
-INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "threads",
+# describe_partial's out[5], in order (csrc/split_proj.cuh).
+_INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "threads",
               "ctas_per_sm")
 
 
@@ -80,18 +80,25 @@ def _library():
     return fn
 
 
-def kernel_info(dtype) -> dict:
-    """Registers, spill bytes, shared memory, threads and CTAs per SM of
-    the partial kernel that ``regression_gains`` launches for X in
-    ``dtype`` (needs the card: it asks the CUDA runtime)."""
+def partial_kernel_info(library: str, symbol: str, dtype) -> dict:
+    """What ``symbol`` of ``csrc/<library>.cu`` reports of its instance of
+    the split-d partial kernel (``split_proj.cuh::describe_partial``) for
+    X in ``dtype``: registers, spill bytes, shared memory, threads and
+    CTAs per SM (needs the card: it asks the CUDA runtime)."""
     if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"regression_gains: no kernel for {dtype}")
-    fn = _build.load("marginal_gains").regression_gains_kernel_info
+        raise ValueError(f"{library}: no kernel for {dtype}")
+    fn = getattr(_build.load(library), symbol)
     fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], ctypes.c_int
-    out = (_I * len(INFO_KEYS))()
-    _build.check(fn(int(dtype == torch.bfloat16), out),
-                 "regression_gains_kernel_info")
-    return dict(zip(INFO_KEYS, out))
+    out = (_I * len(_INFO_KEYS))()
+    _build.check(fn(int(dtype == torch.bfloat16), out), symbol)
+    return dict(zip(_INFO_KEYS, out))
+
+
+def kernel_info(dtype) -> dict:
+    """The partial kernel that ``regression_gains`` launches for X in
+    ``dtype``, described as ``partial_kernel_info`` says."""
+    return partial_kernel_info("marginal_gains",
+                               "regression_gains_kernel_info", dtype)
 
 
 def wide_copies(X: torch.Tensor, Q: torch.Tensor) -> bool:
