@@ -206,9 +206,10 @@ def test_regression_gains_is_deterministic(cuda, d, n, k, g, precision):
 
 
 # Kernel 1's outputs on fixed inputs, read on an NVIDIA H100 80GB HBM3
-# (700 W) before its partial kernel moved into split_proj.cuh
-# (scripts/filter_engine_ab.py's digests, parent and change equal):
-# (d, n, k, G) → (f32, bf16) sha256 prefixes of the (G, n) gains.
+# (700 W) at commit b2de2bc, before its partial kernel moved into
+# split_proj.cuh, and equal after the move: (d, n, k, G) → (f32, bf16)
+# sha256 prefixes of the (G, n) gains.  A new CUDA toolkit may compile
+# other bits: read them again from that commit then.
 REGRESSION_STORED_READINGS = {
     (1000, 1537, 37, 2): ("149753f0867148bb", "616f7efdb1825d50"),
     (2048, 4096, 128, 1): ("f3af4a2f51b754b5", "1899db4666c52998"),
@@ -363,11 +364,10 @@ def test_aopt_filter_gains_in_rounds(cuda, d, n, g, m, b, precision):
 
 
 # Kernel 5's one-pass outputs (b ≤ 64) on fixed inputs, read on an NVIDIA
-# H100 80GB HBM3 (700 W) from the kernel as it was before b > 64 ran in
-# rounds (scripts/filter_engine_ab.py's digests, parent and change equal):
-# (d, n, G, m, b) → (f32, bf16) sha256 prefixes of the (G, m, n) gains.
-# A new CUDA toolkit may compile other bits: read them again from the
-# parent commit then.
+# H100 80GB HBM3 (700 W) at commit b2de2bc, before b > 64 ran in rounds,
+# and equal after: (d, n, G, m, b) → (f32, bf16) sha256 prefixes of the
+# (G, m, n) gains.  A new CUDA toolkit may compile other bits: read them
+# again from that commit then.
 AOPT_STORED_READINGS = {
     (1024, 4096, 2, 8, 8): ("6757b4ec81971f8c", "f6a3f97b6b1b5c00"),
     (513, 777, 3, 2, 64): ("e56643bd12c57a6b", "d43fb01bcfab9de7"),
