@@ -23,7 +23,8 @@ exits nonzero, with no result line) when a check fails:
                their on-chip capacity (d = 100,000); the regression
                kernels 1 and 3 bitwise equal in two calls, kernel 3's
                stacked basis width, split of d and copy width logged;
-               kernel 5 also at b = 128 (two rounds of 64 columns)
+               kernel 5 also at b = 128 (two chunks of 64 columns) and
+               bitwise equal in two calls, its plan logged
   4. main    — the port's quickstart (greedy, DASH over 6 OPT guesses
                × 8 samples, TOP-K, RANDOM) on the paper's D1 protocol at
                d = n = 8192, k = 128, with the kernels' launch counters
@@ -206,9 +207,12 @@ REPLACES = {
 # the regression filter engine is the same partial pass over one stacked
 # basis of the G guess bases and the G*m states plus its own epilogue
 # (after PyTorch copies that pack the basis); the A-optimality engine is
-# one launch over the G*m states; the logistic singleton sweep and the
-# logistic engine (one kernel template, at 1 and at several states per
-# pass) make their old log-likelihood terms inside their one launch.
+# one launch over the G*m states (after copies that pack its factors); the
+# logistic singleton sweep and the logistic engine (one kernel template,
+# at 1 and at several states per pass) make their old log-likelihood
+# terms inside their one launch.  Past 65,535 column panels (n above
+# 8,388,480; 2,097,120 for aopt_gains) the partial pass and aopt_gains
+# take one launch per 65,535 panels; the main paths stay far below.
 LAUNCHES_PER_CALL = {"regression_gains": 2, "filter_gains": 2,
                      "aopt_gains": 1, "aopt_filter_gains": 1,
                      "logistic_gains": 1, "logistic_filter_gains": 1,
@@ -420,6 +424,8 @@ def phase_aopt_kernels(torch, cases):
         aopt_filter_gains_lattice_ref,
     )
 
+    from repro_torch.kernels.filter_gains.ops import aopt_plan
+
     worst = {"aopt_gains": 0.0, "aopt_filter_gains": 0.0}
     for (d, n, g, m, b, n_sel, sigma2) in cases:
         X, W, E, F, isig2 = make_aopt_operands(torch, d, n, g, m, b, n_sel,
@@ -427,11 +433,21 @@ def phase_aopt_kernels(torch, cases):
         for prec in ("f32", "bf16"):
             tol = STREAM_PARITY_TOL[prec]["kernel_vs_ref"]
             Xq, Wq = quantize(X, prec), quantize(W, prec)
+            fgains = aopt_filter_gains(X, W, E, F, isig2, precision=prec)
+            # No atomics: a second call must give the same bits.
+            same = torch.equal(fgains, aopt_filter_gains(
+                X, W, E, F, isig2, precision=prec))
+            plan = aopt_plan(m, b)
+            log(f"[kernels] aopt_filter_gains {prec:4s} d={d} n={n} G={g} "
+                f"m={m} b={b}: slot {plan.bs} columns, {plan.ms} per unit, "
+                f"{plan.nc} chunk(s), {plan.units} unit(s) per guess "
+                f"deterministic={'yes' if same else 'NO'}")
+            need(same, f"aopt_filter_gains {prec} differs between two calls "
+                       f"at d={d} n={n} G={g} m={m} b={b}")
             for name, got, want in (
                 ("aopt_gains", aopt_gains(X, W, isig2, precision=prec),
                  aopt_gains_ref(Xq, Wq, isig2)),
-                ("aopt_filter_gains",
-                 aopt_filter_gains(X, W, E, F, isig2, precision=prec),
+                ("aopt_filter_gains", fgains,
                  aopt_filter_gains_lattice_ref(Xq, Wq, E, F, isig2)),
             ):
                 torch.cuda.synchronize()
@@ -1492,6 +1508,8 @@ def phase_aopt_timing(torch, worst, launches):
     )
     from repro_torch.kernels.filter_gains.ops import (
         AOPT_ROUND_B,
+        aopt_kernel_info,
+        aopt_plan,
         aopt_scratch_elems,
     )
 
@@ -1541,6 +1559,9 @@ def phase_aopt_timing(torch, worst, launches):
             log(f"[timing] {name:17s} {prec:4s} G={g:2d} kernel_ms={t:.4f} "
                 f"plain_ms={p:.4f} bound_ms={bd:.4f} ({by}) "
                 f"library_ms={lib_s} bound/kernel={bd / t:.3f}")
+            if name == "aopt_filter_gains":
+                log_aopt_plan(torch, prec, g, m, b, aopt_plan,
+                              aopt_kernel_info, t)
             if prec == "f32" and (name == "aopt_gains"
                                   or g == DESIGN_LANES):
                 rows.append({
@@ -1551,8 +1572,8 @@ def phase_aopt_timing(torch, worst, launches):
                     "bound_ms": bd, "bound_by": by, "library_ms": lib,
                 })
         del Xs, Ws, Xq, Wq
-    # aopt_filter_gains past one pass: b = 128 Woodbury columns per sample
-    # in two rounds, at the 6 lanes of one α.
+    # aopt_filter_gains past one chunk: b = 128 Woodbury columns per
+    # sample in two chunks of 64, at the 6 lanes of one α.
     g, wb = DESIGN["n_guesses"], 2 * AOPT_ROUND_B
     Ew = torch.randn((g, m, d, wb), device="cuda") * (0.1 / math.sqrt(d))
     Fw = Ew.transpose(-1, -2) @ Ew
@@ -1563,16 +1584,40 @@ def phase_aopt_timing(torch, worst, launches):
                     + g * m * n * (4.0 * d * wb + 2.0 * wb * wb
                                    + 6.0 * wb + 6.0),
                     4 * d * n * (1 + g) + 4 * g * m * (d * wb + wb * wb + n))
-    log(f"[timing] aopt_filter_gains f32  G={g:2d} b={wb} (rounds of "
+    # cuBLAS f32 E^T X and E_g^T W_g alone at b = 128: the yardstick.
+    et = Ew.permute(0, 1, 3, 2).reshape(g, m * wb, d).contiguous()
+    et_all = et.reshape(g * m * wb, d)
+    libw = time_ms(torch, lambda: (et_all @ X, torch.bmm(et, Wg)), iters=3,
+                   warmup=1)
+    log(f"[timing] aopt_filter_gains f32  G={g:2d} b={wb} (chunks of "
         f"{AOPT_ROUND_B}): kernel_ms={tw:.4f} bound_ms={bw:.4f} ({byw}) "
-        f"bound/kernel={bw / tw:.3f}; scratch "
-        f"{4 * aopt_scratch_elems(g, m, n, wb)} bytes")
-    del Ew, Fw, Wg
+        f"library_ms={libw:.4f} (cuBLAS only) bound/kernel={bw / tw:.3f}; "
+        f"scratch {4 * aopt_scratch_elems(g, m, n, wb)} bytes")
+    log_aopt_plan(torch, "f32", g, m, wb, aopt_plan, aopt_kernel_info, tw)
+    del Ew, Fw, Wg, et, et_all
     log(f"[timing] shapes: d={d} n={n} m={m} b={b}; aopt_gains at G=1 "
         f"(no single library call computes it), aopt_filter_gains over "
         f"G*m states at G={DESIGN_LANES} (the design lattice) and "
         f"G={DESIGN['n_guesses']}")
     return rows
+
+
+def log_aopt_plan(torch, prec, g, m, b, aopt_plan, aopt_kernel_info, t):
+    """Kernel 5's plan at (G, m, b) and what the CUDA runtime says of the
+    instance it runs: registers, spills, shared memory, CTAs per SM; the
+    rate of its t and u flops in time t."""
+    d, n = DESIGN["d"], DESIGN["n"]
+    plan = aopt_plan(m, b)
+    info = aopt_kernel_info(
+        torch.float32 if prec == "f32" else torch.bfloat16)
+    ctas = -(-n // 128) * g * plan.units
+    log(f"[timing] aopt_filter_gains {prec:4s} G={g:2d} b={b}: slot "
+        f"{plan.bs} columns, {plan.ms} per unit, {plan.nc} chunk(s), "
+        f"{plan.units} unit(s) per guess, {ctas} CTAs; "
+        f"{info['registers']} registers/thread, {info['spill_bytes']} spill "
+        f"bytes, {info['smem_bytes']} B shared/CTA, {info['ctas_per_sm']} "
+        f"CTAs/SM; t and u at "
+        f"{4.0 * d * b * g * m * n / t / 1e9:.1f} TFLOP/s")
 
 
 # f32 flops of one log1pf (csrc/logistic_gains.cu::log1pf_01): 4 adds
@@ -1816,10 +1861,11 @@ def main() -> int:
         (dd, dn, 1, dm, DESIGN_BLOCK, dk - 1, 1.0),  # greedy's last state
         (1000, 1537, 2, 3, 1, 5, 0.5),   # ragged d and n, b = 1, σ² ≠ 1
         (257, 513, 2, 4, 0, 7, 1.0),     # b = 0: the singleton gain
-        (513, 777, 3, 2, 64, 9, 1.0),    # b at one pass: 8 groups of 8
-        (dd, 4099, 2, 4, 128, 40, 1.0),  # b = 128: two rounds of 64
+        (513, 777, 3, 2, 64, 9, 1.0),    # b at one chunk: 8 groups of 8
+        (dd, 4099, 2, 4, 128, 40, 1.0),  # b = 128: two chunks of 64
         (100, 300, 1, 9, 3, 3, 2.0),     # m above one CTA's 8 samples
         (dd, 4099, 2, 8, 17, 40, 1.0),   # 3 groups, ragged last group
+        (dd, 4099, 2, 8, 9, 40, 1.0),    # m·b = 72 past one chunk
     ]))
     cd, cn, cg, cm = CLASS["d"], CLASS["n"], CLASS["n_guesses"], \
         CLASS["n_samples"]

@@ -22,7 +22,8 @@
 // a column past n reads nothing and writes nothing.
 //
 // Grid: (lanes, ceil(n / 32)) with the lane index MINOR, so the lanes of
-// one column panel run together and read that X panel through the L2.
+// one column panel run together and read that X panel through the L2;
+// past 65,535 panels the launch is split into panel ranges.
 #include "stream.cuh"
 
 using namespace repro_torch;
@@ -33,12 +34,12 @@ constexpr int AG_RG = 8;   // row groups per CTA: one warp each
 template <typename T>
 __global__ void __launch_bounds__(AG_BN * AG_RG)
 aopt_gains_kernel(const T* __restrict__ X, const T* __restrict__ W, int d,
-                  int n, float isig2, float* __restrict__ out) {
+                  int n, int panel0, float isig2, float* __restrict__ out) {
   __shared__ float red[2][AG_RG][AG_BN];
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int g = blockIdx.x;
-  const int col = blockIdx.y * AG_BN + tx;
+  const int col = (panel0 + blockIdx.y) * AG_BN + tx;
   const T* Wg = W + (long long)g * d * n;
 
   float sw = 0.f, sx = 0.f;
@@ -80,15 +81,26 @@ aopt_gains_kernel(const T* __restrict__ X, const T* __restrict__ W, int d,
       isig2 * wsq / fmaxf(1.f + isig2 * xw, 1e-30f);
 }
 
+// gridDim.y's limit: one launch takes at most this many column panels.
+constexpr int AG_MAX_PANELS = 65535;
+
+// Launches of at most AG_MAX_PANELS panels each, so any n runs.
 template <typename T>
-static void launch_aopt_gains(const void* X, const void* W, int d, int n,
-                              int G, float isig2, void* out,
-                              cudaStream_t s) {
-  const dim3 grid(G, (n + AG_BN - 1) / AG_BN);
+static cudaError_t launch_aopt_gains(const void* X, const void* W, int d,
+                                     int n, int G, float isig2, void* out,
+                                     cudaStream_t s) {
+  const int total = (n + AG_BN - 1) / AG_BN;
   const dim3 block(AG_BN, AG_RG);
-  aopt_gains_kernel<T><<<grid, block, 0, s>>>(
-      static_cast<const T*>(X), static_cast<const T*>(W), d, n, isig2,
-      static_cast<float*>(out));
+  for (int p0 = 0; p0 < total; p0 += AG_MAX_PANELS) {
+    const int panels = total - p0 < AG_MAX_PANELS ? total - p0
+                                                  : AG_MAX_PANELS;
+    aopt_gains_kernel<T><<<dim3(G, panels), block, 0, s>>>(
+        static_cast<const T*>(X), static_cast<const T*>(W), d, n, p0, isig2,
+        static_cast<float*>(out));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 // X: (d, n), W: (G, d, n), both f32 or both bf16 (bf16 != 0); out: (G, n)
@@ -97,10 +109,7 @@ extern "C" int aopt_gains_launch(const void* X, const void* W, int bf16,
                                  int d, int n, int G, float isig2, void* out,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    launch_aopt_gains<__nv_bfloat16>(X, W, d, n, G, isig2, out, s);
-  } else {
-    launch_aopt_gains<float>(X, W, d, n, G, isig2, out, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      bf16 ? launch_aopt_gains<__nv_bfloat16>(X, W, d, n, G, isig2, out, s)
+           : launch_aopt_gains<float>(X, W, d, n, G, isig2, out, s));
 }

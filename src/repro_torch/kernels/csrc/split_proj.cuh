@@ -12,7 +12,8 @@
 // epilogue kernel sums the S slices in a fixed order.
 //
 // Grid (G · basis tiles, ⌈n / BN⌉, S), the lane index minor, so the CTAs
-// that read one X panel run side by side and share it through the L2.
+// that read one X panel run side by side and share it through the L2;
+// past 65,535 panels the launch is split into panel ranges.
 // 256 threads each keep an 8 × 8 register tile of Q_gᵀX (64 FMAs per 4
 // shared-memory vector loads), and with DO_C the c of their 8 columns over
 // 2 of every TR rows.  The CTA writes its tile to a workspace (S, G,
@@ -104,23 +105,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// TR × COLS tile of src (row stride ld) from (r0, c0) into dst, zero
+// ROWS × COLS tile of src (row stride ld) from (r0, c0) into dst, zero
 // outside rows < r1 and columns < c1.  WIDE: 16-byte copies, which needs
 // every source row 16-byte aligned; a copy is then wholly in or out.  A
 // thread's copies share one column and step RSTEP rows apart, so each
 // costs a pointer increment and one row test.
-template <bool WIDE, int COLS, typename T>
+template <bool WIDE, int COLS, int ROWS = TR, typename T>
 __device__ __forceinline__ void stage_tile(T (*dst)[COLS], const T* src,
                                            long long ld, int r0, int r1,
                                            int c0, int c1, int tid) {
   constexpr int CH = WIDE ? 16 / sizeof(T) : 1;  // elements per copy
   constexpr int CPR = COLS / CH;                 // copies per row
   constexpr int RSTEP = THREADS / CPR;
+  static_assert(ROWS % RSTEP == 0, "a tile's rows split evenly");
   const int row = tid / CPR, cc = (tid % CPR) * CH;
   const bool col_ok = c0 + cc < c1;
   const T* p = src + (long long)(r0 + row) * ld + c0 + cc;
 #pragma unroll
-  for (int i = 0; i < TR / RSTEP; ++i, p += RSTEP * ld) {
+  for (int i = 0; i < ROWS / RSTEP; ++i, p += RSTEP * ld) {
     const bool ok = col_ok && r0 + row + i * RSTEP < r1;
     T* d = &dst[row + i * RSTEP][cc];
     if constexpr (WIDE)
@@ -137,7 +139,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 gains_partial_kernel(const T* __restrict__ X, int d, int n, int G,
                      const float* __restrict__ Q, int k,
                      const float* __restrict__ R, int rows_per_slice,
-                     float* __restrict__ ws, int kp, int np) {
+                     float* __restrict__ ws, int kp, int np, int panel0) {
   extern __shared__ __align__(16) unsigned char smem[];
   Stage<T>* ring = reinterpret_cast<Stage<T>*>(smem);
   const int tid = threadIdx.x;
@@ -147,7 +149,7 @@ gains_partial_kernel(const T* __restrict__ X, int d, int n, int G,
   const int tx = (warp & 1) * 8 + (lane & 7);
   const int ty = (warp >> 1) * 4 + (lane >> 3);
   const int g = blockIdx.x % G, k0 = (blockIdx.x / G) * BM;
-  const int col0 = blockIdx.y * BN;
+  const int col0 = (panel0 + blockIdx.y) * BN;
   const int r0 = blockIdx.z * rows_per_slice;
   const int r1 = min(r0 + rows_per_slice, d);
   const int steps = (r1 - r0 + TR - 1) / TR;
@@ -263,20 +265,28 @@ cudaError_t prepare_partial() {
   return err;
 }
 
-// One launch of the partial kernel over the (G · kp/BM, np/BN, S) grid;
-// R may be null without DO_C.
+// gridDim.y's limit: one launch takes at most this many column panels.
+constexpr int MAX_PANELS = 65535;
+
+// The partial kernel over the (G · kp/BM, np/BN, S) grid, in launches of
+// at most MAX_PANELS column panels (any n); R may be null without DO_C.
 template <typename T, bool WIDE, bool DO_C>
 cudaError_t launch_partial(const void* X, int d, int n, int G, const void* Q,
                            int k, const void* R, int S, int rows_per_slice,
                            float* ws, int kp, int np, cudaStream_t stream) {
   const cudaError_t err = prepare_partial<T, WIDE, DO_C>();
   if (err != cudaSuccess) return err;
-  const dim3 grid(G * (kp / BM), np / BN, S);
-  gains_partial_kernel<T, WIDE, DO_C>
-      <<<grid, THREADS, RING_BYTES<T>, stream>>>(
-          static_cast<const T*>(X), d, n, G, static_cast<const float*>(Q), k,
-          static_cast<const float*>(R), rows_per_slice, ws, kp, np);
-  return cudaGetLastError();
+  for (int p0 = 0; p0 < np / BN; p0 += MAX_PANELS) {
+    const int panels = min(np / BN - p0, MAX_PANELS);
+    const dim3 grid(G * (kp / BM), panels, S);
+    gains_partial_kernel<T, WIDE, DO_C>
+        <<<grid, THREADS, RING_BYTES<T>, stream>>>(
+            static_cast<const T*>(X), d, n, G, static_cast<const float*>(Q),
+            k, static_cast<const float*>(R), rows_per_slice, ws, kp, np, p0);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 // The partial kernel (wide staging) described into out[5]: registers per

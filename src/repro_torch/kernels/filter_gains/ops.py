@@ -5,9 +5,10 @@ On a CUDA tensor ``filter_gains`` (regression epilogue,
 partial kernel over one stacked basis of the G guess bases and the G·m
 perturbed states, then a fixed-order epilogue), ``aopt_filter_gains``
 (A-optimality Woodbury epilogue, ``csrc/aopt_filter_gains.cu``: one
-launch over the G·m states) and ``logistic_filter_gains`` (logistic
-Newton-sweep epilogue: one launch of ``csrc/logistic_gains.cu``'s kernel
-template over the G·m states, several states per pass, the old
+launch over the G·m states after a copy that packs their factors) and
+``logistic_filter_gains`` (logistic Newton-sweep epilogue: one launch
+of ``csrc/logistic_gains.cu``'s kernel template over the G·m states,
+several states per pass, the old
 log-likelihood terms made in the same launch) run their engine on the
 current stream, and raise on what the kernel cannot take and on a failed
 launch.  On a CPU tensor they run the plain lattice versions of
@@ -17,8 +18,10 @@ DASH lattice as a leading lane axis instead of batching a kernel under
 ``logistic_filter_gains.launches`` count wrapper calls that launch an
 engine: two hand-written device kernels per call for ``filter_gains``
 (after the copies that pack its basis), one for ``aopt_filter_gains``
-and ``logistic_filter_gains``.  ``StackPlan``, ``pack_basis`` and
-``engine_plan`` are the regression engine's layout and split of d.
+(after the copy that packs its factors) and ``logistic_filter_gains``.  ``StackPlan``, ``pack_basis`` and
+``engine_plan`` are the regression engine's layout and split of d;
+``AoptPlan``, ``aopt_plan`` and ``pack_factors`` the A-optimality
+engine's column layout.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from repro_torch.kernels.logistic_gains.ops import (
     launch as logistic_launch,
 )
 from repro_torch.kernels.marginal_gains.ops import (
+    _INFO_KEYS,
     BASIS_TILE,
     BLOCK_COLS,
     CTAS_PER_SM,
@@ -62,7 +66,6 @@ from repro_torch.kernels.marginal_gains.ops import (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P,
              ctypes.c_float, _I, _I, _P, ctypes.c_longlong, _P]
-_MAX_COL_BLOCKS = 65535  # gridDim.y of the partial kernel: 128-column panels
 
 
 @dataclass(frozen=True)
@@ -170,7 +173,7 @@ def _launch(X, Q, D, R, col_sq, span_tol):
     check_tensor("D", D, (g, m, d, b), (torch.float32,), dev)
     check_tensor("R", R, (g, m, d), (torch.float32,), dev)
     check_tensor("col_sq", col_sq, (n,), (torch.float32,), dev)
-    if g < 1 or m < 1 or n < 1 or -(-n // BLOCK_COLS) > _MAX_COL_BLOCKS:
+    if g < 1 or m < 1 or n < 1:
         raise ValueError(
             f"filter_gains: unsupported shape G={g}, m={m}, n={n}")
     plan, s, rows = engine_plan(g, m, d, n, k, b, sm_count(dev))
@@ -214,12 +217,85 @@ filter_gains.launches = 0
 # A-optimality epilogue
 # ---------------------------------------------------------------------------
 
-_AOPT_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, ctypes.c_float,
-                  _P, ctypes.c_longlong, _P, _P]
-# Woodbury columns per sample that the kernel holds in one pass; a wider
-# b runs in rounds of this many through a (G·m, b, np) scratch of t.
+_AOPT_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
+                  _I, ctypes.c_float, _P, ctypes.c_longlong, _P, _P]
+# Woodbury columns per sample that one chunk of the kernel holds; a wider
+# b runs in chunks of this many, one sample per CTA.
 AOPT_ROUND_B = 64
-_AOPT_MAX_COL_BLOCKS = 65535  # gridDim.y of the launch; 128 columns each
+_AOPT_STAGES, _AOPT_STAGE_ROWS = 2, 32   # csrc/aopt_filter_gains.cu's ring
+
+
+@dataclass(frozen=True)
+class AoptPlan:
+    """Column layout of kernel 5 (``csrc/aopt_filter_gains.cu``).  Each
+    sample's b Woodbury columns take a slot of ``bs`` columns; a unit, one
+    CTA's work on a 128-candidate panel, is ``ms`` slots in ``nc`` chunks of
+    AOPT_ROUND_B columns; a guess has ``units`` units, packed one after
+    another into ``bw`` columns."""
+
+    bs: int
+    ms: int
+    nc: int
+    units: int
+
+    @property
+    def bw(self) -> int:
+        return self.units * self.nc * AOPT_ROUND_B
+
+    def column(self, i: int, k: int) -> int:
+        """Packed column of sample i's Woodbury column k < b."""
+        return ((i // self.ms) * self.nc * AOPT_ROUND_B
+                + (i % self.ms) * self.bs + k)
+
+
+def aopt_plan(m: int, b: int) -> AoptPlan:
+    """Kernel 5's layout for m samples of b columns: for b ≤ 64, slots of
+    bs = 8·⌈b/8⌉ columns (b = 0 takes one zero group of 8), as many as fit
+    in one 64-column chunk (at most m) per unit; past 64, one sample per
+    unit in ⌈b/64⌉ chunks."""
+    if b <= AOPT_ROUND_B:
+        bs = 8 * max(1, -(-b // 8))
+        ms = min(m, AOPT_ROUND_B // bs)
+        return AoptPlan(bs, ms, 1, -(-m // ms))
+    nc = -(-b // AOPT_ROUND_B)
+    return AoptPlan(nc * AOPT_ROUND_B, 1, nc, m)
+
+
+def pack_factors(E, plan: AoptPlan) -> torch.Tensor:
+    """E (G, m, d, b) f32 packed into the kernel's (G, d, bw) layout on
+    its device: sample i's column k at ``plan.column(i, k)``, zero in
+    every other column."""
+    g, m, d, b = E.shape
+    slots = plan.units * plan.ms
+    Ep = torch.zeros((g, d, plan.units, plan.nc * AOPT_ROUND_B),
+                     dtype=torch.float32, device=E.device)
+    dst = Ep[..., :plan.ms * plan.bs].unflatten(-1, (plan.ms, plan.bs))
+    src = E if slots == m else torch.cat(
+        [E, E.new_zeros((g, slots - m, d, b))], dim=1)
+    dst[..., :b].copy_(src.view(g, plan.units, plan.ms, d, b)
+                       .permute(0, 3, 1, 2, 4))
+    return Ep.view(g, d, plan.bw)
+
+
+def aopt_smem_bytes(dtype) -> int:
+    """Dynamic shared memory of one CTA of kernel 5 (the same for every
+    plan): its two-stage ring, or after it the last chunk of t with one staged
+    64 × 68 F block, whichever is larger, and the per-thread sums (20 rows
+    of 128)."""
+    elem = 4 if dtype == torch.float32 else 2
+    stage = _AOPT_STAGE_ROWS * (2 * BLOCK_COLS * elem + AOPT_ROUND_B * 4)
+    epi = 4 * (AOPT_ROUND_B * BLOCK_COLS + AOPT_ROUND_B * (AOPT_ROUND_B + 4))
+    return max(_AOPT_STAGES * stage, epi) + 4 * 20 * BLOCK_COLS
+
+
+def aopt_scratch_elems(g: int, m: int, n: int, b: int) -> int:
+    """f32 elements of the kernel's scratch of t: the chunks before the
+    last of each CTA's unit (b > 64), 64 × 128 each; none for b ≤ 64."""
+    plan = aopt_plan(m, b)
+    if plan.nc == 1:
+        return 0
+    ctas = -(-n // BLOCK_COLS) * g * plan.units
+    return ctas * (plan.nc - 1) * AOPT_ROUND_B * BLOCK_COLS
 
 
 def _aopt_library():
@@ -229,12 +305,18 @@ def _aopt_library():
     return fn
 
 
-def aopt_scratch_elems(g: int, m: int, n: int, b: int) -> int:
-    """f32 elements of the kernel's (G·m, b, np) scratch of t: none for
-    b ≤ AOPT_ROUND_B, which runs in one pass."""
-    if b <= AOPT_ROUND_B:
-        return 0
-    return g * m * b * 128 * -(-n // 128)
+def aopt_kernel_info(dtype) -> dict:
+    """Kernel 5 (16-byte staging) for X in ``dtype``: registers, spill
+    bytes, shared memory per CTA, threads and CTAs per SM, from the CUDA
+    runtime (needs the card)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"aopt_filter_gains: no kernel for {dtype}")
+    fn = _build.load("aopt_filter_gains").aopt_filter_kernel_info
+    fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], ctypes.c_int
+    out = (_I * len(_INFO_KEYS))()
+    _build.check(fn(int(dtype == torch.bfloat16), out),
+                 "aopt_filter_kernel_info")
+    return dict(zip(_INFO_KEYS, out))
 
 
 def _aopt_launch(X, W, E, F, isig2):
@@ -246,17 +328,23 @@ def _aopt_launch(X, W, E, F, isig2):
     check_tensor("W", W, (g, d, n), (X.dtype,), dev)
     check_tensor("E", E, (g, m, d, b), (torch.float32,), dev)
     check_tensor("F", F, (g, m, b, b), (torch.float32,), dev)
-    if g < 1 or m < 1 or n < 1 or -(-n // 128) > _AOPT_MAX_COL_BLOCKS:
+    if g < 1 or m < 1 or n < 1 or d < 1:
         raise ValueError(
-            f"aopt_filter_gains: unsupported shape G={g}, m={m}, n={n}")
+            f"aopt_filter_gains: unsupported shape G={g}, m={m}, d={d}, "
+            f"n={n}")
+    plan = aopt_plan(m, b)
+    Ep = pack_factors(E, plan)
     out = torch.empty((g, m, n), dtype=torch.float32, device=dev)
     scratch = torch.empty(aopt_scratch_elems(g, m, n, b), dtype=torch.float32,
                           device=dev)
+    wide = all(t.data_ptr() % 16 == 0 for t in (X, W)) and (
+        n * X.element_size()) % 16 == 0
     fn = _aopt_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(X.data_ptr(), W.data_ptr(), int(X.dtype == torch.bfloat16),
-                  d, n, g, m, E.data_ptr(), F.data_ptr(), b, float(isig2),
+                  int(wide), d, n, g, m, Ep.data_ptr(), F.data_ptr(), b,
+                  plan.bs, plan.ms, plan.nc, plan.units, float(isig2),
                   scratch.data_ptr(), scratch.numel(), out.data_ptr(), stream)
     _build.check(code, "aopt_filter_gains")
     aopt_filter_gains.launches += 1

@@ -32,7 +32,7 @@ BLOCK_COLS = 128
 BASIS_TILE = 128
 STAGE_ROWS = 32
 CTAS_PER_SM = 2
-_MAX_COL_BLOCKS = 65535  # gridDim.y: 128-column panels; also the lanes G
+_MAX_LANES = 65535  # gridDim.y of the epilogue kernel: the lanes G
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, ctypes.c_float,
@@ -117,8 +117,7 @@ def _launch(X, Q, resid, col_sq, span_tol):
     check_tensor("Q", Q, (g, d, k), (torch.float32,), dev)
     check_tensor("resid", resid, (g, d), (torch.float32,), dev)
     check_tensor("col_sq", col_sq, (n,), (torch.float32,), dev)
-    if (g < 1 or n < 1 or _cdiv(n, BLOCK_COLS) > _MAX_COL_BLOCKS
-            or g > _MAX_COL_BLOCKS):
+    if g < 1 or n < 1 or g > _MAX_LANES:
         raise ValueError(f"regression_gains: unsupported shape G={g}, n={n}")
     s, rows = split_plan(g, d, n, k, _sm_count(dev.index or 0))
     elems = workspace_elems(g, n, k, s)

@@ -40,6 +40,8 @@ from repro_torch.kernels.filter_gains import (  # noqa: E402
 )
 from repro_torch.kernels.filter_gains.ops import (  # noqa: E402
     AOPT_ROUND_B,
+    aopt_kernel_info,
+    aopt_smem_bytes,
     engine_plan,
 )
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -313,7 +315,9 @@ AOPT_SHAPES = [  # d, n, g, m, b, sigma2
     (1000, 1537, 2, 3, 1, 0.5),    # d % 16 != 0, n % 128 != 0, b = 1
     (257, 513, 2, 4, 0, 1.0),      # b = 0: the singleton gain
     (100, 300, 1, 9, 3, 2.0),      # m above the 8 samples of one CTA
-    (129, 333, 3, 2, AOPT_ROUND_B, 1.0),   # b at one pass's width
+    (129, 333, 3, 2, AOPT_ROUND_B, 1.0),   # b at one chunk's width
+    (1000, 1537, 2, 8, 9, 1.0),    # m·b = 72 past one chunk: 2 units
+    (513, 777, 2, 1, AOPT_ROUND_B, 0.5),   # m = 1 at one chunk's width
 ]
 
 
@@ -351,8 +355,9 @@ def test_aopt_filter_gains_kernel(cuda, d, n, g, m, b, sigma2, precision):
     (257, 1000, 1, 3, 300),                # five rounds, the last ragged
 ])
 def test_aopt_filter_gains_in_rounds(cuda, d, n, g, m, b, precision):
-    """b > AOPT_ROUND_B: the Woodbury columns in rounds through the
-    scratch of t, on genuine operands."""
+    """b > AOPT_ROUND_B: one sample per CTA, its Woodbury columns in
+    chunks of 64 (t of the chunks before the last through the scratch)
+    and tᵀF t across the chunks, on genuine operands."""
     X, W, E, F, isig2 = _aopt_problem(cuda, d, n, g, m, b, n_sel=9)
     before = aopt_filter_gains.launches
     got = aopt_filter_gains(X, W, E, F, isig2, precision=precision)
@@ -378,9 +383,9 @@ AOPT_STORED_READINGS = {
 
 @pytest.mark.parametrize("shape", list(AOPT_STORED_READINGS))
 def test_aopt_filter_gains_one_pass_bits_unchanged(cuda, shape):
-    """b ≤ 64 keeps its one-pass kernel: the same bits as the stored
-    reading.  Inputs from numpy alone (no LAPACK), so every host makes
-    the same ones: W ≈ X / 2, small E, a symmetric F."""
+    """b ≤ 64 (one chunk per CTA): the same bits as the stored reading.
+    Inputs from numpy alone (no LAPACK), so every host makes the same
+    ones: W ≈ X / 2, small E, a symmetric F."""
     d, n, g, m, b = shape
     rng = np.random.default_rng(10 + list(AOPT_STORED_READINGS).index(shape))
     X = rng.standard_normal((d, n), dtype=np.float32)
@@ -394,6 +399,82 @@ def test_aopt_filter_gains_one_pass_bits_unchanged(cuda, shape):
     got = tuple(_digest(aopt_filter_gains(X, W, E, F, 0.5, precision=p))
                 for p in ("f32", "bf16"))
     assert got == AOPT_STORED_READINGS[shape]
+
+
+def _random_aopt(dev, d, n, g, m, b, seed=0):
+    """X (d, n), W ≈ X / 2 (G, d, n), small E (G, m, d, b) and F = EᵀE,
+    drawn on the card: operands of the shape only, for bits and limits."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn((d, n), device=dev, generator=gen) / d ** 0.5
+    W = 0.5 * X + 0.05 * torch.randn((g, d, n), device=dev,
+                                     generator=gen) / d ** 0.5
+    E = torch.randn((g, m, d, b), device=dev, generator=gen) * (0.1 / d ** 0.5)
+    return X, W, E, (E.transpose(-1, -2) @ E).contiguous()
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("g,b", [(12, 8), (6, 128)])
+def test_aopt_filter_gains_is_deterministic(cuda, g, b, precision):
+    """No atomics: two calls at the design lattice (d = 1024, n = 65536,
+    m = 8) and at b = 128 give the same bits."""
+    X, W, E, F = _random_aopt(cuda, 1024, 65536, g, 8, b)
+    a = aopt_filter_gains(X, W, E, F, 1.0, precision=precision)
+    assert torch.equal(a, aopt_filter_gains(X, W, E, F, 1.0,
+                                            precision=precision))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_aopt_filter_kernel_info_matches_plan(cuda, dtype):
+    """The CUDA runtime's account of kernel 5: the shared memory per CTA
+    that ``aopt_smem_bytes`` reckons for every plan, 256 threads and two
+    CTAs per SM."""
+    info = aopt_kernel_info(dtype)
+    assert info["smem_bytes"] == aopt_smem_bytes(dtype)
+    assert info["threads"] == 256 and info["ctas_per_sm"] == 2
+
+
+# Past the 65,535 column panels that one launch's gridDim.y holds: 65,536
+# panels of aopt_gains' 32 columns, 65,537 of the other wrappers' 128.
+PAST_AOPT_GAINS_LIMIT = 2_097_152
+PAST_PANEL_LIMIT = 8_388_609
+
+
+def test_aopt_gains_past_the_panel_limit(cuda):
+    X, W, _, _ = _random_aopt(cuda, 32, PAST_AOPT_GAINS_LIMIT, 2, 1, 0)
+    got = aopt_gains(X, W, 1.0)
+    torch.testing.assert_close(got, aopt_gains_ref(X, W, 1.0), rtol=TOL,
+                               atol=TOL)
+
+
+def test_aopt_filter_gains_past_the_panel_limit(cuda):
+    X, W, E, F = _random_aopt(cuda, 32, PAST_PANEL_LIMIT, 1, 2, 3)
+    got = aopt_filter_gains(X, W, E, F, 1.0)
+    torch.testing.assert_close(
+        got, aopt_filter_gains_lattice_ref(X, W, E, F, 1.0), rtol=TOL,
+        atol=TOL)
+
+
+def _wide_regression(dev, d, n, k, b, m, g):
+    """X (d, n) drawn on the card; the small Q, D, R of ``_problem``."""
+    _, Q, D, R, _ = _problem(dev, d, 8, k, b, m, g)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    X = torch.randn((d, n), device=dev, generator=gen)
+    return X, Q, D, R, torch.sum(X * X, dim=0)
+
+
+def test_regression_gains_past_the_panel_limit(cuda):
+    X, Q, _, R, csq = _wide_regression(cuda, 32, PAST_PANEL_LIMIT, 3, 1, 1, 1)
+    r = R[:, 0].contiguous()
+    torch.testing.assert_close(regression_gains(X, Q, r, csq),
+                               regression_gains_ref(X, Q, r, csq), rtol=TOL,
+                               atol=TOL)
+
+
+def test_filter_gains_past_the_panel_limit(cuda):
+    X, Q, D, R, csq = _wide_regression(cuda, 32, PAST_PANEL_LIMIT, 2, 1, 2, 1)
+    torch.testing.assert_close(filter_gains(X, Q, D, R, csq),
+                               filter_gains_lattice_ref(X, Q, D, R, csq),
+                               rtol=TOL, atol=TOL)
 
 
 def test_aopt_wrappers_reject_what_the_kernel_cannot_take(cuda):

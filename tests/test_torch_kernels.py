@@ -23,8 +23,12 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels.common import quantize as jax_quantize  # noqa: E402
-from repro.kernels.filter_gains.ops import filter_gains as jax_filter_gains  # noqa: E402
+from repro.kernels.filter_gains.ops import (  # noqa: E402
+    aopt_filter_gains as jax_aopt_filter_gains,
+    filter_gains as jax_filter_gains,
+)
 from repro.kernels.filter_gains.ref import (  # noqa: E402
+    aopt_filter_gains_lattice_ref as jax_aopt_lattice_ref,
     filter_gains_lattice_ref as jax_filter_gains_lattice_ref,
     filter_gains_ref as jax_filter_gains_ref,
 )
@@ -39,6 +43,7 @@ from repro_torch.kernels.common import (  # noqa: E402
     quantize,
 )
 from repro_torch.kernels.filter_gains import (  # noqa: E402
+    aopt_filter_gains_lattice_ref,
     filter_gains,
     filter_gains_lattice_ref,
     filter_gains_ref,
@@ -61,10 +66,17 @@ from repro_torch.kernels.marginal_gains.ops import (  # noqa: E402
     split_plan,
 )
 from repro_torch.kernels.filter_gains.ops import (  # noqa: E402
+    AOPT_ROUND_B,
+    AoptPlan,
     StackPlan,
+    aopt_plan,
+    aopt_scratch_elems,
+    aopt_smem_bytes,
     engine_plan,
     pack_basis,
+    pack_factors,
 )
+from test_torch_aopt import RTOL as AOPT_RTOL, ATOL as AOPT_ATOL, _genuine  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = STREAM_PARITY_TOL["f32"]["kernel_vs_ref"]
@@ -344,6 +356,147 @@ def test_stacked_formulation_takes_b_zero():
     Xt, Qt, Dt, Rt, ct = _t(X, Q, D, R, csq)
     _close(_stacked_gains(Xt, Qt, Dt, Rt, ct),
            filter_gains_lattice_ref(Xt, Qt, Dt, Rt, ct))
+
+
+# ---------------------------------------------------------------------------
+# kernel 5 (A-optimality engine): plan, packed factors, chunked formulation
+# ---------------------------------------------------------------------------
+
+AOPT_PLAN_BS = (0, 1, 3, 8, 9, 17, 64, 65, 128, 129, 300)
+
+
+@pytest.mark.parametrize("m", [1, 8, 9])
+@pytest.mark.parametrize("b", AOPT_PLAN_BS)
+def test_aopt_plan_covers_every_column_once(b, m):
+    """Every (sample, Woodbury column) has one packed column; a sample's
+    columns sit in one unit, in whole 8-column groups of its own (a
+    thread's register tile never mixes two samples), within its unit's
+    nc chunks of 64; the units hold exactly the m samples."""
+    plan = aopt_plan(m, b)
+    C = AOPT_ROUND_B
+    assert plan.units * plan.ms >= m > (plan.units - 1) * plan.ms
+    assert plan.bs >= b and plan.bs % 8 == 0 and plan.bw % C == 0
+    if b <= C:
+        assert plan.nc == 1 and plan.ms * plan.bs <= C
+        assert plan.bs == 8 * max(1, -(-b // 8))
+    else:
+        assert plan.ms == 1 and plan.bs == plan.nc * C and plan.bs - C < b
+    owner = {}
+    for i in range(m):
+        for k in range(b):
+            col = plan.column(i, k)
+            assert 0 <= col < plan.bw and col not in owner
+            owner[col] = i
+            unit = i // plan.ms
+            assert unit * plan.nc * C <= col < (unit + 1) * plan.nc * C
+    groups = {}
+    for col, i in owner.items():
+        assert groups.setdefault(col // 8, i) == i
+    if (m, b) == (8, 8):                   # the design lattice: one chunk
+        assert plan == AoptPlan(8, 8, 1, 1) and plan.bw == 64
+    if (m, b) == (8, 9):                   # m·b = 72: two units of 4
+        assert plan == AoptPlan(16, 4, 1, 2)
+
+
+@pytest.mark.parametrize("b", AOPT_PLAN_BS)
+def test_aopt_smem_and_scratch_follow_the_plan(b):
+    """Two CTAs per SM fit in shared memory for every plan; a unit's
+    chunks before its last go to the scratch, one (nc − 1) × 64 × 128
+    block per CTA, and b ≤ 64 needs none."""
+    plan = aopt_plan(8, b)
+    for dtype in (torch.float32, torch.bfloat16):
+        smem = aopt_smem_bytes(dtype)
+        assert smem % 16 == 0 and 2 * (smem + 1024) <= 228 * 1024
+    elems = aopt_scratch_elems(3, 8, 1000, b)
+    if plan.nc == 1:
+        assert elems == 0
+    else:
+        assert elems == 8 * 3 * plan.units * (plan.nc - 1) * 64 * 128
+    assert aopt_smem_bytes(torch.float32) == 81920 + 10240
+
+
+@pytest.mark.parametrize("g,m,b", [(2, 8, 8), (1, 8, 9), (2, 3, 0),
+                                   (1, 9, 3), (2, 3, 65), (1, 2, 300)])
+def test_pack_factors_places_every_column(g, m, b):
+    rng = np.random.default_rng(3)
+    d = 20
+    E = torch.from_numpy(rng.normal(size=(g, m, d, b)).astype(np.float32))
+    plan = aopt_plan(m, b)
+    Ep = pack_factors(E, plan)
+    assert Ep.shape == (g, d, plan.bw) and Ep.is_contiguous()
+    used = torch.zeros(plan.bw, dtype=torch.bool)
+    for i in range(m):
+        for k in range(b):
+            col = plan.column(i, k)
+            assert torch.equal(Ep[:, :, col], E[:, i, :, k])
+            used[col] = True
+    assert not Ep[:, :, ~used].any()
+
+
+def _chunked_aopt_gains(X, W, E, F, isig2):
+    """Kernel 5's formulation in plain torch: pack; per unit and chunk of
+    64 columns t and u, −2uᵀt and ‖t‖² per column; tᵀF t over the unit's
+    block-diagonal F across its chunks; the sums per slot."""
+    g, m, d, b = E.shape
+    plan = aopt_plan(m, b)
+    C, width = AOPT_ROUND_B, plan.nc * AOPT_ROUND_B
+    Ep = pack_factors(E, plan)
+    out = torch.empty((g, m, X.shape[1]))
+    for gi in range(g):
+        wsq = torch.sum(W[gi] * W[gi], dim=0)
+        xw = torch.sum(X * W[gi], dim=0)
+        for j in range(plan.units):
+            cols = Ep[gi][:, j * width:(j + 1) * width]
+            T = torch.cat([cols[:, c * C:(c + 1) * C].T @ X
+                           for c in range(plan.nc)])
+            Uw = torch.cat([cols[:, c * C:(c + 1) * C].T @ W[gi]
+                            for c in range(plan.nc)])
+            Fu = torch.zeros((width, width))
+            for q in range(plan.ms):
+                if j * plan.ms + q < m:
+                    o = q * plan.bs
+                    Fu[o:o + b, o:o + b] = F[gi, j * plan.ms + q]
+            num = T * (Fu @ T) - 2.0 * Uw * T
+            for q in range(plan.ms):
+                i = j * plan.ms + q
+                if i >= m:
+                    continue
+                rows = slice(q * plan.bs, q * plan.bs + min(plan.bs, width))
+                nm = wsq + torch.sum(num[rows], dim=0)
+                den = 1.0 + isig2 * (xw - torch.sum(T[rows] ** 2, dim=0))
+                out[gi, i] = (isig2 * torch.clamp(nm, min=0.0)
+                              / torch.clamp(den, min=1e-30))
+    return out
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,g,m,b", [
+    (40, 129, 2, 8, 8),      # the design lattice's m and b: one chunk
+    (40, 129, 1, 8, 9),      # m·b = 72 past one chunk: two units
+    (33, 100, 2, 3, 0),      # b = 0: the singleton gain
+    (48, 130, 1, 2, 65),     # two chunks
+    (48, 130, 1, 2, 130),    # three chunks
+])
+def test_chunked_aopt_formulation_matches_jax(d, n, g, m, b, precision):
+    """The chunked formulation against the port's plain version, the JAX
+    lattice reference and the JAX engine in interpret mode, on operands of
+    a real solve (W = M⁻¹X, Woodbury factors by the Cholesky formula)."""
+    X, W, E, F, isig2 = _genuine(d, n, g, m, b, sigma2=0.7)
+    tX, tW, tE, tF = (torch.from_numpy(a) for a in (X, W, E, F))
+    tXq, tWq = quantize(tX, precision), quantize(tW, precision)
+    got = _chunked_aopt_gains(tXq, tWq, tE, tF, isig2)
+
+    def close(want):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   rtol=AOPT_RTOL, atol=AOPT_ATOL)
+
+    close(aopt_filter_gains_lattice_ref(tXq, tWq, tE, tF, isig2))
+    jX, jW = (jax_quantize(jnp.asarray(a), precision) for a in (X, W))
+    close(jax_aopt_lattice_ref(jX, jW, jnp.asarray(E), jnp.asarray(F),
+                               isig2))
+    close(jax_aopt_filter_gains(jnp.asarray(X), jnp.asarray(W),
+                                jnp.asarray(E), jnp.asarray(F), isig2,
+                                interpret=True, precision=precision))
 
 
 # d, n, dtype: the main shapes (greedy's and DASH's calls share one plan),
