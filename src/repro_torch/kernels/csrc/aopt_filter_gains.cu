@@ -62,18 +62,8 @@ namespace {
 
 using repro_torch::to_f32;
 
-#ifndef AF_ROWS
-#define AF_ROWS 32
-#endif
-#ifndef AF_DEPTH
-#define AF_DEPTH 2
-#endif
-#ifndef AF_UNROLL
-#define AF_UNROLL 4
-#endif
-constexpr int AF_TR = AF_ROWS;  // rows of d per stage
-constexpr int AF_STAGES = AF_DEPTH;  // depth of the cp.async ring
-constexpr int AF_UNR = AF_UNROLL;    // rows of the FMA loop unrolled
+constexpr int AF_TR = 32;       // rows of d per stage
+constexpr int AF_STAGES = 2;    // depth of the cp.async ring
 constexpr int AF_BN = 128;      // candidates per CTA (BN of split_proj)
 constexpr int AF_CH = 64;       // Woodbury columns per chunk
 constexpr int AF_FLD = AF_CH + 4;  // row stride of the staged F block
@@ -186,7 +176,7 @@ aopt_filter_kernel(const T* __restrict__ X, const T* __restrict__ W, int d,
   for (int t = 0; t < AF_STAGES - 1; ++t) issue(t);
   for (int t = 0; t < steps; ++t) {
     cp_async_wait<AF_STAGES - 2>();  // this thread's stage t landed
-    __syncthreads();              // everyone's did; slot (t-1) % 3 is free
+    __syncthreads();              // everyone's did; slot (t-1) % 2 is free
     issue(t + AF_STAGES - 1);
     const AStage<T>& st = ring[t % AF_STAGES];
     if (t < spc) {
@@ -201,7 +191,7 @@ aopt_filter_kernel(const T* __restrict__ X, const T* __restrict__ W, int d,
       *psw = sw;
       *psx = sx;
     }
-#pragma unroll (AF_UNR)
+#pragma unroll 4
     for (int r = 0; r < AF_TR; ++r) {
       float x[4], w[4];
       load4(st.x[r], cg, x);
