@@ -77,8 +77,8 @@ struct AStage {
 
 template <typename T>
 constexpr int AF_RING = AF_STAGES * sizeof(AStage<T>);
-// t of the last chunk (64, 128) and one F block (64, AF_FLD) after the
-// loop; the per-group sums after that.
+// After the loop, in the ring's place: t of the last chunk (64, 128) and
+// one F block (64, AF_FLD).
 constexpr int AF_EPI = (AF_CH * AF_BN + AF_CH * AF_FLD) * 4;
 template <typename T>
 constexpr int AF_BASE = (AF_RING<T> > AF_EPI) ? AF_RING<T> : AF_EPI;

@@ -53,7 +53,6 @@ from repro_torch.kernels.logistic_gains.ops import (
     launch as logistic_launch,
 )
 from repro_torch.kernels.marginal_gains.ops import (
-    _INFO_KEYS,
     BASIS_TILE,
     BLOCK_COLS,
     CTAS_PER_SM,
@@ -309,14 +308,8 @@ def aopt_kernel_info(dtype) -> dict:
     """Kernel 5 (16-byte staging) for X in ``dtype``: registers, spill
     bytes, shared memory per CTA, threads and CTAs per SM, from the CUDA
     runtime (needs the card)."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"aopt_filter_gains: no kernel for {dtype}")
-    fn = _build.load("aopt_filter_gains").aopt_filter_kernel_info
-    fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], ctypes.c_int
-    out = (_I * len(_INFO_KEYS))()
-    _build.check(fn(int(dtype == torch.bfloat16), out),
-                 "aopt_filter_kernel_info")
-    return dict(zip(_INFO_KEYS, out))
+    return partial_kernel_info("aopt_filter_gains", "aopt_filter_kernel_info",
+                               dtype)
 
 
 def _aopt_launch(X, W, E, F, isig2):

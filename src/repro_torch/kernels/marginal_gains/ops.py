@@ -81,10 +81,11 @@ def _library():
 
 
 def partial_kernel_info(library: str, symbol: str, dtype) -> dict:
-    """What ``symbol`` of ``csrc/<library>.cu`` reports of its instance of
-    the split-d partial kernel (``split_proj.cuh::describe_partial``) for
-    X in ``dtype``: registers, spill bytes, shared memory, threads and
-    CTAs per SM (needs the card: it asks the CUDA runtime)."""
+    """What ``symbol`` of ``csrc/<library>.cu`` reports of the kernel it
+    describes (the split-d partial kernel's instance, through
+    ``split_proj.cuh::describe_partial``, or kernel 5) for X in
+    ``dtype``: registers, spill bytes, shared memory, threads and CTAs per
+    SM (needs the card: it asks the CUDA runtime)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{library}: no kernel for {dtype}")
     fn = getattr(_build.load(library), symbol)

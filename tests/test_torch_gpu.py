@@ -368,15 +368,16 @@ def test_aopt_filter_gains_in_rounds(cuda, d, n, g, m, b, precision):
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
 
 
-# Kernel 5's one-pass outputs (b ≤ 64) on fixed inputs, read on an NVIDIA
-# H100 80GB HBM3 (700 W) at commit b2de2bc, before b > 64 ran in rounds,
-# and equal after: (d, n, G, m, b) → (f32, bf16) sha256 prefixes of the
-# (G, m, n) gains.  A new CUDA toolkit may compile other bits: read them
-# again from that commit then.
+# Kernel 5's outputs at b ≤ 64 (one chunk per CTA) on fixed inputs, read
+# on an NVIDIA H100 80GB HBM3 (700 W) from the kernel sources of commit
+# d7a200a, the redesign that moved them (the b = 0 reading did not move):
+# (d, n, G, m, b) → (f32, bf16) sha256 prefixes of the (G, m, n) gains.
+# A new CUDA toolkit may compile other bits: read them again from that
+# commit then.
 AOPT_STORED_READINGS = {
-    (1024, 4096, 2, 8, 8): ("6757b4ec81971f8c", "f6a3f97b6b1b5c00"),
-    (513, 777, 3, 2, 64): ("e56643bd12c57a6b", "d43fb01bcfab9de7"),
-    (100, 300, 1, 9, 3): ("625d710980cfa817", "9b025f74563f7d24"),
+    (1024, 4096, 2, 8, 8): ("b199f34748f94050", "79a02b4e967ee7e3"),
+    (513, 777, 3, 2, 64): ("20f77babe41651ca", "6d32a1744328ef93"),
+    (100, 300, 1, 9, 3): ("2691dbb032ef8d62", "0b3ab0053446e7d9"),
     (257, 513, 2, 4, 0): ("e3aa9866bb3fddeb", "f54757c54f90e077"),
 }
 
