@@ -24,11 +24,25 @@ exits nonzero, with no result line) when a check fails:
                kernels 1 and 3 bitwise equal in two calls, kernel 3's
                stacked basis width, split of d and copy width logged;
                kernel 5 also at b = 128 (two chunks of 64 columns) and
-               bitwise equal in two calls, its plan logged
+               bitwise equal in two calls, its plan logged; kernels 3, 5
+               and 7 also at FAST's prefix shapes (a sequence's 129
+               insertion prefixes of b = 128 columns, the prefix masks
+               arange(b) < arange(b + 1)[:, None], ragged slot_ok on the
+               small cases), kernel 3's stacked width, split and
+               workspace bytes and kernel 5's plan and scratch bytes
+               logged
   4. main    — the port's quickstart (greedy, DASH over 6 OPT guesses
                × 8 samples, TOP-K, RANDOM) on the paper's D1 protocol at
                d = n = 8192, k = 128, with the kernels' launch counters
                set to 0 just before and read just after
+     registry main — ``repro_torch.bench_selection``'s main suite: lazy
+               and stochastic greedy, FAST (binary search, 3 probes),
+               adaptive sequencing and TOP-K through ``select()``, and
+               LASSO, on the same D1; counters set to 0 just before each
+               selector and read just after; values in [0, 1], each
+               new selector above RANDOM, FAST within its round cap,
+               FAST and adaptive sequencing launching kernel 3, lazy and
+               stochastic greedy kernel 1
   5. parity  — greedy and DASH on the small D1 (600 × 200, k = 40), card
                against the CPU plain path, DASH noise drawn on the CPU
   6. design main — the port's A-optimal design entry point (greedy, DASH
@@ -44,6 +58,13 @@ exits nonzero, with no result line) when a check fails:
                read after
   9. classification parity — greedy and DASH on the small D3 (600 × 200,
                support 50, k = 20), card against the CPU plain path
+     registry design, class — FAST and adaptive sequencing through
+               ``select()`` on the design and classification mains'
+               objectives (kernel 5 at b = 128 over 129 prefixes, kernel
+               7 over 129 states), counters zeroed per run
+     registry parity — lazy and stochastic greedy, FAST and adaptive
+               sequencing on the small D1, design and D3, card against
+               the CPU plain path, noise drawn on the CPU
  10. lm kernels — flash attention (kernel 8) against its plain version,
                f32 and bf16, at rtol = atol = 2e-5 (f32) and 2e-2 (bf16),
                the JAX test's, and in bf16 also per row against the
@@ -72,10 +93,13 @@ exits nonzero, with no result line) when a check fails:
                from its shapes and the H100 SXM peaks (kernel 8 at the lm
                main prefill shape, SDPA with the same mask as its
                yardstick); kernel 3's workspace bytes, registers, spills
-               and shared memory per CTA; kernel 5 at b = 128
+               and shared memory per CTA; kernel 5 at b = 128; kernels
+               3, 5 and 7 at FAST's prefix shapes (bounds counting the
+               prefixes' nonzero columns), beside the MGS deltas of the
+               129 prefixes
  15. profile — greedy and DASH of the main phase, DASH of the design
                main phase, greedy and DASH of the classification main
-               phase, one lm prefill and four
+               phase, 8 rounds of the registry main's FAST, one lm prefill and four
                lm decode steps, once more under torch.profiler: device
                busy time by kernel and the device's busy share of the
                host wall time
@@ -123,6 +147,16 @@ DESIGN_BLOCK = 8
 # eps 0.25, α 0.6, 8 samples); r = 13 rounds, block b = 10.
 CLASS = dict(d=8192, n=8192, k=128, support=256, n_guesses=6, n_samples=8)
 CLASS_BLOCK = 10
+
+# FAST's binary search over its default 8 OPT guesses: ⌈log2 8⌉ probes.
+FAST_PROBES = 3
+# FAST's prefix sweep at k = 128: L = 128 columns, L + 1 = 129 prefixes.
+FAST_L = 128
+# Rounds of FAST the profile phase traces: the MGS deltas of the 129
+# prefixes alone take 128 column steps of several operations a round,
+# and the profiler's trace of one whole probe did not finish within the
+# script's time limit.
+FAST_PROFILE_ROUNDS = 8
 
 # The LM serving path: h2o-danube-1.8b at full width (24 layers, d_model
 # 2560, 32 query and 8 KV heads of 80, window 4096, bf16) through
@@ -285,9 +319,22 @@ def phase_build():
 # 3. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def make_operands(torch, d, n, k, b, m, g, seed):
+def prefix_slots(torch, b, ragged, device):
+    """FAST's (b + 1, b) prefix masks (``core.fast.prefix_masks``) with
+    the last ``ragged`` slots invalid (slot_ok False), as at the end of a
+    FAST run when fewer than b elements are alive or allowed."""
+    from repro_torch.core.fast import prefix_masks
+
+    ok = torch.arange(b, device=device) < b - ragged
+    return prefix_masks(b, device) & ok[None, :]
+
+
+def make_operands(torch, d, n, k, b, m, g, seed, fast=None):
     """X (d, n), per-guess orthonormal Q (g, d, k), deltas D (g, m, d, b)
-    ⊥ Q_g, residuals R (g, m, d) and col_sq, made on the card."""
+    ⊥ Q_g, residuals R (g, m, d) and col_sq, made on the card.  ``fast``
+    = (|S|, ragged) gives FAST's prefix sweep instead: Q with |S| nonzero
+    columns of its k, and sample i's deltas zero past its prefix (m = b +
+    1 prefixes, ``prefix_slots``)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     dev = torch.device("cuda")
@@ -299,9 +346,13 @@ def make_operands(torch, d, n, k, b, m, g, seed):
     Q = torch.zeros((g, d, k), device=dev)
     if k:
         Q = torch.linalg.qr(randn(g, d, k)).Q
+    if fast is not None:
+        Q[:, :, fast[0]:] = 0
     Dr = randn(g, m, d, b)
     Dr = Dr - Q[:, None] @ (Q[:, None].transpose(-1, -2) @ Dr)
     D = torch.linalg.qr(Dr).Q
+    if fast is not None:
+        D = D * prefix_slots(torch, b, fast[1], dev)[None, :, None, :]
     R = randn(g, m, d)
     return (X, Q.contiguous(), D.contiguous(), R,
             torch.sum(X * X, dim=0))
@@ -329,13 +380,20 @@ def phase_kernels(torch, cases):
         regression_gains_ref,
     )
 
-    from repro_torch.kernels.filter_gains.ops import engine_plan
+    from repro_torch.kernels.filter_gains.ops import (
+        engine_plan,
+        workspace_elems,
+    )
     from repro_torch.kernels.marginal_gains.ops import split_plan, wide_copies
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = {"regression_gains": 0.0, "filter_gains": 0.0}
-    for (d, n, k, b, m, g) in cases:
-        X, Q, D, R, csq = make_operands(torch, d, n, k, b, m, g, seed=d + n)
+    for case in cases:
+        (d, n, k, b, m, g), fast = case[:6], (case[6:] or [None])[0]
+        X, Q, D, R, csq = make_operands(torch, d, n, k, b, m, g, seed=d + n,
+                                        fast=fast)
+        shape = (f" FAST prefixes (|S|={fast[0]}, {fast[1]} ragged slots)"
+                 if fast else "")
         r = R[:, 0].contiguous()
         for prec in ("f32", "bf16"):
             tol = STREAM_PARITY_TOL[prec]["kernel_vs_ref"]
@@ -359,8 +417,10 @@ def phase_kernels(torch, cases):
             fwide = wide_copies(X.to(stream_dtype(prec)),
                                 torch.empty((1, plan.kp), device="cuda"))
             log(f"[kernels] filter_gains {prec:4s} d={d} n={n} k={k} b={b} "
-                f"m={m} G={g}: stacked kp={plan.kp} ({plan.width} vectors) "
-                f"S={fs} copies={'16-byte' if fwide else 'element'} "
+                f"m={m} G={g}{shape}: stacked kp={plan.kp} ({plan.width} "
+                f"vectors) S={fs} workspace "
+                f"{4 * workspace_elems(plan, n, fs)} bytes "
+                f"copies={'16-byte' if fwide else 'element'} "
                 f"deterministic={'yes' if fsame else 'NO'}")
             need(fsame, f"filter_gains {prec} differs between two calls "
                         f"at d={d} n={n} k={k} b={b} m={m} G={g}")
@@ -375,7 +435,7 @@ def phase_kernels(torch, cases):
                 abs_err, rel_err = _errs(got, want)
                 ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
                 log(f"[kernels] {name:16s} {prec:4s} d={d} n={n} k={k} "
-                    f"b={b} m={m} G={g}: max_abs_err={abs_err:.3e} "
+                    f"b={b} m={m} G={g}{shape}: max_abs_err={abs_err:.3e} "
                     f"max_rel_err={rel_err:.3e} "
                     f"{'ok' if ok else 'FAIL'}")
                 need(ok, f"{name} {prec} disagrees with its plain version "
@@ -386,11 +446,15 @@ def phase_kernels(torch, cases):
     return worst
 
 
-def make_aopt_operands(torch, d, n, g, m, b, n_sel, seed, sigma2=1.0):
+def make_aopt_operands(torch, d, n, g, m, b, n_sel, seed, sigma2=1.0,
+                       ragged=None):
     """Genuine A-optimality operands on the card: X of the D1 design,
     the shared solves W (g, d, n) of g states with n_sel random
     selections each, and the Woodbury factors E (g, m, d, b), F of m
-    random b-sets per state from ``expand_factors``."""
+    random b-sets per state from ``expand_factors``.  With ``ragged``
+    (an int), FAST's prefix sweep instead: one random sequence of b per
+    state and its m = b + 1 insertion prefixes, the last ``ragged``
+    slots invalid (``prefix_slots``)."""
     from repro_torch.core import AOptimalityObjective
     from repro_torch.data.synthetic import make_d1_design
 
@@ -408,6 +472,11 @@ def make_aopt_operands(torch, d, n, g, m, b, n_sel, seed, sigma2=1.0):
     if b == 0:
         E = torch.zeros((g, m, d, 0), device=dev)
         F = torch.zeros((g, m, 0, 0), device=dev)
+    elif ragged is not None:
+        seq = torch.stack([draw(b) for _ in range(g)]).to(dev)
+        sidx = seq[:, None, :].expand(g, m, b).contiguous()
+        mask = prefix_slots(torch, b, ragged, dev)[None].expand(g, m, b)
+        E, F = obj.expand_factors(st, sidx, mask.contiguous())
     else:
         sidx = torch.stack([torch.stack([draw(b) for _ in range(m)])
                             for _ in range(g)]).to(dev)
@@ -426,10 +495,17 @@ def phase_aopt_kernels(torch, cases):
 
     from repro_torch.kernels.filter_gains.ops import aopt_plan
 
+    from repro_torch.kernels.filter_gains.ops import aopt_scratch_elems
+
     worst = {"aopt_gains": 0.0, "aopt_filter_gains": 0.0}
-    for (d, n, g, m, b, n_sel, sigma2) in cases:
+    for case in cases:
+        (d, n, g, m, b, n_sel, sigma2), ragged = case[:7], \
+            (case[7:] or [None])[0]
         X, W, E, F, isig2 = make_aopt_operands(torch, d, n, g, m, b, n_sel,
-                                               seed=d + n + b, sigma2=sigma2)
+                                               seed=d + n + b, sigma2=sigma2,
+                                               ragged=ragged)
+        shape = ("" if ragged is None else
+                 f" FAST prefixes ({ragged} ragged slots)")
         for prec in ("f32", "bf16"):
             tol = STREAM_PARITY_TOL[prec]["kernel_vs_ref"]
             Xq, Wq = quantize(X, prec), quantize(W, prec)
@@ -439,8 +515,9 @@ def phase_aopt_kernels(torch, cases):
                 X, W, E, F, isig2, precision=prec))
             plan = aopt_plan(m, b)
             log(f"[kernels] aopt_filter_gains {prec:4s} d={d} n={n} G={g} "
-                f"m={m} b={b}: slot {plan.bs} columns, {plan.ms} per unit, "
-                f"{plan.nc} chunk(s), {plan.units} unit(s) per guess "
+                f"m={m} b={b}{shape}: slot {plan.bs} columns, {plan.ms} per "
+                f"unit, {plan.nc} chunk(s), {plan.units} unit(s) per guess, "
+                f"scratch {4 * aopt_scratch_elems(g, m, n, b)} bytes "
                 f"deterministic={'yes' if same else 'NO'}")
             need(same, f"aopt_filter_gains {prec} differs between two calls "
                        f"at d={d} n={n} G={g} m={m} b={b}")
@@ -455,7 +532,7 @@ def phase_aopt_kernels(torch, cases):
                 abs_err, rel_err = _errs(got, want)
                 ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
                 log(f"[kernels] {name:17s} {prec:4s} d={d} n={n} G={g} "
-                    f"m={m} b={b} |S|={n_sel} isig2={isig2:g}: "
+                    f"m={m} b={b} |S|={n_sel} isig2={isig2:g}{shape}: "
                     f"max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} "
                     f"{'ok' if ok else 'FAIL'}")
                 need(ok, f"{name} {prec} disagrees with its plain version "
@@ -475,11 +552,13 @@ def d3_problem(d, n, support):
     return make_d3_classification(n_samples=d, n_features=n, support=support)
 
 
-def make_logistic_operands(torch, d, n, g, m, b, n_sel, seed):
+def make_logistic_operands(torch, d, n, g, m, b, n_sel, seed, ragged=None):
     """Genuine logistic operands on the card: X and y of the D3 protocol,
     the logits (g, d) of g states refit on n_sel random features each
     (the empty set, η = 0, for n_sel = 0), and the refit logits (g, m, d)
-    of m random b-sets per state from ``expand_logits``."""
+    of m random b-sets per state from ``expand_logits``.  With ``ragged``
+    (an int), FAST's prefix sweep instead: one random sequence of b per
+    state and its m = b + 1 insertion prefixes (``prefix_slots``)."""
     from repro_torch.core import ClassificationObjective
 
     dev = torch.device("cuda")
@@ -491,10 +570,18 @@ def make_logistic_operands(torch, d, n, g, m, b, n_sel, seed):
         idx = torch.stack([torch.randperm(n, generator=gen)[:n_sel]
                            for _ in range(g)]).to(dev)
         st = obj.add_set(st, idx, torch.ones_like(idx, dtype=torch.bool))
-    sidx = torch.stack([torch.stack([torch.randperm(n, generator=gen)[:b]
-                                     for _ in range(m)])
-                        for _ in range(g)]).to(dev)
-    etas = obj.expand_logits(st, sidx, torch.ones_like(sidx, dtype=torch.bool))
+    if ragged is not None:
+        seq = torch.stack([torch.randperm(n, generator=gen)[:b]
+                           for _ in range(g)]).to(dev)
+        sidx = seq[:, None, :].expand(g, m, b).contiguous()
+        mask = prefix_slots(torch, b, ragged, dev)[None].expand(g, m, b)
+        etas = obj.expand_logits(st, sidx, mask.contiguous())
+    else:
+        sidx = torch.stack([torch.stack([torch.randperm(n, generator=gen)[:b]
+                                         for _ in range(m)])
+                            for _ in range(g)]).to(dev)
+        etas = obj.expand_logits(st, sidx,
+                                 torch.ones_like(sidx, dtype=torch.bool))
     return obj.X, obj.y, st.eta.contiguous(), etas.contiguous()
 
 
@@ -546,9 +633,12 @@ def phase_logistic_kernels(torch, cases):
                             for e in E])
 
     worst = {"logistic_gains": 0.0, "logistic_filter_gains": 0.0}
-    for (d, n, g, m, b, n_sel, steps) in cases:
+    for case in cases:
+        (d, n, g, m, b, n_sel, steps), ragged = case[:7], \
+            (case[7:] or [None])[0]
         X, y, E, etas = make_logistic_operands(torch, d, n, g, m, b, n_sel,
-                                               seed=d + n + n_sel)
+                                               seed=d + n + n_sel,
+                                               ragged=ragged)
         y64 = y.double()
         for prec in ("f32", "bf16"):
             Xq = quantize(X, prec)
@@ -589,7 +679,8 @@ def phase_logistic_kernels(torch, cases):
                 plain_err = float((plain.double() - want).abs().max())
                 ok = bool((err <= limit).all())
                 log(f"[kernels] {name:21s} {prec:4s} d={d} n={n} G={g} "
-                    f"m={m} b={b} |S|={n_sel} steps={steps}: "
+                    f"m={m} b={b} |S|={n_sel} steps={steps}"
+                    f"{'' if ragged is None else ' FAST prefixes'}: "
                     f"kernel_err={float(err.max()):.3e} "
                     f"f32_plain_err={plain_err:.3e} "
                     f"atol_min={float(atol.min()):.3e} "
@@ -910,6 +1001,187 @@ def phase_class_parity(torch):
         need(same or abs(vc - vg) < 1e-3,
              f"classification DASH lane {g} on the card disagrees with the "
              "CPU")
+
+
+# ---------------------------------------------------------------------------
+# registry: the §5 roster through select() on the card
+# ---------------------------------------------------------------------------
+
+def zeroed_timer(torch):
+    """``bench_selection``'s timer with every kernel's launch counter set
+    to 0 just before the run and read just after: returns (host seconds,
+    result, the nonzero counts)."""
+    from repro_torch.bench_selection import KERNELS
+
+    def timer(fn, dev):
+        torch.cuda.synchronize()
+        for f in KERNELS.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return secs, res, {name: f.launches for name, f in KERNELS.items()
+                           if f.launches}
+
+    return timer
+
+
+def log_registry_row(tag, row):
+    cost = row.get("cost") or {}
+    log(f"[{tag}] {row['algo']:19s} value={row['value']:.6f} "
+        f"host_s={row['seconds']:.3f} rounds_measured={row.get('rounds')} "
+        f"sel_count={row.get('sel_count', row.get('nnz'))} "
+        f"launches={row['launches']} cost_rounds="
+        f"{cost.get('adaptive_rounds')} cost_queries="
+        f"{cost.get('oracle_calls')}")
+
+
+def phase_registry_main(torch, random_value):
+    """``repro_torch.bench_selection --suite main`` on the card: lazy and
+    stochastic greedy, FAST (its binary search over 8 OPT guesses: 3
+    probes), adaptive sequencing and TOP-K through ``select`` on the
+    regression main's D1 (d = n = 8192, support 256, k = 128), then
+    LASSO; the launch counters set to 0 just before each algorithm and
+    read just after."""
+    from repro_torch import bench_selection
+    from repro_torch.core.fast import fast_round_cap
+
+    k = MAIN["k"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = bench_selection.run_main(
+        "cuda", d=MAIN["d"], n=MAIN["n"], k=k, support=MAIN["support"],
+        timer=zeroed_timer(torch), verbose=False)
+    peak = torch.cuda.max_memory_allocated()
+    rows = res["rows"]
+    log(f"[registry main] D1 d={MAIN['d']} n={MAIN['n']} "
+        f"support={MAIN['support']} k={k} through select() (no cut); "
+        f"RANDOM of [main] {random_value:.6f}")
+    for row in rows.values():
+        log_registry_row("registry main", row)
+    cap = fast_round_cap(k, 0.06) * FAST_PROBES
+    fl = rows["fast"]["launches"].get("filter_gains", 0)
+    log(f"[registry main] fast: {fl} filter_gains calls over "
+        f"{FAST_PROBES} probes (round cap {cap}); best probe's OPT "
+        f"{float(rows['fast']['result'].raw.opt):.6f}; "
+        f"max_memory_allocated={peak} bytes")
+    for algo, row in rows.items():
+        v = row["value"]
+        need(v == v and 0.0 <= v <= 1.0, f"{algo} value {v} not in [0, 1]")
+        need(algo == "lasso" or row["sel_count"] <= k,
+             f"{algo} selected more than k")
+    for algo in ("fast", "adaptive_sequencing", "lazy_greedy",
+                 "stochastic_greedy"):
+        need(rows[algo]["value"] > random_value,
+             f"{algo} does not beat [main]'s RANDOM")
+    need(0 < fl <= cap, f"fast launched filter_gains {fl} times")
+    need(rows["fast"]["rounds"] <= cap, "fast's rounds pass the cap")
+    need(rows["adaptive_sequencing"]["launches"].get("filter_gains", 0) > 0,
+         "adaptive sequencing never launched filter_gains")
+    for algo in ("lazy_greedy", "stochastic_greedy"):
+        need(rows[algo]["launches"].get("regression_gains", 0) > 0,
+             f"{algo} never launched regression_gains")
+    return res
+
+
+def phase_registry_paths(torch, design, cls):
+    """FAST and adaptive sequencing through ``select`` on the design and
+    classification mains' objectives (kernel 5 at b = 128 over 129
+    prefixes, kernel 7 over 129 states), counters zeroed per run."""
+    from repro_torch.core import SeedKey, select
+
+    timer = zeroed_timer(torch)
+    out = {}
+    for tag, main_out, kernel, top, k in (
+        ("design", design, "aopt_filter_gains", float(DESIGN["d"]),
+         DESIGN["k"]),
+        ("class", cls, "logistic_filter_gains", CLASS["d"] * math.log(2.0),
+         CLASS["k"]),
+    ):
+        obj = main_out["objective"]
+        for algo in ("fast", "adaptive_sequencing"):
+            secs, res, launches = timer(
+                lambda: select(algo, obj, k, key=SeedKey(0), device="cuda"),
+                None)
+            v = float(res.value)
+            log(f"[registry {tag}] {algo:19s} value={v:.6f} host_s="
+                f"{secs:.3f} rounds_measured={int(res.raw.rounds)} "
+                f"sel_count={int(res.sel_count)} launches={launches}; "
+                f"greedy, RANDOM of [{tag}] {main_out['greedy_value']:.6f}, "
+                f"{main_out['random_value']:.6f}")
+            need(v == v and 0.0 <= v <= top,
+                 f"{tag} {algo} value {v} outside [0, {top:.3f}]")
+            need(int(res.sel_count) <= k, f"{tag} {algo} selected > k")
+            need(launches.get(kernel, 0) > 0,
+                 f"{tag} {algo} never launched {kernel}")
+            out[(tag, algo)] = (secs, res, launches)
+    return out
+
+
+def phase_registry_parity(torch):
+    """Lazy and stochastic greedy, FAST and adaptive sequencing through
+    ``select`` on the small D1 (600 × 200, k = 40), the small design
+    (128 × 512, k = 32) and the small D3 (600 × 200, support 50, k = 20),
+    card against the CPU plain path, noise drawn on the CPU, by
+    ``phase_parity``'s rule: the pickers (lazy and stochastic greedy)
+    give the CPU's picks, or first part from them at a near-tie (the
+    CPU's gains of the two differing picks within 2e-4 relative; the
+    design's unit-norm candidates all open at gain 1/2, so its first
+    pick is an f32 tie, after which the values may part); FAST and
+    adaptive sequencing give the CPU's set, or values within 1e-3."""
+    from repro_torch.core import (
+        AOptimalityObjective,
+        ClassificationObjective,
+        RegressionObjective,
+        SeedKey,
+        select,
+    )
+    from repro_torch.data.synthetic import (
+        make_d1_design,
+        make_d1_regression,
+        make_d3_classification,
+    )
+
+    X1, y1, _ = make_d1_regression(seed=0, n_samples=600, n_features=200,
+                                   support=40)
+    Xd = make_d1_design(seed=0, n_samples=512, n_features=128)
+    X3, y3, _ = make_d3_classification(n_samples=600, n_features=200,
+                                       support=50)
+    problems = (
+        ("D1", lambda dev: RegressionObjective(X1, y1, 40, device=dev), 40),
+        ("design", lambda dev: AOptimalityObjective(Xd, 32, device=dev), 32),
+        ("D3", lambda dev: ClassificationObjective(X3, y3, 20, device=dev),
+         20),
+    )
+    for name, make, k in problems:
+        objs = {dev: make(dev) for dev in ("cpu", "cuda")}
+        for algo in ("lazy_greedy", "stochastic_greedy", "fast",
+                     "adaptive_sequencing"):
+            rc, rg = (select(algo, objs[dev], k, key=SeedKey(0, host=True),
+                             device=dev) for dev in ("cpu", "cuda"))
+            same = bool(torch.equal(rc.sel_mask, rg.sel_mask.cpu()))
+            vc, vg = float(rc.value), float(rg.value)
+            dv = abs(vc - vg)
+            picker = hasattr(rc.raw, "sel_idx")
+            extra, tie = "", False
+            if not same and picker:
+                pc, pg = rc.raw.sel_idx.tolist(), rg.raw.sel_idx.cpu().tolist()
+                i = next(j for j, (a, b) in enumerate(zip(pc, pg)) if a != b)
+                obj = objs["cpu"]
+                st = obj.init()
+                if i:
+                    st = obj.add_set(st, torch.tensor([pc[:i]]),
+                                     torch.ones((1, i), dtype=torch.bool))
+                g = obj.gains(st)[0]
+                gap = float((g[pc[i]] - g[pg[i]]) / g[pc[i]].abs())
+                tie = abs(gap) < 2e-4
+                extra = (f" first difference at pick {i}: relative gap of "
+                         f"the CPU's gains {gap:.3e}")
+            log(f"[registry parity] {name:6s} {algo:19s} same set={same} "
+                f"value cpu={vc:.6f} cuda={vg:.6f} |diff|={dv:.3e}{extra}")
+            need(same or (tie if picker else dv < 1e-3),
+                 f"{algo} on the {name} card run disagrees with the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -1620,6 +1892,128 @@ def log_aopt_plan(torch, prec, g, m, b, aopt_plan, aopt_kernel_info, t):
         f"{4.0 * d * b * g * m * n / t / 1e9:.1f} TFLOP/s")
 
 
+def phase_fast_timing(torch, reg_obj, launches):
+    """Kernels 3, 5 and 7 at FAST's prefix shapes (k = 128: 129 prefixes
+    of b = 128 columns; kernel 7 over 129 states), f32: CUDA-event ms,
+    the plain version's, the bound and a cuBLAS yardstick, beside the
+    registry runs' launches.  The bounds count what the prefixes need:
+    prefix j holds j columns (Σ_j j = 8256 of the 16,512 slots) and the
+    regression basis |S| = 1 of its 128 (the kernels multiply the zero
+    columns too).  Also the MGS deltas of the 129 prefixes
+    (``expand_basis``), the regression engine's other step."""
+    from repro_torch.kernels.filter_gains import (
+        aopt_filter_gains,
+        aopt_filter_gains_lattice_ref,
+        filter_gains,
+        filter_gains_lattice_ref,
+        logistic_filter_gains,
+        logistic_filter_gains_lattice_ref,
+    )
+    from repro_torch.kernels.filter_gains.ops import (
+        aopt_scratch_elems,
+        engine_plan,
+        pack_basis,
+        workspace_elems,
+    )
+
+    b = FAST_L
+    m = b + 1
+    cols = b * (b + 1) // 2            # the prefixes' nonzero columns
+    sq = sum(j * j for j in range(b + 1))   # Σ_j j²: F's nonzero entries
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    torch.cuda.empty_cache()
+
+    # kernel 3: d = n = 8192, |S| = 1, one lane of 129 prefixes.
+    d, n, k = MAIN["d"], MAIN["n"], MAIN["k"]
+    X, Q, D, R, csq = make_operands(torch, d, n, k, b, m, 1, seed=21,
+                                    fast=(1, 0))
+    plan, fs, _ = engine_plan(1, m, d, n, k, b, sms)
+    t = time_ms(torch, lambda: filter_gains(X, Q, D, R, csq), iters=5,
+                warmup=1)
+    p = time_ms(torch, lambda: filter_gains_lattice_ref(X, Q, D, R, csq),
+                iters=2, warmup=1)
+    bd, by = bound(2.0 * d * n * (1 + cols + m),
+                   4 * (d * n + d * (1 + cols + m) + n + m * n))
+    stacked = pack_basis(Q, D, R, plan).t().contiguous()
+    lib = time_ms(torch, lambda: stacked @ X, iters=5, warmup=1)
+    dense = 2.0 * d * n * plan.kp / F32_PEAK_FLOPS * 1e3
+    del stacked, X, Q, D, R, csq
+    st = reg_obj.add_set(reg_obj.init(), torch.tensor([[0]], device="cuda"),
+                         torch.ones((1, 1), dtype=torch.bool, device="cuda"))
+    idx = torch.randperm(n, device="cuda")[1:b + 1]
+    idx = idx[None, None, :].expand(1, m, b).contiguous()
+    mask = prefix_slots(torch, b, 0, "cuda")[None]
+    t_mgs = time_ms(torch, lambda: reg_obj.expand_basis(st, idx, mask),
+                    iters=2, warmup=1)
+    rows["filter_gains"] = dict(
+        shape=f"d={d} n={n} G=1 m={m} b={b} |S|=1 (kp {plan.kp}, S {fs})",
+        ms=t, plain_ms=p, bound_ms=bd, bound_by=by, library_ms=lib,
+        launches=launches.get("filter_gains"))
+    log(f"[timing] filter_gains     f32  FAST prefixes d={d} n={n} m={m} "
+        f"b={b} |S|=1: kernel_ms={t:.4f} plain_ms={p:.4f} bound_ms={bd:.4f} "
+        f"({by}; {1 + cols + m} nonzero basis vectors of kp={plan.kp}, "
+        f"dense {dense:.4f} ms) library_ms={lib:.4f} (cuBLAS f32 stacked "
+        f"basis^T X only) bound/kernel={bd / t:.3f}; S={fs}, workspace "
+        f"{4 * workspace_elems(plan, n, fs)} bytes; expand_basis (MGS "
+        f"deltas of the {m} prefixes) {t_mgs:.4f} ms; FAST launches in the "
+        f"registry main {launches.get('filter_gains')}")
+    del st, idx, mask
+    torch.cuda.empty_cache()
+
+    # kernel 5: the design main, d = 1024, n = 65536, one lane.
+    d, n = DESIGN["d"], DESIGN["n"]
+    X, W, E, F, isig2 = make_aopt_operands(torch, d, n, 1, m, b, 40, seed=23,
+                                           ragged=0)
+    t = time_ms(torch, lambda: aopt_filter_gains(X, W, E, F, isig2), iters=3,
+                warmup=1)
+    p = time_ms(torch, lambda: aopt_filter_gains_lattice_ref(X, W, E, F,
+                                                             isig2),
+                iters=2, warmup=1)
+    bd, by = bound(4.0 * d * n + n * (4.0 * d * cols + 2.0 * sq
+                                      + 6.0 * cols + 6.0 * m),
+                   4 * (2 * d * n + d * cols + sq + m * n))
+    et = E[0].permute(0, 2, 1).reshape(m * b, d).contiguous()
+    lib = time_ms(torch, lambda: (et @ X, et @ W[0]), iters=2, warmup=1)
+    rows["aopt_filter_gains"] = dict(
+        shape=f"d={d} n={n} G=1 m={m} b={b}", ms=t, plain_ms=p, bound_ms=bd,
+        bound_by=by, library_ms=lib,
+        launches=launches.get("aopt_filter_gains"))
+    log(f"[timing] aopt_filter_gains f32  FAST prefixes d={d} n={n} m={m} "
+        f"b={b}: kernel_ms={t:.4f} plain_ms={p:.4f} bound_ms={bd:.4f} "
+        f"({by}; the prefixes' {cols} nonzero columns of {m * b}) "
+        f"library_ms={lib:.4f} (cuBLAS f32 E^T X and E^T W only) "
+        f"bound/kernel={bd / t:.3f}; scratch "
+        f"{4 * aopt_scratch_elems(1, m, n, b)} bytes; FAST launches on the "
+        f"design main {launches.get('aopt_filter_gains')}")
+    del X, W, E, F, et
+    torch.cuda.empty_cache()
+
+    # kernel 7: the classification main, d = n = 8192, 129 states.
+    d, n, steps = CLASS["d"], CLASS["n"], 3
+    X, y, _, etas = make_logistic_operands(torch, d, n, 1, m, b, 1, seed=25,
+                                           ragged=0)
+    t = time_ms(torch, lambda: logistic_filter_gains(X, y, etas, steps=steps),
+                iters=3, warmup=1)
+    p = time_ms(torch, lambda: logistic_filter_gains_lattice_ref(
+        X, y, etas, steps=steps), iters=1, warmup=1)
+    bd, by, terms = logistic_bound(d, n, m, steps, 4)
+    rows["logistic_filter_gains"] = dict(
+        shape=f"d={d} n={n} states={m}", ms=t, plain_ms=p, bound_ms=bd,
+        bound_by=by, library_ms=None,
+        launches=launches.get("logistic_filter_gains"))
+    log(f"[timing] logistic_filter_gains f32 FAST prefixes d={d} n={n} "
+        f"states={m}: kernel_ms={t:.4f} plain_ms={p:.4f} bound_ms={bd:.4f} "
+        f"({by}: bytes {terms['bytes']:.4f}, f32 flops "
+        f"{terms['f32_flops']:.4f}, special-function units "
+        f"{terms['sfu']:.4f}) library_ms=none bound/kernel={bd / t:.3f}; "
+        f"FAST launches on the classification main "
+        f"{launches.get('logistic_filter_gains')}")
+    del X, y, etas
+    torch.cuda.empty_cache()
+    return rows
+
+
 # f32 flops of one log1pf (csrc/logistic_gains.cu::log1pf_01): 4 adds
 # and multiplies and 11 FMAs of 2 flops.
 LOG1PF_FLOPS = 26.0
@@ -1749,11 +2143,13 @@ def _device_us(event):
     return 0.0
 
 
-def profile_runs(out, design, cls):
+def profile_runs(out, design, cls, fast_opt):
     """The runs the profile phase replays: the main phase's greedy and
     DASH, the design main phase's DASH and the classification main
-    phase's greedy and DASH, each as it ran there."""
-    from repro_torch.core import SeedKey, dash_auto, greedy
+    phase's greedy and DASH, each as it ran there, and the first
+    FAST_PROFILE_ROUNDS rounds of one probe of the registry main's FAST,
+    at the OPT guess its binary search kept (``fast_opt``)."""
+    from repro_torch.core import SeedKey, dash_auto, greedy, select
 
     obj, k = out["objective"], MAIN["k"]
     dobj, cobj = design["objective"], cls["objective"]
@@ -1773,6 +2169,9 @@ def profile_runs(out, design, cls):
             cobj, CLASS["k"], SeedKey(0), eps=0.25, alpha=cls["alpha"],
             n_samples=CLASS["n_samples"], n_guesses=CLASS["n_guesses"],
             device="cuda"),
+        f"registry fast ({FAST_PROFILE_ROUNDS} rounds)": lambda: select(
+            "fast", obj, k, key=SeedKey(0), opt=fast_opt,
+            max_rounds=FAST_PROFILE_ROUNDS, device="cuda"),
     }
 
 
@@ -1852,6 +2251,10 @@ def main() -> int:
         (1023, 777, 37, 3, 2, 2),       # S > 1, ragged slice; element copies
         (24, 1000, 4, 1, 2, 1),         # d below one 32-row stage
         (600, 500, 120, 10, 2, 1),      # a state's segment across a tile
+        # FAST's prefix sweep at k = 128: |S| = 1 of a 128-column basis,
+        # 129 prefixes of b = 128 (kp 16,896); and a small ragged one
+        (d, n, k, FAST_L, FAST_L + 1, 1, (1, 0)),
+        (1000, 1537, 37, 20, 21, 1, (5, 3)),
     ])
     dd, dn, dk, dm = (DESIGN["d"], DESIGN["n"], DESIGN["k"],
                       DESIGN["n_samples"])
@@ -1866,6 +2269,9 @@ def main() -> int:
         (100, 300, 1, 9, 3, 3, 2.0),     # m above one CTA's 8 samples
         (dd, 4099, 2, 8, 17, 40, 1.0),   # 3 groups, ragged last group
         (dd, 4099, 2, 8, 9, 40, 1.0),    # m·b = 72 past one chunk
+        # FAST's prefix sweep: 129 prefixes of b = 128, and a small one
+        (dd, dn, 1, FAST_L + 1, FAST_L, 40, 1.0, 0),
+        (300, 1000, 1, FAST_L + 1, FAST_L, 9, 1.0, 5),
     ]))
     cd, cn, cg, cm = CLASS["d"], CLASS["n"], CLASS["n_guesses"], \
         CLASS["n_samples"]
@@ -1882,11 +2288,16 @@ def main() -> int:
         # past the on-chip capacity: the tail read from global memory
         # (and past the 58,080 rows the engine's first port could hold)
         (100_000, 100, 1, 3, 5, 3, 3),
+        # FAST's prefix sweep: 129 states (prefixes of b = 128)
+        (cd, cn, 1, FAST_L + 1, FAST_L, 1, 3, 0),
     ]))
     lm_worst = phase_lm_kernels(torch, LM_FLASH_CASES)
     log(f"[kernels] done at {time.perf_counter() - t0:.1f} s")
     out, launches, _ = phase_main(torch)
     log(f"[main] done at {time.perf_counter() - t0:.1f} s")
+    registry = phase_registry_main(torch, out["random_value"])
+    fast_launches = dict(registry["rows"]["fast"]["launches"])
+    log(f"[registry main] done at {time.perf_counter() - t0:.1f} s")
     phase_parity(torch)
     design, design_launches, _ = phase_design_main(torch)
     launches.update(design_launches)
@@ -1896,6 +2307,12 @@ def main() -> int:
     launches.update(class_launches)
     log(f"[class] done at {time.perf_counter() - t0:.1f} s")
     phase_class_parity(torch)
+    paths = phase_registry_paths(torch, design, cls)
+    for tag in ("design", "class"):
+        fast_launches.update(paths[(tag, "fast")][2])
+    log(f"[registry design, class] done at {time.perf_counter() - t0:.1f} s")
+    phase_registry_parity(torch)
+    log(f"[registry parity] done at {time.perf_counter() - t0:.1f} s")
     lm, launches["flash_attention"], _ = phase_lm_main(torch)
     log(f"[lm] done at {time.perf_counter() - t0:.1f} s")
     phase_lm_consistency(torch, lm["model"], lm["params"])
@@ -1905,7 +2322,12 @@ def main() -> int:
     rows += phase_aopt_timing(torch, worst, launches)
     rows += phase_logistic_timing(torch, worst, launches)
     rows += phase_lm_timing(torch, lm_worst, launches)
-    runs = profile_runs(out, design, cls)
+    fast_rows = phase_fast_timing(torch, out["objective"], fast_launches)
+    for row in rows:
+        if row["name"] in fast_rows:
+            row["fast_prefix_shape"] = fast_rows[row["name"]]
+    runs = profile_runs(out, design, cls,
+                        float(registry["rows"]["fast"]["result"].raw.opt))
     runs.update(lm_profile_runs(torch, lm))
     phase_profile(torch, runs)
     log(f"[smoke] total {time.perf_counter() - t0:.1f} s")

@@ -8,7 +8,10 @@ selection for sparse regression on one device
 design (``repro_torch.experimental_design``); slice 3 feature selection
 for logistic classification (``repro_torch.classification``); slice 4
 LM serving, prefill and decode of the dense attention-only archs
-(``repro_torch.serve_lm``).
+(``repro_torch.serve_lm``); slice 5 the ``select`` registry and the
+paper's §5 roster — lazy and stochastic greedy, FAST, adaptive
+sequencing, LASSO — with the §5 comparison
+(``repro_torch.bench_selection``).
 
 Layers:
   repro_torch.kernels  — hand-written CUDA C++ kernels for sm_90a (the
@@ -18,10 +21,12 @@ Layers:
                          versions and the nvcc/ctypes build
   repro_torch.core     — the regression, A-optimality and classification
                          objectives, estimators, the lane-batched DASH
-                         selection loop, greedy, the §5 one-shot
-                         baselines and the Cor. 9 γ/α bound
-  repro_torch.data     — the paper's synthetic D1 regression, D1 design
-                         and D3 classification data (numpy only)
+                         selection loop, the ``select`` registry and its
+                         §5 roster (greedy family, FAST, adaptive
+                         sequencing, the one-shot baselines), LASSO and
+                         the γ/α estimators
+  repro_torch.data     — the paper's synthetic D1–D4 and D1 design data
+                         (numpy only)
   repro_torch.configs  — the dense LM configs (copies of the JAX
                          package's) and their registry
   repro_torch.models   — the dense decoder LM: norms, RoPE, MLP,

@@ -18,8 +18,8 @@ filter iterations.
 
     PYTHONPATH=src python -m repro_torch.classification --device cpu
 
-Not ported yet: the benchmark's LASSO baseline and its timing harness
-(they wait for the registry and bench slices).
+The benchmark's LASSO baseline and the other §5 selectors run in
+``repro_torch.bench_selection``.
 """
 
 from __future__ import annotations

@@ -1,13 +1,16 @@
 """The paper's contribution on PyTorch: the regression, A-optimal design
-and logistic-classification objectives, DASH and its yardsticks (slices
-1–3 of the port).
+and logistic-classification objectives, DASH, the §5 roster behind the
+``select`` registry, and the γ estimators (slices 1–3 and 5 of the port).
 
 Public API:
     objectives: RegressionObjective, AOptimalityObjective,
                 ClassificationObjective, normalize_columns
-    algorithms: dash, dash_auto, DashConfig, greedy, top_k_select,
-                random_select
-    spectral:   gamma_aopt, alpha_from_gamma
+    algorithms: select (registry entry point), select_batched, dash,
+                dash_auto, DashConfig, fast, greedy, lazy_greedy,
+                stochastic_greedy, adaptive_sequencing, top_k_select,
+                random_select, fista, lasso_path_select
+    analysis:   gamma_regression, gamma_classification, gamma_aopt,
+                alpha_from_gamma
     keys:       SeedKey
 """
 
@@ -18,10 +21,37 @@ from repro_torch.core.objectives import (
     normalize_columns,
 )
 from repro_torch.core.dash import DashConfig, DashResult, dash, dash_auto
-from repro_torch.core.greedy import GreedyResult, greedy
+from repro_torch.core.greedy import (
+    GreedyResult,
+    greedy,
+    greedy_parallel_cost,
+    greedy_sequential_cost,
+    lazy_greedy,
+    lazy_greedy_cost,
+    stochastic_greedy,
+    stochastic_greedy_cost,
+)
 from repro_torch.core.baselines import SelectResult, random_select, top_k_select
+from repro_torch.core.algorithms import (
+    AlgorithmSpec,
+    SelectionResult,
+    algorithm_cost,
+    available_algorithms,
+    get_algorithm,
+    register,
+    select,
+    select_batched,
+)
+from repro_torch.core.lasso import fista, lasso_path_select
+from repro_torch.core.adaptive_sequencing import adaptive_sequencing
+from repro_torch.core.fast import FastResult, fast, fast_cost
 from repro_torch.core.random import SeedKey
-from repro_torch.core.spectral import alpha_from_gamma, gamma_aopt
+from repro_torch.core.spectral import (
+    alpha_from_gamma,
+    gamma_aopt,
+    gamma_classification,
+    gamma_regression,
+)
 
 __all__ = [
     "AOptimalityObjective",
@@ -34,10 +64,32 @@ __all__ = [
     "dash_auto",
     "GreedyResult",
     "greedy",
+    "lazy_greedy",
+    "stochastic_greedy",
+    "greedy_parallel_cost",
+    "greedy_sequential_cost",
+    "lazy_greedy_cost",
+    "stochastic_greedy_cost",
     "SelectResult",
     "random_select",
     "top_k_select",
+    "AlgorithmSpec",
+    "SelectionResult",
+    "algorithm_cost",
+    "available_algorithms",
+    "get_algorithm",
+    "register",
+    "select",
+    "select_batched",
+    "FastResult",
+    "fast",
+    "fast_cost",
+    "fista",
+    "lasso_path_select",
+    "adaptive_sequencing",
     "SeedKey",
     "alpha_from_gamma",
     "gamma_aopt",
+    "gamma_classification",
+    "gamma_regression",
 ]

@@ -11,8 +11,9 @@ As in the reference (paper App. G): expectations are Monte-Carlo
 estimates over ``n_samples`` sets; the filter averages the gain at
 S ∪ R_i over only the samples with a ∉ R_i, with the current-state gain as
 fallback when every sample contains a; the inner loop carries the
-Lemma-21 iteration cap.  The checkpointed driver and the sharded lattice
-wait for later slices.
+Lemma-21 iteration cap.  ``dash_auto(guess_mode="loop")`` runs the guesses
+one after another instead.  The checkpointed runner and the sharded
+lattice wait for later slices.
 """
 
 from __future__ import annotations
@@ -183,19 +184,36 @@ def _best_of_lattice(results: DashResult) -> DashResult:
     return take_lane(results, torch.argmax(nan_to_neginf(results.value)))
 
 
+def cat_lanes(results):
+    """Concatenate lane-batched NamedTuple results along the lane axis
+    (nested NamedTuples included)."""
+    first = results[0]
+    if isinstance(first, tuple):
+        return type(first)(*(cat_lanes([r[i] for r in results])
+                             for i in range(len(first))))
+    return torch.cat(results)
+
+
+GUESS_MODES = ("batched", "vmap", "loop")
+
+
 def dash_auto(obj, k: int, key, *, eps: float = 0.2, alpha: float = 0.5,
               r: int = 0, n_samples: int = 8, n_guesses: int = 8,
               trim_frac: float = 0.0, alphas=None,
-              return_lattice: bool = False, precision: str | None = None,
-              device=None):
+              guess_mode: str = "batched", return_lattice: bool = False,
+              precision: str | None = None, device=None):
     """DASH over the (OPT, α) guess lattice; returns the best solution.
 
-    The whole lattice runs as lanes in lockstep (the reference's default
-    ``guess_mode="batched"``; its debug loop mode is not ported).
-    ``alphas`` adds an α lattice (OPT-major cross product).
-    ``return_lattice=True`` also returns the lane-batched
-    :class:`DashResult`.  ``device=None`` means the card.
+    ``guess_mode="batched"`` (or its alias ``"vmap"``) runs the whole
+    lattice as lanes in lockstep; ``"loop"``, the reference's debug mode,
+    runs one one-lane DASH per guess, one after another.  Either way the
+    best lane is taken by an on-device argmax.  ``alphas`` adds an α
+    lattice (OPT-major cross product).  ``return_lattice=True`` also
+    returns the lane-batched :class:`DashResult`.  ``device=None`` means
+    the card.
     """
+    if guess_mode not in GUESS_MODES:
+        raise ValueError(f"unknown guess_mode: {guess_mode!r}")
     check_device(obj, device)
     if precision is not None:
         obj = with_precision(obj, precision)
@@ -205,7 +223,12 @@ def dash_auto(obj, k: int, key, *, eps: float = 0.2, alpha: float = 0.5,
     opts, alpha_lanes = lattice_grid(guesses,
                                      [alpha] if alphas is None else alphas)
     keys = key.split(opts.shape[0])
-    results = dash_lanes(obj, cfg, keys, opts, alpha_lanes)
+    if guess_mode == "loop":
+        results = cat_lanes([
+            dash_lanes(obj, cfg, [kk], opts[i:i + 1], alpha_lanes[i:i + 1])
+            for i, kk in enumerate(keys)])
+    else:
+        results = dash_lanes(obj, cfg, keys, opts, alpha_lanes)
     best = _best_of_lattice(results)
     if return_lattice:
         return best, results

@@ -1,13 +1,15 @@
 """The port's PRNG key: explicit, splittable, never a global generator.
 
 The selection loop calls ``split`` with the same counts, in the same
-order, as the JAX reference calls ``jax.random.split``, and draws every
-Gumbel vector through ``gumbel``.  Any object with these two methods is a
-key, which is how a test replays the reference's exact noise: it passes a
-key class that wraps ``jax.random`` (defined in the test, so this package
-never imports JAX).
+order, as the JAX reference calls ``jax.random.split``, derives a key
+per round or probe through ``fold_in`` where the reference calls
+``jax.random.fold_in``, and draws every Gumbel vector through ``gumbel``.
+Any object with these three methods is a key, which is how a test
+replays the reference's exact noise: it passes a key class that wraps
+``jax.random`` (defined in the test, so this package never imports JAX).
 
     split(num) -> list[key]
+    fold_in(i) -> key
     gumbel(n, device) -> (n,) f32 tensor on ``device``, i.i.d. Gumbel
 
 :class:`SeedKey` is the default: children derive deterministically from
@@ -25,6 +27,8 @@ from typing import Protocol
 import torch
 
 _MASK64 = (1 << 64) - 1
+# Mixed into ``fold_in``'s children so that they never equal ``split``'s.
+_FOLD_SALT = 0xD1B54A32D192ED03
 
 
 def _splitmix64(x: int) -> int:
@@ -37,6 +41,9 @@ def _splitmix64(x: int) -> int:
 class Key(Protocol):
     def split(self, num: int) -> list["Key"]:
         """``num`` independent child keys."""
+
+    def fold_in(self, i: int) -> "Key":
+        """The child key for the integer ``i`` (a round, a probe)."""
 
     def gumbel(self, n: int, device) -> torch.Tensor:
         """(n,) f32 i.i.d. Gumbel noise on ``device``."""
@@ -61,6 +68,11 @@ class SeedKey:
         base = _splitmix64(self.seed & _MASK64)
         return [SeedKey(_splitmix64(base ^ _splitmix64(i + 1)), self.host)
                 for i in range(int(num))]
+
+    def fold_in(self, i: int) -> "SeedKey":
+        base = _splitmix64((self.seed ^ _FOLD_SALT) & _MASK64)
+        return SeedKey(_splitmix64(base ^ _splitmix64(int(i) & _MASK64)),
+                       self.host)
 
     def gumbel(self, n: int, device) -> torch.Tensor:
         dev = torch.device("cpu" if self.host else device)

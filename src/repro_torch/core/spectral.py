@@ -1,18 +1,24 @@
-"""γ / α of A-optimal design — the differential-submodularity parameters
-(paper §3, Cor. 9).
+"""γ / α estimation — the differential-submodularity parameters (paper §3).
 
-Ports ``spectral_norm_sq``, ``gamma_aopt`` and ``alpha_from_gamma`` of
-``repro/core/spectral.py``:
+Ports ``repro/core/spectral.py``:
 
-    γ = β² / (‖X‖² (β² + σ⁻² ‖X‖²)),    α = γ²
+* Regression (Cor. 7): γ = λ_min(2k)/λ_max(2k) of the feature
+  covariance, the sparse eigenvalues estimated on random 2k-subsets.
+* Classification (Cor. 8): the same covariance-ratio estimate, the
+  standard practical surrogate for m/M.
+* A-optimality (Cor. 9): γ = β² / (‖X‖² (β² + σ⁻² ‖X‖²)) in closed form.
 
-The sampled sparse-eigenvalue estimates of regression and
-classification wait for the registry slice.
+α = γ² in every case.  The reference draws its subsets with
+``jax.random.choice``, which no key of the port replays; here each probe
+takes the top 2k of one Gumbel draw of its key (``core.random``'s one
+noise layout), a uniform subset all the same.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.estimators import gumbel_noise, top_k
 
 
 def spectral_norm_sq(X: torch.Tensor, iters: int = 50) -> torch.Tensor:
@@ -24,6 +30,43 @@ def spectral_norm_sq(X: torch.Tensor, iters: int = 50) -> torch.Tensor:
         u = X.T @ (X @ v)
         v = u / torch.clamp(torch.linalg.norm(u), min=1e-30)
     return torch.dot(v, X.T @ (X @ v))
+
+
+def probe_subsets(key, n: int, s: int, n_probes: int, device) -> torch.Tensor:
+    """(n_probes, s) uniform s-subsets of range(n), one per child of
+    ``key.split(n_probes)``: the top s of each child's Gumbel draw."""
+    return torch.stack([top_k(gumbel_noise(pk, n, device), s)[1]
+                        for pk in key.split(n_probes)])
+
+
+def subset_eig_extremes(X: torch.Tensor, idx: torch.Tensor):
+    """(λ_min, λ_max) of X_Rᵀ X_R / d for every subset R = idx[p]:
+    idx (P, s) → two (P,) tensors."""
+    cols = X[:, idx].permute(1, 0, 2)                 # (P, d, s)
+    ev = torch.linalg.eigvalsh(cols.mT @ cols / X.shape[0])
+    return ev[:, 0], ev[:, -1]
+
+
+def sparse_eig_ratio(X: torch.Tensor, k: int, key,
+                     n_probes: int = 32) -> torch.Tensor:
+    """Estimate γ = λ_min(2k)/λ_max(2k) of the column covariance of X on
+    ``n_probes`` random 2k-subsets (Def. 5 restriction)."""
+    n = X.shape[1]
+    idx = probe_subsets(key, n, min(2 * k, n), n_probes, X.device)
+    mins, maxs = subset_eig_extremes(X, idx)
+    lam_min = torch.clamp(torch.min(mins), min=0.0)
+    return lam_min / torch.clamp(torch.max(maxs), min=1e-30)
+
+
+def gamma_regression(X, k: int, key, n_probes: int = 32):
+    return sparse_eig_ratio(X, k, key, n_probes)
+
+
+def gamma_classification(X, k: int, key, n_probes: int = 32):
+    """The covariance-spectrum ratio as the practical surrogate of the
+    logistic RSC/RSM ratio m/M (the Hessian is Xᵀdiag(p(1−p))X with
+    p(1−p) ∈ (0, 1/4])."""
+    return sparse_eig_ratio(X, k, key, n_probes)
 
 
 def gamma_aopt(X: torch.Tensor, beta2: float, sigma2: float) -> torch.Tensor:

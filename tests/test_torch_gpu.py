@@ -851,6 +851,157 @@ def test_classification_dash_on_card_matches_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# FAST's prefix sweep: the engines on a sequence's L + 1 insertion prefixes
+# ---------------------------------------------------------------------------
+
+def _prefix_set(dev, n, b, ragged, seed):
+    """One random sequence of b as (1, b + 1, b) idx and FAST's prefix
+    masks, the last ``ragged`` slots invalid."""
+    from repro_torch.core.fast import prefix_masks
+
+    g = torch.Generator().manual_seed(seed)
+    seq = torch.randperm(n, generator=g)[:b].to(dev)
+    idx = seq[None, None, :].expand(1, b + 1, b).contiguous()
+    ok = torch.arange(b, device=dev) < b - ragged
+    return idx, (prefix_masks(b, dev) & ok[None, :])[None].contiguous()
+
+
+def _one_selected(obj, dev, a=0):
+    return obj.add_set(obj.init(), torch.tensor([[a]], device=dev),
+                       torch.ones((1, 1), dtype=torch.bool, device=dev))
+
+
+# d, n, k (the basis capacity), b, ragged slots
+FAST_REGRESSION_SHAPES = [(8192, 8192, 128, 128, 0), (1000, 1537, 40, 40, 7)]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,k,b,ragged", FAST_REGRESSION_SHAPES)
+def test_filter_gains_fast_prefixes(cuda, d, n, k, b, ragged, precision):
+    """Kernel 3 on the regression objective's own FAST operands: |S| = 1
+    of a k-column basis, the MGS deltas of b + 1 prefixes; bitwise equal
+    in two calls.  Compared where the candidate lies outside S ∪ R_j:
+    the members' denominators are f32 residue around 0, on either side
+    of the in-span floor in kernel and plain version alike, and the
+    objective zeroes them (``filter_gains_batch``)."""
+    from repro_torch.core.objectives.base import mark_selected
+    from repro_torch.core import RegressionObjective
+    from repro_torch.data.synthetic import make_d1_regression
+
+    X, y, _ = make_d1_regression(seed=1, n_samples=d, n_features=n,
+                                 support=min(256, n // 4))
+    obj = RegressionObjective(X, y, k, device=cuda)
+    st = _one_selected(obj, cuda)
+    idx, mask = _prefix_set(cuda, n, b, ragged, seed=d)
+    D, R = obj.expand_basis(st, idx, mask)
+    got = filter_gains(obj.X, st.Q, D, R, obj.col_sq, precision=precision)
+    again = filter_gains(obj.X, st.Q, D, R, obj.col_sq, precision=precision)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = filter_gains_lattice_ref(quantize(obj.X, precision), st.Q, D, R,
+                                    obj.col_sq)
+    members = mark_selected(st.sel_mask[:, None].repeat(1, b + 1, 1), idx,
+                            mask)
+    torch.testing.assert_close(got[~members], want[~members], rtol=TOL,
+                               atol=TOL)
+    assert int((~members).sum()) >= (b + 1) * (n - b - 1)
+
+
+# d, n, b, ragged slots, |S|
+FAST_AOPT_SHAPES = [(1024, 8192, 128, 0, 40), (300, 1000, 40, 5, 9)]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,b,ragged,n_sel", FAST_AOPT_SHAPES)
+def test_aopt_filter_gains_fast_prefixes(cuda, d, n, b, ragged, n_sel,
+                                         precision):
+    """Kernel 5 on the design objective's Woodbury factors of b + 1
+    prefixes (b = 128: two chunks of 64); bitwise equal in two calls."""
+    from repro_torch.core import AOptimalityObjective
+    from repro_torch.data.synthetic import make_d1_design
+
+    obj = AOptimalityObjective(make_d1_design(seed=2, n_samples=n,
+                                              n_features=d),
+                               n_sel + b, device=cuda)
+    sel = torch.randperm(n, generator=torch.Generator().manual_seed(3))
+    sel = sel[:n_sel].to(cuda)[None]
+    st = obj.add_set(obj.init(), sel, torch.ones_like(sel, dtype=torch.bool))
+    idx, mask = _prefix_set(cuda, n, b, ragged, seed=d + 1)
+    E, F = obj.expand_factors(st, idx, mask)
+    E, F = E.contiguous(), F.contiguous()
+    got = aopt_filter_gains(obj.X, st.W, E, F, obj.isig2,
+                            precision=precision)
+    again = aopt_filter_gains(obj.X, st.W, E, F, obj.isig2,
+                              precision=precision)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = aopt_filter_gains_lattice_ref(quantize(obj.X, precision),
+                                         quantize(st.W, precision), E, F,
+                                         obj.isig2)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,b,ragged", [(8192, 1000, 128, 0),
+                                          (600, 700, 40, 6)])
+def test_logistic_filter_gains_fast_prefixes(cuda, d, n, b, ragged,
+                                             precision):
+    """Kernel 7 on the refit logits of b + 1 prefixes (129 states at
+    b = 128), against the plain version in float64."""
+    from repro_torch.core import ClassificationObjective
+    from repro_torch.data.synthetic import make_d3_classification
+    from repro_torch.kernels.filter_gains import (
+        logistic_filter_gains,
+        logistic_filter_gains_lattice_ref,
+    )
+
+    X, y, _ = make_d3_classification(seed=4, n_samples=d, n_features=n,
+                                     support=n // 4)
+    obj = ClassificationObjective(X, y, 1 + b, device=cuda)
+    st = _one_selected(obj, cuda, a=5)
+    idx, mask = _prefix_set(cuda, n, b, ragged, seed=d + 2)
+    etas = obj.expand_logits(st, idx, mask).contiguous()
+    got = logistic_filter_gains(obj.X, obj.y, etas, precision=precision)
+    torch.cuda.synchronize()
+    want = logistic_filter_gains_lattice_ref(
+        quantize(obj.X, precision).double(), obj.y.double(), etas.double())
+    _f64_gate(got, want, obj.y, etas)
+
+
+@pytest.mark.parametrize("algo", ["lazy_greedy", "stochastic_greedy",
+                                  "fast", "adaptive_sequencing"])
+def test_select_on_card_matches_cpu(cuda, algo):
+    """select() on the quickstart's D1 (600 × 200, k = 40), card against
+    the CPU plain path, noise drawn on the CPU: the same set; or, for the
+    pickers, a first difference at a near-tie (the CPU's gains of the two
+    differing picks within 2e-4 relative), for FAST and adaptive
+    sequencing values within 1e-3."""
+    from repro_torch.core import RegressionObjective, SeedKey, select
+    from repro_torch.data.synthetic import make_d1_regression
+
+    X, y, _ = make_d1_regression(seed=0, n_samples=600, n_features=200,
+                                 support=40)
+    objs = {dev: RegressionObjective(X, y, 40, device=dev)
+            for dev in ("cpu", "cuda")}
+    rc, rg = (select(algo, objs[dev], 40, key=SeedKey(0, host=True),
+                     device=dev) for dev in ("cpu", "cuda"))
+    if torch.equal(rc.sel_mask, rg.sel_mask.cpu()):
+        return
+    if not hasattr(rc.raw, "sel_idx"):
+        assert abs(float(rc.value) - float(rg.value)) < 1e-3
+    else:
+        pc, pg = rc.raw.sel_idx.tolist(), rg.raw.sel_idx.cpu().tolist()
+        i = next(j for j, (a, b) in enumerate(zip(pc, pg)) if a != b)
+        obj = objs["cpu"]
+        st = obj.init()
+        if i:
+            st = obj.add_set(st, torch.tensor([pc[:i]]),
+                             torch.ones((1, i), dtype=torch.bool))
+        g = obj.gains(st)[0]
+        assert abs(float(g[pc[i]] - g[pg[i]])) <= 2e-4 * abs(float(g[pc[i]]))
+
+
+# ---------------------------------------------------------------------------
 # kernel 8: flash attention
 # ---------------------------------------------------------------------------
 

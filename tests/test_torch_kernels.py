@@ -667,7 +667,15 @@ def test_port_sources_name_no_jax_or_repro():
 def test_objective_without_device_refuses_cpu(monkeypatch):
     """device=None means the card: with none, construction raises instead
     of running on the CPU."""
-    from repro_torch.core import RegressionObjective, dash_auto, greedy
+    from repro_torch import bench_selection
+    from repro_torch.core import (
+        RegressionObjective,
+        dash_auto,
+        fast,
+        greedy,
+        lazy_greedy,
+        select,
+    )
     from repro_torch.core.random import SeedKey
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -680,3 +688,12 @@ def test_objective_without_device_refuses_cpu(monkeypatch):
         greedy(obj, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         dash_auto(obj, 2, SeedKey(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        select("greedy", obj, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fast(obj, 2, SeedKey(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lazy_greedy(obj, 2)
+    for suite in bench_selection.SUITES:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench_selection.main(suite=suite, verbose=False)
