@@ -88,6 +88,32 @@ exits nonzero, with no result line) when a check fails:
                two planted faults must exceed the limit
  13. lm parity — the reduced danube (f32) on the card against the CPU:
                identical greedy tokens, logits within LM_PARITY_TOL
+ slice 6 — after lm parity, against the objectives of the main phases:
+     r2 main — R2Objective on the main D1: greedy and DASH (6 guesses ×
+               8 samples); values in [0, 1], brute_r2 of DASH's set within
+               1e-3 of its value, and DASH's set, value bits and rounds
+               those of RegressionObjective(*standardize(X, y))
+     per-sample — the filter statistic through use_filter_engine False
+               (one gains(add_set(...)) per sample) against the engine at
+               the regression, design and classification lattices: the
+               reading beside a planted fault's (one sample's
+               leave-one-out weight dropped), gated between them
+               (PER_SAMPLE_GATE); both paths' host seconds and launches
+     design diversified — DASH on f_A-opt + cluster diversity (4 PC sign
+               clusters, weight 0.2) at the design main: at least RANDOM,
+               value = base + d(S), kernel 5 never launched; then
+               DiversityObjective alone (n = 65536, 64 clusters): lazy
+               greedy = greedy pick for pick
+     coreset — h2o-danube-1.8b at full width (the lm main's weights):
+               grad features of 4096 × 128 tokens in batches of 64
+               (kernel 8 in every layer), projected to 64 dims, DASH for
+               k = 256 (OPT = 1.25 × TOP-K, 4 samples): k distinct rows,
+               none in the padding, at least RANDOM
+     resilience — dash_checkpointed on the main D1: stepped = fused,
+               killed at round ⌊r/2⌋ inside run_with_restart and resumed
+               = uninterrupted, async = blocking saves (bit for bit), an
+               expired Deadline raises with its carry; snapshot bytes and
+               save seconds
  14. timing  — CUDA-event times per call of each kernel, its plain
                version and a library call, beside the kernel's bound
                from its shapes and the H100 SXM peaks (kernel 8 at the lm
@@ -96,7 +122,7 @@ exits nonzero, with no result line) when a check fails:
                and shared memory per CTA; kernel 5 at b = 128; kernels
                3, 5 and 7 at FAST's prefix shapes (bounds counting the
                prefixes' nonzero columns), beside the MGS deltas of the
-               129 prefixes
+               129 prefixes; kernels 4 and 5 at the coreset's shape
  15. profile — greedy and DASH of the main phase, DASH of the design
                main phase, greedy and DASH of the classification main
                phase, 8 rounds of the registry main's FAST, one lm prefill and four
@@ -111,6 +137,7 @@ nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import math
@@ -225,6 +252,34 @@ LM_FLASH_CASES = (
     + [(2, 513, 513, 8, 2, d, True, 256, 0.0, 0) for d in (64, 80, 128)]
     + [(2, 48, 48, 4, 2, 16, True, 32, 0.0, 0)]
 )
+
+# [r2 main]: DASH's R² value against Def. 14 of its set solved in
+# float64.  Readings on the H100 80GB HBM3 at 700 W: sound 1.225e-08, a
+# planted fault (the set less one member) 1.374e-03; the gate sits a
+# factor of 816 above the first and 137 below the second.
+R2_GATE = 1e-5
+# Slice 6's paths.  The per-sample filter path is read against the engine
+# at the three lattices; the sound reading and a planted fault's (one
+# sample's leave-one-out weight dropped) are logged, and the gate lies
+# between them (PERF.md §6).  Readings on the H100 80GB HBM3 at 700 W:
+# sound at most 1.788e-06 (regression; design 1.148e-06, classification
+# 2.681e-07), the fault at least 7.045e-03 (classification; regression
+# 9.728e-03, design 1.241e-01); the gate is about their geometric mean,
+# a factor of 56 above the first and 70 below the second.
+PER_SAMPLE_GATE = 1e-4
+# DiversityObjective alone at the design main's n with 64 clusters.
+DIV_CLUSTERS = 64
+# Coreset selection on the LM main's model: 4096 sequences of 128 tokens
+# in batches of 64, grad features projected to 64 dims, k = 256 by DASH
+# with the reference BatchSelector's recipe (OPT = 1.25 × TOP-K's value,
+# 4 samples).  DashConfig.resolve at n = 4096, k = 256: r = 12 rounds,
+# block b = 22.  The random weights give near-isotropic unit features, so
+# at that OPT no round filters; a second DASH, with OPT pinned at the
+# value's supremum d·β² (no k-set reaches it) and α = 1, filters in its
+# last round, through kernel 5 at the coreset's lattice.
+CORESET = dict(pool=4096, seq=128, batch=64, dim_cap=64, k=256,
+               n_samples=4, opt_margin=1.25, pinned_alpha=1.0)
+CORESET_BLOCK = 22
 
 REPLACES = {
     "regression_gains": "src/repro/kernels/marginal_gains/kernel.py:62",
@@ -826,7 +881,9 @@ def phase_design_main(torch):
         log(f"[design] dash lane {i:2d} (OPT guess {i // len(out['alphas'])}"
             f"): alpha={lane['alpha']:.3f} value={lane['value']:.6f} "
             f"filter_iterations={lane['filter_iters']}")
-    log(f"[design] max_memory_allocated={peak} bytes  launches={launches}")
+    log(f"[design] max_memory_allocated={peak} bytes  launches={launches}"
+        f" (the diversified DASH's among them: "
+        f"{out['launches']['diversified']}, [design diversified])")
 
     need(launches["aopt_gains"] > 0 and launches["aopt_filter_gains"] > 0,
          f"a kernel of the design path never launched: {launches}")
@@ -1007,24 +1064,33 @@ def phase_class_parity(torch):
 # registry: the §5 roster through select() on the card
 # ---------------------------------------------------------------------------
 
-def zeroed_timer(torch):
-    """``bench_selection``'s timer with every kernel's launch counter set
-    to 0 just before the run and read just after: returns (host seconds,
-    result, the nonzero counts)."""
+def counted_kernels():
+    """Every kernel wrapper with a launch counter, by name."""
     from repro_torch.bench_selection import KERNELS
+    from repro_torch.kernels.flash_attention import flash_attention
 
-    def timer(fn, dev):
-        torch.cuda.synchronize()
-        for f in KERNELS.values():
-            f.launches = 0
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        return secs, res, {name: f.launches for name, f in KERNELS.items()
-                           if f.launches}
+    return {**KERNELS, "flash_attention": flash_attention}
 
-    return timer
+
+def synced(torch, fn):
+    """(host seconds, result, nonzero launch counts) of ``fn``, every
+    kernel's counter set to 0 just before and read just after, around
+    synchronizes."""
+    kernels = counted_kernels()
+    torch.cuda.synchronize()
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return secs, res, {name: f.launches for name, f in kernels.items()
+                       if f.launches}
+
+
+def zeroed_timer(torch):
+    """``bench_selection``'s timer over :func:`synced`."""
+    return lambda fn, dev: synced(torch, fn)
 
 
 def log_registry_row(tag, row):
@@ -1638,6 +1704,460 @@ def phase_lm_timing(torch, worst, launches):
 
 
 # ---------------------------------------------------------------------------
+# slice 6: R², the per-sample path, diversity, coreset, resilience
+# ---------------------------------------------------------------------------
+
+def phase_r2_main(torch, out):
+    """R2Objective on the regression main's D1 (d = n = 8192, support
+    256, k = 128): greedy, then dash_auto (6 guesses × 8 samples, eps
+    0.25, α 0.6).  Values in [0, 1]; Def. 14 of DASH's set, solved in
+    float64, within R2_GATE of its value (a planted fault, the set less
+    one member, is read the same way); brute_r2 in f32 within 1e-3.
+    RegressionObjective(*standardize(X, y)) is R2Objective's own
+    construction, so its DASH under the same key must give the same set,
+    value bits and rounds: kernels 1 and 3 are deterministic."""
+    from repro_torch.core import (
+        R2Objective,
+        RegressionObjective,
+        SeedKey,
+        dash_auto,
+        greedy,
+    )
+    from repro_torch.core.objectives.r2 import standardize
+
+    k = MAIN["k"]
+    X, y = out["objective"].X, out["objective"].y
+    kw = dict(eps=0.25, alpha=0.6, n_samples=MAIN["n_samples"],
+              n_guesses=MAIN["n_guesses"], device="cuda")
+    obj = R2Objective(X, y, k, device="cuda")
+    gs, g, gl = synced(torch, lambda: greedy(obj, k, device="cuda"))
+    ds, res, dl = synced(torch, lambda: dash_auto(obj, k, SeedKey(0), **kw))
+    twin = RegressionObjective(*standardize(X, y), k, device="cuda")
+    ref = dash_auto(twin, k, SeedKey(0), **kw)
+    idx = torch.nonzero(res.sel_mask).flatten()
+    brute = float(obj.brute_r2(idx))
+    yn = obj.y.double() / torch.linalg.norm(obj.y.double())
+
+    def r2_64(cols):
+        Xs = obj.X[:, cols].double()
+        b64 = Xs.T @ yn
+        return float(b64 @ torch.linalg.solve(Xs.T @ Xs, b64))
+
+    value = float(res.value)
+    brute64 = r2_64(idx)
+    sound, planted = abs(brute64 - value), abs(r2_64(idx[:-1]) - value)
+    same = (torch.equal(res.sel_mask, ref.sel_mask)
+            and torch.equal(res.value, ref.value)
+            and int(res.rounds) == int(ref.rounds))
+    log(f"[r2 main] D1 d={MAIN['d']} n={MAIN['n']} support="
+        f"{MAIN['support']} k={k} (the [main] data, standardized): greedy "
+        f"value={float(g.value):.6f} host_s={gs:.3f} launches={gl}; dash "
+        f"value={float(res.value):.6f} rounds={int(res.rounds)} selected="
+        f"{int(res.sel_count)} host_s={ds:.3f} launches={dl}")
+    log(f"[r2 main] Def. 14 of DASH's set in float64 {brute64:.9f}: "
+        f"reading |R2_64 - value| sound={sound:.3e}, planted fault (one "
+        f"member dropped)={planted:.3e} (gate {R2_GATE:g}); brute_r2 in "
+        f"f32 {brute:.6f}, |brute - value|={abs(brute - value):.3e}; "
+        f"determinism, against RegressionObjective(*standardize(X, y)): "
+        f"same set, value bits and rounds={same} (value "
+        f"{float(ref.value):.6f}, rounds {int(ref.rounds)})")
+    for v in (float(g.value), float(res.value)):
+        need(v == v and 0.0 <= v <= 1.0, f"R2 value {v} not in [0, 1]")
+    need(sound <= R2_GATE, "Def. 14 of DASH's set is off its value")
+    need(planted > R2_GATE, "the R2 reading does not see a dropped member")
+    need(abs(brute - value) <= 1e-3, "brute_r2 of DASH's set is off its value")
+    need(same, "R2 DASH differs from the standardized regression DASH")
+    need(gl.get("regression_gains", 0) >= k and dl.get("filter_gains", 0) > 0,
+         "R2 greedy or DASH did not launch kernels 1 and 3")
+    return {"greedy_s": gs, "dash_s": ds, "launches": dl}
+
+
+def _loo_estimate(torch, gains, idx, valid, fallback, drop_sample=None):
+    """The filter statistic from per-sample gains (G, S, n): the
+    leave-one-out average of ``_estimate_elem_gains``, or, with
+    ``drop_sample``, that sample's leave-one-out weight dropped (the
+    planted fault)."""
+    g, s, n = gains.shape
+    w = torch.ones((g, s, n), device=gains.device)
+    w = w.scatter_add(2, idx, -valid.to(w.dtype))
+    if drop_sample is not None:
+        w[:, drop_sample] = 1.0
+    wsum = w.sum(dim=1)
+    est = torch.sum(gains * w, dim=1) / torch.clamp(wsum, min=1.0)
+    return torch.where(wsum > 0, est, fallback)
+
+
+def engine_off(obj):
+    """A shallow copy of ``obj`` (the same tensors) with its filter
+    engine switched off: DASH then takes the per-sample path."""
+    view = copy.copy(obj)
+    view.__dict__.pop("_precision_views", None)
+    view.use_filter_engine = False
+    return view
+
+
+def phase_per_sample(torch, lattices):
+    """``_estimate_elem_gains`` with use_filter_engine False (one
+    ``gains(add_set(...))`` of all lanes per sample: kernels 1, 4, 6)
+    and True (one engine call: kernels 3, 5, 7) on the same state and
+    keys, at the regression, design and classification lattices.  The
+    reading is max |per-sample − engine| over each lane's largest
+    |engine| estimate; a planted fault (one sample's leave-one-out
+    weight dropped) is read the same way; PER_SAMPLE_GATE lies between."""
+    from repro_torch.core import DashConfig, SeedKey
+    from repro_torch.core.dash import _estimate_elem_gains
+    from repro_torch.core.estimators import sample_set_batch
+
+    out = {}
+    for tag, obj, g, m, b in lattices:
+        gen = torch.Generator().manual_seed(g + m + b)
+        idx0 = torch.stack([torch.randperm(obj.n, generator=gen)[:64]
+                            for _ in range(g)]).to("cuda")
+        st = obj.add_set(obj.init(g), idx0,
+                         torch.ones_like(idx0, dtype=torch.bool))
+        cfg = DashConfig(k=obj.kmax, n_samples=m).resolve(obj.n)
+        alive = ~st.sel_mask
+        allowed = torch.full((g,), b, device="cuda")
+        keys = SeedKey(7, host=True).split(g)
+        times, est = {}, {}
+        views = {True: obj, False: engine_off(obj)}
+        for engine in (False, True, False, True):
+            times[engine], est[engine], launches = synced(
+                torch, lambda: _estimate_elem_gains(
+                    views[engine], st, alive, b, allowed, keys, cfg))
+            out[(tag, engine)] = launches
+        eng, per = est[True], est[False]
+        idx, valid = sample_set_batch(keys, alive, b, m)
+        gains = torch.stack([obj.gains(obj.add_set(st, idx[:, s_],
+                                                   valid[:, s_]))
+                             for s_ in range(m)], dim=1)
+        fallback = obj.gains(st)
+        rebuilt = _loo_estimate(torch, gains, idx, valid, fallback)
+        fault = _loo_estimate(torch, gains, idx, valid, fallback,
+                              drop_sample=0)
+        scale = torch.clamp(eng.abs().amax(dim=1, keepdim=True), min=1e-30)
+
+        def reading(x):
+            return float(((x - eng).abs() / scale).max())
+
+        sound, planted = reading(per), reading(fault)
+        log(f"[per-sample] {tag}: G={g} m={m} b={b} n={obj.n}: reading "
+            f"sound={sound:.3e} planted fault={planted:.3e} (gate "
+            f"{PER_SAMPLE_GATE:g}); per-sample path rebuilt from its parts "
+            f"bitwise={bool(torch.equal(rebuilt, per))}; per-sample "
+            f"host_s={times[False]:.4f} launches={out[(tag, False)]} | "
+            f"engine host_s={times[True]:.4f} launches={out[(tag, True)]} "
+            f"(per-sample/engine {times[False] / times[True]:.2f}x)")
+        need(bool(torch.isfinite(per).all()), f"{tag}: non-finite estimate")
+        need(sound <= PER_SAMPLE_GATE,
+             f"{tag}: the per-sample path disagrees with the engine")
+        need(planted > PER_SAMPLE_GATE,
+             f"{tag}: the gate does not see a dropped leave-one-out weight")
+        del st, gains, eng, per
+    return out
+
+
+def phase_design_diversified(torch, design):
+    """The diversified design that the design main's entry point ran
+    ([design]: d = 1024, n = 65536, k = 128): DASH on f_A-opt + d over
+    the 4 PC sign clusters (weight 0.2, 6 guesses × 8 samples, eps 0.25,
+    the practical α); kernel 5 never launches (the per-sample path),
+    kernel 4 does.  Then DiversityObjective alone with 64 clusters: lazy
+    greedy = greedy."""
+    from repro_torch import experimental_design as ed
+    from repro_torch.core import (
+        DiversityObjective,
+        SeedKey,
+        greedy,
+        lazy_greedy,
+        random_select,
+    )
+
+    obj, k, res = design["objective"], DESIGN["k"], design
+    secs = res["diversified_s"]
+    launches = {n: c for n, c in res["launches"]["diversified"].items() if c}
+    dres, dobj = res["div_result"], res["div_objective"]
+    rnd = random_select(dobj, k, SeedKey(1), device="cuda")
+    base_v = float(dres.state.value)
+    div_v = float(dobj.div.value(dres.sel_mask[None])[0])
+    idx = torch.nonzero(dres.sel_mask).flatten()
+    brute = float(obj.brute_value(idx))
+    log(f"[design diversified] d={DESIGN['d']} n={DESIGN['n']} k={k}, "
+        f"{ed.DIV_CLUSTERS} PC sign clusters, weight {ed.DIV_WEIGHT}, "
+        f"alpha={design['alpha']:.3f}: dash value={res['div_value']:.6f} "
+        f"(base {base_v:.6f} + diversity {div_v:.6f}; base by explicit "
+        f"inverse {brute:.6f}) rounds={res['div_rounds']} selected="
+        f"{res['div_selected']} filter_iterations="
+        f"{int(dres.trace.filter_iters.sum())} host_s={secs:.3f} "
+        f"launches={launches}; "
+        f"RANDOM {float(rnd.value):.6f}; cluster sizes "
+        f"{torch.bincount(res['clusters'], minlength=4).tolist()}, "
+        f"coverage {res['coverage']}")
+    need(res["div_value"] >= float(rnd.value),
+         "diversified DASH is below RANDOM")
+    need(abs(res["div_value"] - (base_v + div_v))
+         <= 1e-6 * max(1.0, abs(res["div_value"])),
+         "diversified value is not base + diversity")
+    need(abs(brute - base_v) <= 1e-3 * max(1.0, abs(base_v)),
+         "the base value disagrees with the explicit inverse")
+    need(launches.get("aopt_filter_gains", 0) == 0,
+         "diversified DASH launched kernel 5")
+    need(launches.get("aopt_gains", 0) > 0,
+         "diversified DASH never launched kernel 4")
+    need(res["div_selected"] <= k, "diversified DASH selected more than k")
+
+    gen = torch.Generator().manual_seed(0)
+    clusters = torch.randint(0, DIV_CLUSTERS, (DESIGN["n"],), generator=gen)
+    div = DiversityObjective(clusters, DIV_CLUSTERS, kmax=k, device="cuda")
+    gsec, g, _ = synced(torch, lambda: greedy(div, k, device="cuda"))
+    lsec, lz, _ = synced(torch, lambda: lazy_greedy(div, k, device="cuda"))
+    same = torch.equal(g.sel_idx, lz.sel_idx)
+    log(f"[design diversified] DiversityObjective alone, n={DESIGN['n']}, "
+        f"{DIV_CLUSTERS} clusters, k={k}: greedy value={float(g.value):.6f} "
+        f"host_s={gsec:.3f}; lazy greedy value={float(lz.value):.6f} "
+        f"host_s={lsec:.3f}; pick for pick equal={same}")
+    need(same, "lazy greedy departs from greedy on DiversityObjective")
+    return launches
+
+
+def phase_coreset(torch, lm):
+    """Coreset selection on the LM main's model (h2o-danube-1.8b at full
+    width, random weights, seed 0): grad features of 4096 sequences of
+    128 tokens in batches of 64 (kernel 8 in every layer), projected to
+    64 dims; DASH for k = 256 by the BatchSelector recipe, then backfill
+    to k pool rows: k distinct rows, none in the padding.  Then DASH at
+    OPT pinned to d·β², α = 1, whose last round filters: kernel 5 must
+    launch, and its first output on this run's inputs is held against
+    the per-sample path (kernel 4 on S ∪ R_i), read as in [per-sample]
+    with a planted fault (one of sample 0's columns dropped).  RANDOM is
+    logged, not gated: on these features DASH and RANDOM lie within
+    RANDOM's own spread over seeds (PERF.md §6)."""
+    from repro_torch.core import SeedKey, random_select, select
+    from repro_torch.core.objectives import CoresetObjective, coreset_features
+
+    c = CORESET
+    model, params = lm["model"], lm["params"]
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (c["pool"], c["seq"]),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+
+    def features():
+        return torch.cat([
+            coreset_features(model, params,
+                             {"tokens": tokens[i:i + c["batch"]]},
+                             mode="grad")
+            for i in range(0, c["pool"], c["batch"])])
+
+    fsec, feats, flaunch = synced(torch, features)
+    peak = torch.cuda.max_memory_allocated()
+    kp, kd = SeedKey(0).split(2)
+    k = c["k"]
+
+    def selection():
+        obj = CoresetObjective.from_features(feats, k, dim_cap=c["dim_cap"],
+                                             key=kp, device="cuda")
+        top = select("topk", obj, k, device="cuda")
+        opt = float(top.value) * c["opt_margin"]
+        res = select("dash", obj, k, key=kd, opt=opt,
+                     n_samples=c["n_samples"], device="cuda")
+        return obj, top, opt, res
+
+    ssec, (obj, top, opt, res), slaunch = synced(torch, selection)
+    calls = []
+    engine = obj.filter_gains_batch
+
+    def record(state, idx, valid):
+        gains = engine(state, idx, valid)
+        if not calls:
+            calls.append((state, idx, valid, gains))
+        return gains
+
+    obj.filter_gains_batch = record
+    try:
+        psec, pres, plaunch = synced(torch, lambda: select(
+            "dash", obj, k, key=kd, opt=obj.d * obj.beta2,
+            alpha=c["pinned_alpha"], n_samples=c["n_samples"],
+            device="cuda"))
+    finally:
+        del obj.filter_gains_batch
+    mask = res.sel_mask[: obj.n_real]
+    chosen = torch.nonzero(mask).flatten()
+    filler = torch.nonzero(~mask).flatten()[: k - chosen.numel()]
+    rows = torch.cat([chosen, filler])
+    rnd = random_select(obj, k, SeedKey(2), device="cuda")
+    spread = [float(random_select(obj, k, SeedKey(s), device="cuda").value)
+              for s in range(2, 18)]
+    sound = planted = float("nan")
+    if calls:
+        st, idx, valid, eng = calls[0]
+
+        def per_sample(valid):
+            return torch.stack([obj.gains(obj.add_set(st, idx[:, s],
+                                                      valid[:, s]))
+                                for s in range(idx.shape[1])], dim=1)
+
+        # The planted fault: sample 0 without its last column; that
+        # column's own gain (0 in the engine's, as a member of R) is
+        # left out of the fault's reading.
+        last = int(torch.nonzero(valid[0, 0]).max())
+        dropped = valid.clone()
+        dropped[0, 0, last] = False
+        keep = torch.ones_like(eng, dtype=torch.bool)
+        keep[0, 0, idx[0, 0, last]] = False
+        scale = torch.clamp(eng.abs().amax(dim=-1, keepdim=True), min=1e-30)
+        sound = float(((per_sample(valid) - eng).abs() / scale).max())
+        planted = float(((per_sample(dropped) - eng).abs() / scale
+                         * keep).max())
+    log(f"[coreset] {cfg.name} full width, random weights (seed 0): pool "
+        f"{c['pool']} x {c['seq']} tokens in batches of {c['batch']}, grad "
+        f"features {tuple(feats.shape)} in {fsec:.3f} s, launches={flaunch},"
+        f" peak {peak - held} bytes above the {held} held; logits "
+        f"{c['batch'] * c['seq'] * cfg.padded_vocab * 4} bytes a batch")
+    log(f"[coreset] CoresetObjective d={obj.d} n={obj.n} (n_real "
+        f"{obj.n_real}) k={k}: TOP-K {float(top.value):.6f}, OPT "
+        f"{opt:.6f}; DASH value={float(res.value):.6f} selected="
+        f"{int(res.sel_count)} rounds={int(res.raw.rounds)} (backfilled to "
+        f"{rows.numel()} rows); RANDOM {float(rnd.value):.6f} (seeds 2-17: "
+        f"{min(spread):.6f}-{max(spread):.6f}); selection {ssec:.3f} s, "
+        f"launches={slaunch}")
+    log(f"[coreset] DASH at OPT pinned to d*beta2 = {obj.d * obj.beta2:g}, "
+        f"alpha {c['pinned_alpha']:g}: value={float(pres.value):.6f} "
+        f"selected={int(pres.sel_count)} filter iterations per round "
+        f"{pres.raw.trace.filter_iters.tolist()} alive "
+        f"{pres.raw.trace.alive.tolist()}; {psec:.3f} s, launches="
+        f"{plaunch}; kernel 5's first output against the per-sample path: "
+        f"reading sound={sound:.3e} planted fault={planted:.3e} (gate "
+        f"{PER_SAMPLE_GATE:g})")
+    need(bool(torch.isfinite(feats).all()) and tuple(feats.shape)
+         == (c["pool"], cfg.d_model), "coreset features malformed")
+    need(flaunch.get("flash_attention", 0) == cfg.n_layers * c["pool"]
+         // c["batch"], f"flash_attention launched {flaunch} times")
+    need(rows.numel() == k and int(torch.unique(rows).numel()) == k
+         and int(rows.max()) < obj.n_real, "coreset rows malformed")
+    need(not bool(res.sel_mask[obj.n_real:].any()), "padding selected")
+    need(slaunch.get("aopt_gains", 0) > 0, "coreset never launched kernel 4")
+    need(plaunch.get("aopt_filter_gains", 0) > 0 and bool(calls),
+         "the pinned coreset DASH never launched kernel 5")
+    need(sound <= PER_SAMPLE_GATE,
+         "kernel 5 disagrees with the per-sample path at the coreset shape")
+    need(planted > PER_SAMPLE_GATE,
+         "the coreset reading does not see a dropped column")
+    need(not bool(pres.sel_mask[obj.n_real:].any()), "padding selected")
+    launches = dict(flaunch)
+    for part in (slaunch, plaunch):
+        for name, count in part.items():
+            launches[name] = launches.get(name, 0) + count
+    return {"features_s": fsec, "selection_s": ssec, "pinned_s": psec,
+            "launches": launches, "objective": obj}
+
+
+def phase_resilience(torch, out):
+    """dash_checkpointed on the regression main (one lane, OPT = 1.05 ×
+    greedy's value): stepped = fused; killed at round ⌊r/2⌋ inside
+    run_with_restart and resumed = uninterrupted, bit for bit; async =
+    blocking saves; an expired Deadline raises with a carry."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import checkpoint_steps
+    from repro_torch.core import (
+        DashConfig,
+        Deadline,
+        ResilienceConfig,
+        SeedKey,
+        SelectionDeadlineExceeded,
+        dash,
+        dash_checkpointed,
+    )
+    from repro_torch.core.selection_loop import SelectionCarry
+    from repro_torch.runtime import FailureInjector, run_with_restart
+
+    obj, k = out["objective"], MAIN["k"]
+    cfg = DashConfig(k=k, eps=0.25, alpha=0.6, n_samples=MAIN["n_samples"])
+    r = cfg.resolve(obj.n).r
+    opt = out["greedy_value"] * 1.05
+    key = SeedKey(0)
+
+    def same(a, b):
+        return (torch.equal(a.sel_mask, b.sel_mask)
+                and torch.equal(a.value, b.value)
+                and all(torch.equal(getattr(a.trace, f), getattr(b.trace, f))
+                        for f in a.trace._fields))
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_ckpt_", dir=ROOT / "build"))
+    try:
+        fsec, fused, _ = synced(torch, lambda: dash(obj, cfg, key, opt,
+                                                    device="cuda"))
+        ssec, stepped, _ = synced(torch, lambda: dash_checkpointed(
+            obj, cfg, key, opt, resilience=ResilienceConfig(),
+            device="cuda"))
+        runs = {}
+        for mode in ("async", "blocking"):
+            rc = ResilienceConfig(ckpt_dir=str(tmp / mode), keep_last=r,
+                                  async_save=mode == "async")
+            runs[mode] = synced(torch, lambda: dash_checkpointed(
+                obj, cfg, key, opt, resilience=rc, device="cuda"))
+        snap = tmp / "async" / f"step_{r:08d}"
+        snap_bytes = sum(f.stat().st_size for f in snap.iterdir())
+        kept = len(checkpoint_steps(str(tmp / "async")))
+        res = ResilienceConfig(ckpt_dir=str(tmp / "killed"))
+        inj = FailureInjector(fail_at=(r // 2,))
+        lives = []
+
+        def step_fn(state, step):
+            lives.append(len(lives))
+            return dash_checkpointed(obj, cfg, key, opt, resilience=res,
+                                     resume=len(lives) > 1,
+                                     failure_injector=inj, device="cuda")
+
+        ksec, resumed, _ = synced(torch, lambda: run_with_restart(
+            total_steps=1, make_state=lambda: (None, 0),
+            restore=lambda: None, step_fn=step_fn))
+        try:
+            dash_checkpointed(obj, cfg, key, opt,
+                              resilience=ResilienceConfig(),
+                              deadline=Deadline(0.0), device="cuda")
+            late = None
+        except SelectionDeadlineExceeded as e:
+            late = e
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    asec, arun, _ = runs["async"]
+    bsec, brun, _ = runs["blocking"]
+    log(f"[resilience] dash_checkpointed on the main D1 (d={MAIN['d']} "
+        f"n={MAIN['n']} k={k}, one lane, OPT 1.05 x greedy = {opt:.6f}, "
+        f"r={r}): value={float(stepped.value):.6f} selected="
+        f"{int(stepped.sel_count)}; stepped = fused (set, value bits, "
+        f"trace): {same(stepped, fused)}; killed at round {r // 2} and "
+        f"resumed in {len(lives)} lives = uninterrupted: "
+        f"{same(resumed, arun)}; async = blocking: {same(arun, brun)}")
+    log(f"[resilience] host_s fused={fsec:.3f} stepped={ssec:.3f} "
+        f"async saves={asec:.3f} blocking saves={bsec:.3f} killed+resumed="
+        f"{ksec:.3f}; snapshot {snap_bytes} bytes, {kept} kept (keep_last "
+        f"{r}); saving costs per round (host s over the stepped run's, / "
+        f"{r}): async={(asec - ssec) / r:.4f} blocking="
+        f"{(bsec - ssec) / r:.4f}")
+    log(f"[resilience] expired deadline: "
+        f"{type(late).__name__ if late else 'no exception'} rounds_done="
+        f"{getattr(late, 'rounds_done', None)} carry="
+        f"{type(getattr(late, 'carry', None)).__name__}")
+    need(same(stepped, fused), "stepped DASH differs from fused DASH")
+    need(len(lives) == 2 and same(resumed, arun),
+         "the resumed run differs from the uninterrupted one")
+    need(same(arun, brun) and same(arun, stepped),
+         "async and blocking saves give different results")
+    need(late is not None and late.rounds_done == 0
+         and isinstance(late.carry, SelectionCarry),
+         "an expired deadline did not raise with its carry")
+    return {"fused_s": fsec, "stepped_s": ssec, "snapshot_bytes": snap_bytes}
+
+
+# ---------------------------------------------------------------------------
 # 14. timing
 # ---------------------------------------------------------------------------
 
@@ -1872,6 +2392,51 @@ def phase_aopt_timing(torch, worst, launches):
         f"G*m states at G={DESIGN_LANES} (the design lattice) and "
         f"G={DESIGN['n_guesses']}")
     return rows
+
+
+def phase_coreset_timing(torch, launches):
+    """Kernels 4 and 5 at the coreset's shape (d = 64, n = 4096, one
+    lane; kernel 5 over m = 4 samples of b = 22), f32: CUDA-event ms,
+    the plain version's, the bound and, for kernel 5, cuBLAS's two
+    products alone; beside the [coreset] run's launches."""
+    from repro_torch.kernels.aopt_gains import aopt_gains, aopt_gains_ref
+    from repro_torch.kernels.filter_gains import (
+        aopt_filter_gains,
+        aopt_filter_gains_lattice_ref,
+    )
+
+    d, n, g = CORESET["dim_cap"], CORESET["pool"], 1
+    m, b = CORESET["n_samples"], CORESET_BLOCK
+    X, W, E, F, isig2 = make_aopt_operands(torch, d, n, g, m, b, n_sel=128,
+                                           seed=5)
+    b4, by4 = bound(4.0 * d * n * g + 3.0 * g * n,
+                    4 * d * n * (1 + g) + 4 * g * n)
+    t4 = time_ms(torch, lambda: aopt_gains(X, W, isig2))
+    p4 = time_ms(torch, lambda: aopt_gains_ref(X, W, isig2))
+    b5, by5 = bound(4.0 * d * n * g + g * m * n * (4.0 * d * b + 2.0 * b * b
+                                                   + 6.0 * b + 6.0),
+                    4 * d * n * (1 + g) + 4 * g * m * (d * b + b * b + n))
+    t5 = time_ms(torch, lambda: aopt_filter_gains(X, W, E, F, isig2))
+    p5 = time_ms(torch, lambda: aopt_filter_gains_lattice_ref(X, W, E, F,
+                                                              isig2))
+    et = E.permute(0, 1, 3, 2).reshape(g, m * b, d).contiguous()
+    et_all = et.reshape(g * m * b, d)
+    lib5 = time_ms(torch, lambda: (et_all @ X, torch.bmm(et, W)))
+    out = {}
+    for name, t, p, bd, by, lib in (
+        ("aopt_gains", t4, p4, b4, by4, None),
+        ("aopt_filter_gains", t5, p5, b5, by5, lib5),
+    ):
+        log(f"[timing] {name:17s} f32  coreset shape d={d} n={n} G={g} "
+            f"m={m} b={b}: kernel_ms={t:.4f} plain_ms={p:.4f} bound_ms="
+            f"{bd:.4f} ({by}) library_ms="
+            f"{'n/a' if lib is None else f'{lib:.4f} (cuBLAS only)'} "
+            f"bound/kernel={bd / t:.3f} launches in [coreset]="
+            f"{launches.get(name, 0)}")
+        out[name] = {"d": d, "n": n, "G": g, "m": m, "b": b, "ms": t,
+                     "plain_ms": p, "bound_ms": bd, "bound_by": by,
+                     "library_ms": lib, "launches": launches.get(name, 0)}
+    return out
 
 
 def log_aopt_plan(torch, prec, g, m, b, aopt_plan, aopt_kernel_info, t):
@@ -2175,6 +2740,24 @@ def profile_runs(out, design, cls, fast_opt):
     }
 
 
+def slice6_profile_runs(torch, design, lm):
+    """The diversified design DASH of ``[design diversified]`` and one
+    batch of ``[coreset]``'s grad features, each as it ran there."""
+    from repro_torch import experimental_design as ed
+    from repro_torch.core.objectives import coreset_features
+
+    tok = torch.randint(0, lm["model"].cfg.vocab_size,
+                        (CORESET["batch"], CORESET["seq"]), device="cuda",
+                        dtype=torch.int32)
+    return {
+        "design diversified dash": lambda: ed.diversified(
+            design["objective"], DESIGN["k"], design["alpha"], seed=0,
+            n_guesses=DESIGN["n_guesses"], n_samples=DESIGN["n_samples"]),
+        "coreset grad features (one batch)": lambda: coreset_features(
+            lm["model"], lm["params"], {"tokens": tok}, mode="grad"),
+    }
+
+
 def lm_profile_runs(torch, lm):
     """One prefill of the lm main phase, and 4 greedy decode steps from
     its cache (the cache is made before the profiled window)."""
@@ -2272,6 +2855,10 @@ def main() -> int:
         # FAST's prefix sweep: 129 prefixes of b = 128, and a small one
         (dd, dn, 1, FAST_L + 1, FAST_L, 40, 1.0, 0),
         (300, 1000, 1, FAST_L + 1, FAST_L, 9, 1.0, 5),
+        # the coreset's lattice: dim_cap 64, n 4096, one lane, m = 4,
+        # b = 22 (k = 256 over 12 rounds)
+        (CORESET["dim_cap"], CORESET["pool"], 1, CORESET["n_samples"],
+         CORESET_BLOCK, 128, 1.0),
     ]))
     cd, cn, cg, cm = CLASS["d"], CLASS["n"], CLASS["n_guesses"], \
         CLASS["n_samples"]
@@ -2318,16 +2905,38 @@ def main() -> int:
     phase_lm_consistency(torch, lm["model"], lm["params"])
     phase_lm_parity(torch)
     log(f"[lm parity] done at {time.perf_counter() - t0:.1f} s")
+    t6 = time.perf_counter()
+    phase_r2_main(torch, out)
+    log(f"[r2 main] done at {time.perf_counter() - t0:.1f} s")
+    phase_per_sample(torch, [
+        ("regression", out["objective"], MAIN["n_guesses"],
+         MAIN["n_samples"], MAIN_BLOCK),
+        ("design", design["objective"], DESIGN_LANES, DESIGN["n_samples"],
+         DESIGN_BLOCK),
+        ("classification", cls["objective"], CLASS["n_guesses"],
+         CLASS["n_samples"], CLASS_BLOCK)])
+    log(f"[per-sample] done at {time.perf_counter() - t0:.1f} s")
+    phase_design_diversified(torch, design)
+    log(f"[design diversified] done at {time.perf_counter() - t0:.1f} s")
+    coreset = phase_coreset(torch, lm)
+    log(f"[coreset] done at {time.perf_counter() - t0:.1f} s")
+    phase_resilience(torch, out)
+    log(f"[resilience] done at {time.perf_counter() - t0:.1f} s; slice 6's "
+        f"phases took {time.perf_counter() - t6:.1f} s")
     rows = phase_timing(torch, worst, launches)
     rows += phase_aopt_timing(torch, worst, launches)
     rows += phase_logistic_timing(torch, worst, launches)
     rows += phase_lm_timing(torch, lm_worst, launches)
     fast_rows = phase_fast_timing(torch, out["objective"], fast_launches)
+    coreset_rows = phase_coreset_timing(torch, coreset["launches"])
     for row in rows:
         if row["name"] in fast_rows:
             row["fast_prefix_shape"] = fast_rows[row["name"]]
+        if row["name"] in coreset_rows:
+            row["coreset_shape"] = coreset_rows[row["name"]]
     runs = profile_runs(out, design, cls,
                         float(registry["rows"]["fast"]["result"].raw.opt))
+    runs.update(slice6_profile_runs(torch, design, lm))
     runs.update(lm_profile_runs(torch, lm))
     phase_profile(torch, runs)
     log(f"[smoke] total {time.perf_counter() - t0:.1f} s")

@@ -11,7 +11,10 @@ LM serving, prefill and decode of the dense attention-only archs
 (``repro_torch.serve_lm``); slice 5 the ``select`` registry and the
 paper's §5 roster — lazy and stochastic greedy, FAST, adaptive
 sequencing, LASSO — with the §5 comparison
-(``repro_torch.bench_selection``).
+(``repro_torch.bench_selection``); slice 6 the other objectives (R²,
+cluster diversity with the diversified design, training-batch coresets
+from an LM's features) and the single-device resilience layer
+(checkpoints, restarts, hedged resumes, ``dash_checkpointed``).
 
 Layers:
   repro_torch.kernels  — hand-written CUDA C++ kernels for sm_90a (the
@@ -19,12 +22,16 @@ Layers:
                          singleton-gain sweeps and sample-batched filter
                          engines; flash attention), their plain PyTorch
                          versions and the nvcc/ctypes build
-  repro_torch.core     — the regression, A-optimality and classification
-                         objectives, estimators, the lane-batched DASH
-                         selection loop, the ``select`` registry and its
+  repro_torch.core     — the regression, A-optimality, classification,
+                         R², diversity and coreset objectives,
+                         estimators, the lane-batched DASH selection loop
+                         and its round-checkpointed driver, the
+                         ``select`` registry and its
                          §5 roster (greedy family, FAST, adaptive
                          sequencing, the one-shot baselines), LASSO and
                          the γ/α estimators
+  repro_torch.ckpt     — atomic, manifest-checked checkpoints (npz)
+  repro_torch.runtime  — restarts, hedged resumes, the straggler simulator
   repro_torch.data     — the paper's synthetic D1–D4 and D1 design data
                          (numpy only)
   repro_torch.configs  — the dense LM configs (copies of the JAX

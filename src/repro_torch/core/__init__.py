@@ -1,14 +1,19 @@
-"""The paper's contribution on PyTorch: the regression, A-optimal design
-and logistic-classification objectives, DASH, the §5 roster behind the
-``select`` registry, and the γ estimators (slices 1–3 and 5 of the port).
+"""The paper's contribution on PyTorch: the regression, A-optimal design,
+logistic-classification, R², diversity and coreset objectives, DASH, the
+§5 roster behind the ``select`` registry, the γ estimators, and the
+single-device resilience of the selection loop (slices 1–3, 5 and 6 of
+the port).
 
 Public API:
     objectives: RegressionObjective, AOptimalityObjective,
-                ClassificationObjective, normalize_columns
+                ClassificationObjective, R2Objective, CoresetObjective,
+                ClusterDiversity, DiversityObjective,
+                DiversifiedObjective, normalize_columns
     algorithms: select (registry entry point), select_batched, dash,
-                dash_auto, DashConfig, fast, greedy, lazy_greedy,
-                stochastic_greedy, adaptive_sequencing, top_k_select,
-                random_select, fista, lasso_path_select
+                dash_auto, dash_checkpointed, DashConfig, fast, greedy,
+                lazy_greedy, stochastic_greedy, adaptive_sequencing,
+                top_k_select, random_select, fista, lasso_path_select
+    resilience: ResilienceConfig, Deadline, SelectionDeadlineExceeded
     analysis:   gamma_regression, gamma_classification, gamma_aopt,
                 alpha_from_gamma
     keys:       SeedKey
@@ -17,10 +22,26 @@ Public API:
 from repro_torch.core.objectives import (
     AOptimalityObjective,
     ClassificationObjective,
+    ClusterDiversity,
+    CoresetObjective,
+    DiversifiedObjective,
+    DiversityObjective,
+    R2Objective,
     RegressionObjective,
     normalize_columns,
 )
-from repro_torch.core.dash import DashConfig, DashResult, dash, dash_auto
+from repro_torch.core.dash import (
+    DashConfig,
+    DashResult,
+    dash,
+    dash_auto,
+    dash_checkpointed,
+)
+from repro_torch.core.selection_loop import (
+    Deadline,
+    ResilienceConfig,
+    SelectionDeadlineExceeded,
+)
 from repro_torch.core.greedy import (
     GreedyResult,
     greedy,
@@ -57,11 +78,20 @@ __all__ = [
     "AOptimalityObjective",
     "ClassificationObjective",
     "RegressionObjective",
+    "R2Objective",
+    "CoresetObjective",
+    "ClusterDiversity",
+    "DiversityObjective",
+    "DiversifiedObjective",
     "normalize_columns",
     "DashConfig",
     "DashResult",
     "dash",
     "dash_auto",
+    "dash_checkpointed",
+    "ResilienceConfig",
+    "Deadline",
+    "SelectionDeadlineExceeded",
     "GreedyResult",
     "greedy",
     "lazy_greedy",

@@ -27,8 +27,8 @@ import torch
 
 from repro_torch.core.dash import take_lane
 from repro_torch.core.estimators import sample_set_from_mask
-from repro_torch.core.fast import resolve_engine, sequence_prefix_gains
-from repro_torch.core.objectives.base import check_device
+from repro_torch.core.fast import sequence_prefix_gains
+from repro_torch.core.objectives.base import check_device, resolve_engine
 
 
 class AdSeqResult(NamedTuple):
@@ -41,7 +41,6 @@ class AdSeqResult(NamedTuple):
 
 def adaptive_sequencing(obj, k: int, key, *, eps: float = 0.2,
                         alpha: float = 0.5, rounds: int = 0, opt=None,
-                        use_filter_engine: bool | None = None,
                         device=None) -> AdSeqResult:
     """BRS adaptive sequencing with the residual threshold.
 
@@ -53,7 +52,7 @@ def adaptive_sequencing(obj, k: int, key, *, eps: float = 0.2,
     k = int(k)
     L = min(k, n)
     r = rounds or max(1, min(k, int(math.ceil(math.log2(max(n, 2))))))
-    engine = resolve_engine(obj, use_filter_engine)
+    engine = resolve_engine(obj)
     ar = torch.arange(L, device=dev)
     if opt is None:
         opt = torch.max(obj.gains(obj.init())) * k
@@ -85,8 +84,9 @@ def adaptive_sequencing(obj, k: int, key, *, eps: float = 0.2,
         alive = torch.where(torch.sum(alive) > 0, alive, ~sel)
         count = count + c_len
         rho += 1
+    value = obj.value(state)[0]
     state = take_lane(state, 0)
     return AdSeqResult(sel_mask=state.sel_mask, sel_count=count,
-                       value=state.value,
+                       value=value,
                        rounds=torch.tensor(rho, dtype=torch.int32, device=dev),
                        state=state)

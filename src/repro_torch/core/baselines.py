@@ -24,8 +24,9 @@ class SelectResult(NamedTuple):
 
 
 def _result(obj, state) -> SelectResult:
+    value = obj.value(state)[0]
     state = take_lane(state, 0)
-    return SelectResult(state.sel_mask, obj.value(state), state,
+    return SelectResult(state.sel_mask, value, state,
                         torch.sum(state.sel_mask.to(torch.int32)))
 
 

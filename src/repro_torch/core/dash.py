@@ -12,8 +12,10 @@ estimates over ``n_samples`` sets; the filter averages the gain at
 S ∪ R_i over only the samples with a ∉ R_i, with the current-state gain as
 fallback when every sample contains a; the inner loop carries the
 Lemma-21 iteration cap.  ``dash_auto(guess_mode="loop")`` runs the guesses
-one after another instead.  The checkpointed runner and the sharded
-lattice wait for later slices.
+one after another instead.  ``dash_checkpointed`` steps one lane round
+by round from the host, with a snapshot of the carry at every round
+boundary (``core.selection_loop``'s resilience half).  The sharded
+lattice waits for the sharded runtime (ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -27,13 +29,21 @@ from repro_torch.core.estimators import (
     sample_set_from_mask,
     trimmed_mean,
 )
-from repro_torch.core.objectives.base import check_device, with_precision
+from repro_torch.core.objectives.base import (
+    check_device,
+    resolve_engine,
+    with_precision,
+)
 from repro_torch.core.selection_loop import (  # noqa: F401  (re-exported)
     DashConfig,
     DashTrace,
+    ResilienceConfig,
     SelectionCarry,
     SelectionHooks,
+    drive_checkpointed_rounds,
+    initial_carry,
     make_round_body,
+    restore_carry,
     run_selection_rounds,
 )
 
@@ -74,16 +84,27 @@ def _estimate_elem_gains(obj, state, alive, block, allowed, keys, cfg):
     """(G, n) Ê_R[f_{S∪(R\\{a})}(a)] for every a — the filter statistic.
 
     Draw ``cfg.n_samples`` sets R_i per lane, evaluate the gain vector at
-    every S ∪ R_i (all lanes and samples in one filter-engine call), and
-    average per candidate over the samples
-    with a ∉ R_i; the current-state gain (all lanes in one singleton
-    sweep) is the fallback when every sample contains a.
+    every S ∪ R_i, and average per candidate over the samples with
+    a ∉ R_i; the current-state gain (all lanes in one singleton sweep) is
+    the fallback when every sample contains a.
+
+    Where :func:`resolve_engine` says so, all lanes and samples are
+    scored in one filter-engine call (``filter_gains_batch``); an
+    objective with the flag off, or without the engine (as
+    ``DiversifiedObjective``), takes the per-sample path, one ``gains(add_set(state, R_i))`` of all
+    lanes per sample.  The samples stay a loop: one A-optimal state of
+    the design main holds W = M⁻¹X (d × n f32, 256 MB a lane).
     """
     g, n = alive.shape
     idx, valid = sample_set_batch(keys, alive, block, cfg.n_samples)
     valid = valid & _slot_mask(block, allowed, alive.device)[:, None, :]
 
-    gains = obj.filter_gains_batch(state, idx, valid)       # (G, S, n)
+    if resolve_engine(obj):
+        gains = obj.filter_gains_batch(state, idx, valid)   # (G, S, n)
+    else:
+        gains = torch.stack([
+            obj.gains(obj.add_set(state, idx[:, s], valid[:, s]))
+            for s in range(cfg.n_samples)], dim=1)          # (G, S, n)
     weights = torch.ones((g, cfg.n_samples, n), device=alive.device)
     weights = weights.scatter_add(2, idx, -valid.to(weights.dtype))
     wsum = torch.sum(weights, dim=1)
@@ -149,6 +170,59 @@ def dash(obj, cfg: DashConfig, key, opt, alpha=None, *,
         obj = with_precision(obj, precision)
     a = cfg.alpha if alpha is None else alpha
     return take_lane(dash_lanes(obj, cfg, [key], [float(opt)], [float(a)]), 0)
+
+
+def dash_checkpointed(obj, cfg: DashConfig, key, opt, *,
+                      resilience: ResilienceConfig, alpha=None,
+                      resume: bool = False, failure_injector=None,
+                      deadline=None, precision: str | None = None,
+                      device=None) -> DashResult:
+    """Single-lane DASH stepped round by round from the host, with the
+    :class:`SelectionCarry` snapshotted at every round boundary.
+
+    The rounds are :func:`dash`'s (same hooks, same round body), so the
+    stepped run commits the fused run's set.  Kill the process anywhere
+    and ``resume=True`` replays from the newest complete snapshot in
+    ``resilience.ckpt_dir`` to the same set, value and trace as the
+    uninterrupted run: each round is a function of the carry alone, and
+    the carry is what is saved.  A snapshot needs ``SeedKey`` keys.
+    ``failure_injector.check(rho)`` runs before each round; an expired
+    ``deadline`` raises ``SelectionDeadlineExceeded``.  One device has
+    no responders to lose, so there is no straggler mask (the sharded
+    runtime, ROADMAP item 11).  ``device=None`` means the card.
+    """
+    check_device(obj, device)
+    if precision is not None:
+        obj = with_precision(obj, precision)
+    cfg = cfg.resolve(obj.n)
+    body = make_round_body(_single_device_hooks(obj, cfg), cfg)
+    dev = obj.device
+    a = cfg.alpha if alpha is None else alpha
+    opt_v = torch.tensor([float(opt)], dtype=torch.float32, device=dev)
+    alpha_v = torch.tensor([float(a)], dtype=torch.float32, device=dev)
+    carry = initial_carry(cfg, [key], obj.init(1),
+                          torch.ones((1, obj.n), dtype=torch.bool, device=dev))
+    start_round = 0
+    if resume and resilience.ckpt_dir:
+        restored = restore_carry(resilience.ckpt_dir, carry, device=dev)
+        if restored is not None:
+            carry, start_round = restored
+
+    carry = drive_checkpointed_rounds(
+        lambda rho, c: body(rho, c, opt_v, alpha_v),
+        carry, cfg, resilience=resilience, start_round=start_round,
+        failure_injector=failure_injector, deadline=deadline,
+        snapshot_extra={"algo": "dash", "n": int(obj.n)},
+    )
+    state, _, count, _, trace = carry
+    return take_lane(DashResult(
+        sel_mask=state.sel_mask,
+        sel_count=count,
+        value=obj.value(state),
+        rounds=torch.sum(trace.filter_iters, dim=-1) + cfg.r,
+        trace=trace,
+        state=state,
+    ), 0)
 
 
 def opt_guess_lattice(obj, eps: float, n_guesses: int, k: int | None = None):

@@ -33,7 +33,11 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.estimators import sample_set_from_mask
-from repro_torch.core.objectives.base import check_device, with_precision
+from repro_torch.core.objectives.base import (
+    check_device,
+    resolve_engine,
+    with_precision,
+)
 from repro_torch.core.random import SeedKey
 
 
@@ -62,14 +66,6 @@ def fast_round_cap(k: int, eps: float) -> int:
     """Round bound: every round commits ≥ 1 element (≤ k such rounds) or
     steps the ladder (≤ ``ladder_levels``); +2 for entry and exit."""
     return int(k) + ladder_levels(k, eps) + 2
-
-
-def resolve_engine(obj, use_filter_engine) -> bool:
-    """Whether the prefix sweep goes through ``filter_gains_batch``:
-    by default whenever the objective has it (the port's objectives carry
-    no ``use_filter_engine`` flag)."""
-    has = hasattr(obj, "filter_gains_batch")
-    return has if use_filter_engine is None else bool(use_filter_engine) and has
 
 
 def q_cmp(x: torch.Tensor) -> torch.Tensor:
@@ -199,15 +195,14 @@ def binary_search_opt(run_core, key, guesses, eps: float) -> FastResult:
 
 def fast(obj, k: int, key=None, *, eps: float = 0.06, opt=None,
          n_guesses: int = 8, max_rounds: int = 0,
-         use_filter_engine: bool | None = None,
          precision: str | None = None, device=None) -> FastResult:
     """Run FAST on one device.
 
     ``opt`` pins a single OPT guess (one ladder run); omitting it binary
     searches the ``n_guesses``-point lattice (⌈log₂ n_guesses⌉ runs).
     ``max_rounds`` overrides the round cap (:func:`fast_round_cap`).
-    ``use_filter_engine=None`` takes the engine whenever the objective
-    has one; ``False`` runs one ``gains(add_set(...))`` per prefix.
+    The objective's ``use_filter_engine`` flag picks the prefix sweep
+    (:func:`resolve_engine`): off, one ``gains(add_set(...))`` a prefix.
     ``precision`` runs the kernels through a ``with_precision`` view.  A
     missing key is ``SeedKey(0)``; ``device=None`` means the card.
     """
@@ -222,7 +217,7 @@ def fast(obj, k: int, key=None, *, eps: float = 0.06, opt=None,
     if key is None:
         key = SeedKey(0)
     eps = float(eps)
-    engine = resolve_engine(obj, use_filter_engine)
+    engine = resolve_engine(obj)
     r_max = int(max_rounds) or fast_round_cap(k, eps)
     if opt is not None:
         guesses = torch.as_tensor(opt, dtype=torch.float32).reshape(1)

@@ -52,9 +52,10 @@ def greedy(obj, k: int, *, device=None) -> GreedyResult:
         state = obj.add_one(state, a)
         picks[i] = a[0]
         values[i] = obj.value(state)[0]
+    value = obj.value(state)[0]
     state = take_lane(state, 0)
     return GreedyResult(sel_mask=state.sel_mask, sel_idx=picks,
-                        value=state.value, values=values, state=state)
+                        value=value, values=values, state=state)
 
 
 def subsample_size(n: int, k: int, eps: float = 0.1) -> int:
@@ -101,9 +102,10 @@ def stochastic_greedy(obj, k: int, key, *, subsample: int | None = None,
         state = obj.add_one(state, a)
         picks[i] = a[0]
         values[i] = obj.value(state)[0]
+    value = obj.value(state)[0]
     state = take_lane(state, 0)
     return GreedyResult(sel_mask=state.sel_mask, sel_idx=picks,
-                        value=state.value, values=values, state=state)
+                        value=value, values=values, state=state)
 
 
 # ---------------------------------------------------------------------------
@@ -176,11 +178,12 @@ def lazy_greedy(obj, k: int, *, batch: int = 8, device=None) -> GreedyResult:
         dead[a] = True
         picks.append(a)
         values.append(float(obj.value(state)[0]))
+    value = obj.value(state)[0]
     state = take_lane(state, 0)
     return GreedyResult(
         sel_mask=state.sel_mask,
         sel_idx=torch.tensor(picks, dtype=torch.int64, device=dev),
-        value=state.value,
+        value=value,
         values=torch.tensor(values, dtype=torch.float32, device=dev),
         state=state,
     )

@@ -13,6 +13,17 @@ from repro_torch.core.objectives.classification import (
     ClassificationState,
 )
 from repro_torch.core.objectives.regression import RegressionObjective
+from repro_torch.core.objectives.coreset import (
+    CoresetObjective,
+    coreset_features,
+    prepare_feature_columns,
+)
+from repro_torch.core.objectives.diversity import (
+    ClusterDiversity,
+    DiversifiedObjective,
+    DiversityObjective,
+)
+from repro_torch.core.objectives.r2 import R2Objective
 
 __all__ = [
     "Objective",
@@ -24,4 +35,11 @@ __all__ = [
     "ClassificationObjective",
     "ClassificationState",
     "RegressionObjective",
+    "CoresetObjective",
+    "coreset_features",
+    "prepare_feature_columns",
+    "ClusterDiversity",
+    "DiversifiedObjective",
+    "DiversityObjective",
+    "R2Objective",
 ]

@@ -65,11 +65,13 @@ class AOptimalityObjective:
     ``device=None`` means the card and raises without one; pass
     ``device="cpu"`` for the plain PyTorch path.  On the card it turns
     TF32 off for matmul and cuDNN: the reference is full f32.
+    ``use_filter_engine=False`` sends DASH, FAST and adaptive sequencing
+    through the per-sample ``gains(add_set(...))`` path.
     """
 
     def __init__(self, X, kmax: int, *, beta2: float = 1.0,
-                 sigma2: float = 1.0, precision: str | None = None,
-                 device=None):
+                 sigma2: float = 1.0, use_filter_engine: bool = True,
+                 precision: str | None = None, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_full_f32_matmul()
@@ -79,6 +81,7 @@ class AOptimalityObjective:
         self.kmax = int(kmax)
         self.beta2 = float(beta2)
         self.isig2 = 1.0 / float(sigma2)
+        self.use_filter_engine = bool(use_filter_engine)
         self.precision = resolve_precision(precision)
         self.tr_prior = self.d / self.beta2          # Tr(Λ⁻¹)
 

@@ -73,6 +73,16 @@ class SupportsFilterEngine(Objective, Protocol):
         """(G, m, n) gains w.r.t. S ∪ R_i for each sampled R_i."""
 
 
+def resolve_engine(obj) -> bool:
+    """Whether DASH's filter statistic, FAST's prefix sweep and adaptive
+    sequencing go through ``filter_gains_batch``: the objective's
+    ``use_filter_engine`` flag (False where it has none), and the
+    objective must have the method.  Otherwise they take the per-sample
+    path, one ``gains(add_set(...))`` a sample or prefix."""
+    return (bool(getattr(obj, "use_filter_engine", False))
+            and hasattr(obj, "filter_gains_batch"))
+
+
 def with_precision(obj, precision: str | None):
     """A view of ``obj`` running its kernels at ``precision``.
 

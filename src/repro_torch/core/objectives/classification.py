@@ -70,11 +70,14 @@ class ClassificationObjective:
     ``device=None`` means the card and raises without one; pass
     ``device="cpu"`` for the plain PyTorch path.  On the card it turns
     TF32 off for matmul and cuDNN: the reference is full f32.
+    ``use_filter_engine=False`` sends DASH, FAST and adaptive sequencing
+    through the per-sample ``gains(add_set(...))`` path.
     """
 
     def __init__(self, X, y, kmax: int, *, newton_steps: int = 6,
                  newton_gain_steps: int = 3, gain_mode: str = "newton1d",
                  ridge: float = 1e-4, gain_eps: float = 1e-9,
+                 use_filter_engine: bool = True,
                  precision: str | None = None, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -92,6 +95,7 @@ class ClassificationObjective:
         self.gain_mode = gain_mode
         self.ridge = float(ridge)
         self.gain_eps = float(gain_eps)
+        self.use_filter_engine = bool(use_filter_engine)
         # Streamed-operand policy of the newton1d kernel calls; the
         # quadratic mode is not kernel-backed and always runs f32.
         self.precision = resolve_precision(precision)

@@ -126,10 +126,13 @@ class RegressionObjective:
     ``device=None`` means the card and raises without one; pass
     ``device="cpu"`` for the plain PyTorch path.  On the card it turns
     TF32 off for matmul and cuDNN: the reference is full f32.
+    ``use_filter_engine=False`` sends DASH, FAST and adaptive sequencing
+    through the per-sample ``gains(add_set(...))`` path.
     """
 
     def __init__(self, X, y, kmax: int, *, span_tol: float = 1e-6,
-                 jitter: float = 1e-8, precision: str | None = None, device=None):
+                 jitter: float = 1e-8, use_filter_engine: bool = True,
+                 precision: str | None = None, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_full_f32_matmul()
@@ -140,6 +143,7 @@ class RegressionObjective:
         self.kmax = int(kmax)
         self.span_tol = float(span_tol)
         self.jitter = float(jitter)
+        self.use_filter_engine = bool(use_filter_engine)
         self.precision = resolve_precision(precision)
         self.ysq = torch.clamp(torch.sum(self.y * self.y), min=1e-12)
         self.col_sq = torch.sum(self.X * self.X, dim=0)

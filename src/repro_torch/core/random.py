@@ -3,14 +3,16 @@
 The selection loop calls ``split`` with the same counts, in the same
 order, as the JAX reference calls ``jax.random.split``, derives a key
 per round or probe through ``fold_in`` where the reference calls
-``jax.random.fold_in``, and draws every Gumbel vector through ``gumbel``.
-Any object with these three methods is a key, which is how a test
+``jax.random.fold_in``, draws every Gumbel vector through ``gumbel`` and
+every standard normal array (the coreset's random projection) through
+``normal``.  Any object with these methods is a key, which is how a test
 replays the reference's exact noise: it passes a key class that wraps
 ``jax.random`` (defined in the test, so this package never imports JAX).
 
     split(num) -> list[key]
     fold_in(i) -> key
     gumbel(n, device) -> (n,) f32 tensor on ``device``, i.i.d. Gumbel
+    normal(shape, device) -> f32 tensor of ``shape`` on ``device``, N(0, 1)
 
 :class:`SeedKey` is the default: children derive deterministically from
 an integer seed (splitmix64), and each draw seeds a fresh
@@ -48,6 +50,9 @@ class Key(Protocol):
     def gumbel(self, n: int, device) -> torch.Tensor:
         """(n,) f32 i.i.d. Gumbel noise on ``device``."""
 
+    def normal(self, shape, device) -> torch.Tensor:
+        """f32 i.i.d. standard normals of ``shape`` on ``device``."""
+
 
 def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
     """Gumbel noise from uniforms, clamped to [1e-9, 1 − 1e-9) as the
@@ -74,9 +79,19 @@ class SeedKey:
         return SeedKey(_splitmix64(base ^ _splitmix64(int(i) & _MASK64)),
                        self.host)
 
-    def gumbel(self, n: int, device) -> torch.Tensor:
+    def _generator(self, device):
         dev = torch.device("cpu" if self.host else device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(self.seed & (_MASK64 >> 1))
+        return gen, dev
+
+    def gumbel(self, n: int, device) -> torch.Tensor:
+        gen, dev = self._generator(device)
         u = torch.rand(int(n), generator=gen, device=dev, dtype=torch.float32)
         return gumbel_from_uniform(u).to(device)
+
+    def normal(self, shape, device) -> torch.Tensor:
+        gen, dev = self._generator(device)
+        z = torch.randn(tuple(int(s) for s in shape), generator=gen,
+                        device=dev, dtype=torch.float32)
+        return z.to(device)

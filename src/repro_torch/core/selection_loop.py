@@ -18,17 +18,31 @@ iteration count are frozen with ``torch.where``, and the loop runs while
 any lane is active — one host sync per filter iteration.  The outer
 rounds are a plain ``for`` loop.  Keys are split with the same counts,
 in the same order, as the reference: 3 per round, 3 per filter
-iteration.  Checkpointed and straggler-tolerant drivers wait for the
-resilience slice.
+iteration.
+
+Resilience: the round boundary is the snapshot point.  The whole loop
+state is one :class:`SelectionCarry` and one round is a function of
+``(carry, round, OPT, α)`` alone, so :func:`drive_checkpointed_rounds`
+steps the rounds from the host and snapshots the carry after each one
+through ``ckpt/checkpoint.py`` (:class:`RoundCheckpointer`: atomic,
+written by a thread from a host copy), and a run killed anywhere and
+resumed from its newest complete snapshot commits the set the
+uninterrupted run commits.  The carry's keys are Python objects: a
+snapshot records each ``SeedKey`` as its ``seed`` (uint64) and ``host``
+flag (:func:`carry_snapshot`).
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
+
+from repro_torch.core.random import SeedKey
 
 
 class DashTrace(NamedTuple):
@@ -191,4 +205,183 @@ def run_selection_rounds(hooks: SelectionHooks, cfg: DashConfig, opt, keys,
     carry = initial_carry(cfg, keys, state0, alive0)
     for rho in range(cfg.r):
         carry = body(rho, carry, opt, alpha)
+    return carry
+
+
+# ---------------------------------------------------------------------------
+# resilience: snapshots, deadlines, the host-stepped round driver
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ResilienceConfig:
+    """How a selection run snapshots and resumes.
+
+    With ``ckpt_dir`` set, the host-stepped driver saves the
+    :class:`SelectionCarry` through ``ckpt/checkpoint.py`` every
+    ``every`` completed rounds (atomic rename; ``async_save`` hands the
+    write to a thread so the device keeps stepping), pruning to the
+    ``keep_last`` newest complete snapshots.  The straggler fields of
+    the reference's config (a simulated responder mask and its robust
+    reduction) are read only by the sharded runtime, ROADMAP item 11.
+    """
+
+    ckpt_dir: str | None = None
+    every: int = 1
+    keep_last: int = 3
+    async_save: bool = True
+
+
+class Deadline:
+    """A monotonic wall-clock budget for a host-stepped selection run;
+    ``clock`` is injectable, and the budget starts at construction."""
+
+    def __init__(self, budget_s: float,
+                 clock: Callable[[], float] = time.monotonic):
+        self.budget_s = float(budget_s)
+        self.clock = clock
+        self.t0 = clock()
+
+    def elapsed(self) -> float:
+        return self.clock() - self.t0
+
+    def remaining(self) -> float:
+        return self.budget_s - self.elapsed()
+
+    def expired(self) -> bool:
+        return self.remaining() <= 0.0
+
+
+class SelectionDeadlineExceeded(RuntimeError):
+    """A host-stepped selection run ran out of deadline budget.
+
+    Carries the number of completed rounds and the partial
+    :class:`SelectionCarry`, so that a caller can degrade or reject
+    explicitly.  A retry cannot help, so the resilience wrappers take it
+    as fatal (``fatal=`` of ``run_with_restart`` / ``run_resumable``).
+    """
+
+    def __init__(self, rounds_done: int, carry: Any = None):
+        super().__init__(
+            f"selection deadline expired after {int(rounds_done)} "
+            f"completed rounds"
+        )
+        self.rounds_done = int(rounds_done)
+        self.carry = carry
+
+
+def keys_snapshot(keys) -> dict:
+    """The lanes' keys as arrays: ``seed`` (uint64) and ``host``.  Only
+    ``SeedKey`` has this form; another key type raises ``TypeError``."""
+    for key in keys:
+        if not isinstance(key, SeedKey):
+            raise TypeError(
+                f"a {type(key).__name__} key has no snapshot form; a "
+                "checkpointed run (ResilienceConfig.ckpt_dir) needs "
+                "SeedKey keys")
+    return {"seed": np.array([k.seed & ((1 << 64) - 1) for k in keys],
+                             dtype=np.uint64),
+            "host": np.array([k.host for k in keys], dtype=bool)}
+
+
+def carry_snapshot(carry: SelectionCarry) -> SelectionCarry:
+    """The carry with its keys in snapshot form — what a checkpoint
+    holds."""
+    return carry._replace(key=keys_snapshot(carry.key))
+
+
+def carry_from_snapshot(snap: SelectionCarry) -> SelectionCarry:
+    seeds, hosts = snap.key["seed"].tolist(), snap.key["host"].tolist()
+    return snap._replace(key=[SeedKey(int(s), bool(h))
+                              for s, h in zip(seeds, hosts)])
+
+
+class RoundCheckpointer:
+    """Round-boundary snapshots of the carry, written by a
+    ``ckpt/checkpoint.py::CheckpointManager`` (host copy, then a writer
+    thread; ``async_save=False`` waits for each write).  The atomic
+    rename in ``save_checkpoint`` means a kill at any point leaves the
+    newest complete snapshot restorable.
+    """
+
+    def __init__(self, cfg: ResilienceConfig):
+        from repro_torch.ckpt.checkpoint import CheckpointManager
+
+        if not cfg.ckpt_dir:
+            raise ValueError("RoundCheckpointer needs ResilienceConfig.ckpt_dir")
+        self.cfg = cfg
+        self.manager = CheckpointManager(cfg.ckpt_dir, every=1,
+                                         keep=cfg.keep_last)
+
+    def save(self, rounds_done: int, carry, *, extra: dict | None = None):
+        self.manager.maybe_save(
+            rounds_done, carry_snapshot(carry),
+            blocking=not self.cfg.async_save,
+            extra={**(extra or {}), "round": int(rounds_done)})
+
+    def wait(self, *, raise_errors: bool = True):
+        self.manager.wait(raise_errors=raise_errors)
+
+
+def restore_carry(ckpt_dir: str, like: SelectionCarry, *, device=None):
+    """The carry of the newest complete snapshot in the structure of
+    ``like``, and the rounds it had completed; ``None`` when the
+    directory holds no complete snapshot."""
+    from repro_torch.ckpt.checkpoint import (
+        latest_complete_step,
+        read_manifest,
+        restore_checkpoint,
+    )
+
+    step = latest_complete_step(ckpt_dir)
+    if step is None:
+        return None
+    snap, _ = restore_checkpoint(ckpt_dir, carry_snapshot(like), step=step,
+                                 device=device)
+    rounds = int(read_manifest(ckpt_dir, step)["extra"]["round"])
+    return carry_from_snapshot(snap), rounds
+
+
+def drive_checkpointed_rounds(
+    step_fn: Callable[[int, SelectionCarry], SelectionCarry],
+    carry: SelectionCarry,
+    cfg: DashConfig,
+    *,
+    resilience: ResilienceConfig | None = None,
+    start_round: int = 0,
+    failure_injector=None,
+    snapshot_extra: dict | None = None,
+    deadline: Deadline | None = None,
+) -> SelectionCarry:
+    """Host-driven round loop with snapshots — the resilient twin of
+    :func:`run_selection_rounds`.
+
+    ``step_fn(rho, carry)`` is one round (built from
+    :func:`make_round_body`).  ``failure_injector.check(rho)`` runs before
+    each round, so an injected kill loses at most the rounds since the
+    last snapshot.  An expired ``deadline`` raises
+    :class:`SelectionDeadlineExceeded` (with the partial carry) at the
+    next round boundary.  With ``resilience.ckpt_dir`` set, a key
+    without a snapshot form raises ``TypeError`` before round 0.
+    """
+    ckpt = (RoundCheckpointer(resilience)
+            if resilience is not None and resilience.ckpt_dir else None)
+    if ckpt is not None:
+        keys_snapshot(carry.key)
+    try:
+        for rho in range(start_round, cfg.r):
+            if deadline is not None and deadline.expired():
+                raise SelectionDeadlineExceeded(rho, carry)
+            if failure_injector is not None:
+                failure_injector.check(rho)
+            carry = step_fn(rho, carry)
+            if ckpt is not None and (rho + 1) % resilience.every == 0:
+                ckpt.save(rho + 1, carry, extra=snapshot_extra)
+    finally:
+        if ckpt is not None:
+            # Let an in-flight write land (so that a restore after an
+            # injected failure sees a deterministic newest snapshot)
+            # without masking the propagating exception.
+            ckpt.wait(raise_errors=False)
+    if ckpt is not None:
+        ckpt.wait()
     return carry

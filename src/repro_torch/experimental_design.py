@@ -14,6 +14,15 @@ set-gain estimate ever falls below its threshold α²·t/r on this design
 at k ≪ d, so DASH never filters and commits uniformly random blocks —
 RANDOM's quality — and the filter engine never runs.
 
+The diversified variant (:func:`diversified`) adds the cluster-coverage
+regularizer d(S) = 0.2 · Σ_c √|S ∩ G_c| over 4 clusters, the sign
+pattern of each stimulus's projection on the top two principal
+components of X, and runs ``dash_auto`` (eps 0.25, m = 8, 6 OPT guesses,
+the practical α) on f + d.  ``DiversifiedObjective`` has no filter
+engine, so its DASH scores the perturbed states one sample at a time
+(``aopt_gains`` on the card, never ``aopt_filter_gains``).  It reports
+the value and the selection's cluster coverage.
+
 On the card every algorithm is timed with the host clock around a
 ``torch.cuda.synchronize()``, and the result records how many times
 each algorithm launched each kernel, and each DASH lane's α, value and
@@ -22,8 +31,7 @@ filter iterations.
     PYTHONPATH=src python -m repro_torch.experimental_design --device cpu --d 64 --n 512 --k 16
 
 Not ported yet: the example's distributed DASH over a device mesh (it
-waits for the sharded runtime) and its diversity-regularized variant
-(it waits for the other objectives).
+waits for the sharded runtime, ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ import torch
 
 from repro_torch.core import (
     AOptimalityObjective,
+    ClusterDiversity,
+    DiversifiedObjective,
     SeedKey,
     alpha_from_gamma,
     dash_auto,
@@ -49,6 +59,8 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.filter_gains import aopt_filter_gains
 
 ALPHA_FLOOR = 0.3   # the example's practical floor under the Cor. 9 bound
+DIV_CLUSTERS = 4    # sign patterns of the top two principal components
+DIV_WEIGHT = 0.2
 
 
 def _counts():
@@ -72,11 +84,48 @@ def _timed(name, fn, dev, out):
     return res
 
 
+def pc_sign_clusters(X: torch.Tensor) -> torch.Tensor:
+    """(n,) cluster ids in [0, 4): 2·[p₀ > 0] + [p₁ > 0], with p the
+    projection of each column of X (d, n) on the top two principal
+    directions (eigenvectors of X Xᵀ, in float64 on X's device).  Each
+    direction's sign is fixed so that its largest-magnitude entry is
+    positive, the choice an SVD leaves open."""
+    Xd = X.to(torch.float64)
+    _, vecs = torch.linalg.eigh(Xd @ Xd.T)
+    U = vecs[:, [-1, -2]]                               # (d, 2)
+    lead = torch.gather(U, 0, torch.argmax(U.abs(), dim=0)[None])
+    U = U * torch.sign(lead)
+    proj = Xd.T @ U                                     # (n, 2)
+    return ((proj[:, 0] > 0).to(torch.int64) * 2
+            + (proj[:, 1] > 0).to(torch.int64))
+
+
+def diversified(obj, k: int, alpha: float, *, seed: int = 0,
+                n_guesses: int = 6, n_samples: int = 8, out=None) -> dict:
+    """DASH on f_A-opt + d over the PC sign clusters of ``obj.X``;
+    returns the result, the clusters and the selection's coverage (and
+    times it into ``out`` under ``"diversified"``)."""
+    dev = obj.device
+    out = {} if out is None else out
+    clusters = pc_sign_clusters(obj.X)
+    div = ClusterDiversity(clusters, DIV_CLUSTERS, DIV_WEIGHT, device=dev)
+    dobj = DiversifiedObjective(obj, div)
+    res = _timed("diversified", lambda: dash_auto(
+        dobj, k, SeedKey(seed), eps=0.25, alpha=alpha, n_samples=n_samples,
+        n_guesses=n_guesses, device=dev), dev, out)
+    coverage = torch.bincount(clusters[res.sel_mask],
+                              minlength=DIV_CLUSTERS).tolist()
+    out.update(div_objective=dobj, div_result=res, clusters=clusters,
+               div_value=float(res.value), div_rounds=int(res.rounds),
+               div_selected=int(res.sel_count), coverage=coverage)
+    return out
+
+
 def main(device=None, d: int = 128, n: int = 512, k: int = 32,
          seed: int = 0, n_guesses: int = 6, n_samples: int = 8,
          verbose: bool = True) -> dict:
-    """Run the four selectors on a (d, n) design with β² = σ² = 1;
-    returns their results."""
+    """Run the four selectors on a (d, n) design with β² = σ² = 1, then
+    the diversified DASH; returns their results."""
     dev = resolve_device(device)
     X = make_d1_design(seed=seed, n_samples=n, n_features=d)
     obj = AOptimalityObjective(X, kmax=k, device=dev)
@@ -106,6 +155,8 @@ def main(device=None, d: int = 128, n: int = 512, k: int = 32,
         alphas=alphas, lanes=lanes,
         topk_value=float(t.value), random_value=float(r.value),
     )
+    diversified(obj, k, alpha, seed=seed, n_guesses=n_guesses,
+                n_samples=n_samples, out=out)
     if verbose:
         print(f"γ (Cor. 9 bound) = {gamma:.4e}; practical α = {alpha:.3f}; "
               f"DASH α lattice {alphas}")
@@ -123,6 +174,12 @@ def main(device=None, d: int = 128, n: int = 512, k: int = 32,
             print(f"DASH lane {i:2d}: α={lane['alpha']:.3f}  "
                   f"f_A = {lane['value']:.4f}  "
                   f"filter iterations={lane['filter_iters']}")
+        print(f"DASH + diversity: f_A-div = {out['div_value']:.4f}  "
+              f"rounds={out['div_rounds']}  "
+              f"selected={out['div_selected']}  "
+              f"seconds={out['diversified_s']:.3f}")
+        print(f"cluster coverage of diversified selection: "
+              f"{out['coverage']}")
     return out
 
 

@@ -71,18 +71,20 @@ class JaxKey:
         return torch.from_numpy(np.array(_gumbel(self.key, n))).to(device)
 
 
-def port_objective(jobj):
-    """The port's objective over the reference objective's inputs."""
+def port_objective(jobj, **kw):
+    """The port's objective over the reference objective's inputs
+    (``kw`` passes on to its constructor)."""
     X = np.array(jobj.X)
     if hasattr(jobj, "isig2"):
         return AOptimalityObjective(X, jobj.kmax, beta2=jobj.beta2,
-                                    sigma2=1.0 / jobj.isig2, device="cpu")
+                                    sigma2=1.0 / jobj.isig2, device="cpu",
+                                    **kw)
     y = np.array(jobj.y)
     if hasattr(jobj, "newton_steps"):
         return ClassificationObjective(
             X, y, jobj.kmax, newton_steps=jobj.newton_steps,
-            newton_gain_steps=jobj.newton_gain_steps, device="cpu")
-    return RegressionObjective(X, y, jobj.kmax, device="cpu")
+            newton_gain_steps=jobj.newton_gain_steps, device="cpu", **kw)
+    return RegressionObjective(X, y, jobj.kmax, device="cpu", **kw)
 
 
 @functools.lru_cache(maxsize=None)
@@ -225,8 +227,8 @@ def test_engine_matches_per_prefix_path(name):
     np.testing.assert_allclose(am.numpy(), bm.numpy(), rtol=rtol, atol=atol)
     key = jax.random.PRNGKey(3)
     on = tfast.fast(tobj, k, JaxKey(key), device="cpu")
-    off = tfast.fast(tobj, k, JaxKey(key), use_filter_engine=False,
-                     device="cpu")
+    off = tfast.fast(port_objective(jobj, use_filter_engine=False), k,
+                     JaxKey(key), device="cpu")
     np.testing.assert_array_equal(on.sel_mask.numpy(), off.sel_mask.numpy())
     assert int(on.rounds) == int(off.rounds)
     _close(on.value, off.value)

@@ -318,6 +318,7 @@ AOPT_SHAPES = [  # d, n, g, m, b, sigma2
     (129, 333, 3, 2, AOPT_ROUND_B, 1.0),   # b at one chunk's width
     (1000, 1537, 2, 8, 9, 1.0),    # m·b = 72 past one chunk: 2 units
     (513, 777, 2, 1, AOPT_ROUND_B, 0.5),   # m = 1 at one chunk's width
+    (64, 4096, 1, 4, 22, 1.0),     # the coreset's: dim_cap 64, k 256, m 4
 ]
 
 
@@ -999,6 +1000,157 @@ def test_select_on_card_matches_cpu(cuda, algo):
                              torch.ones((1, i), dtype=torch.bool))
         g = obj.gains(st)[0]
         assert abs(float(g[pc[i]] - g[pg[i]])) <= 2e-4 * abs(float(g[pc[i]]))
+
+
+# ---------------------------------------------------------------------------
+# slice 6: the per-sample path, diversity, coreset, checkpointed DASH
+# ---------------------------------------------------------------------------
+
+def _slice6_problem(name, dev, engine=True):
+    from repro_torch.core import (
+        AOptimalityObjective,
+        ClassificationObjective,
+        RegressionObjective,
+    )
+    from repro_torch.data.synthetic import (
+        make_d1_design,
+        make_d1_regression,
+        make_d3_classification,
+    )
+
+    if name == "regression":
+        X, y, _ = make_d1_regression(seed=0, n_samples=600, n_features=300,
+                                     support=40)
+        return RegressionObjective(X, y, 40, use_filter_engine=engine,
+                                   device=dev)
+    if name == "aopt":
+        X = make_d1_design(seed=0, n_samples=700, n_features=128)
+        return AOptimalityObjective(X, 40, use_filter_engine=engine,
+                                    device=dev)
+    X, y, _ = make_d3_classification(n_samples=600, n_features=300,
+                                     support=40)
+    return ClassificationObjective(X, y, 40, use_filter_engine=engine,
+                                   device=dev)
+
+
+# The per-sample path against the engine, as on the CPU
+# (tests/test_torch_objectives_more.py): the reference's tolerances.
+PER_SAMPLE_TOL = {"regression": (1e-4, 1e-5), "aopt": (1e-5, 1e-6),
+                  "logistic": (1e-4, 1e-5)}
+
+
+@pytest.mark.parametrize("name", ["regression", "aopt", "logistic"])
+def test_per_sample_path_matches_engine_on_card(cuda, name):
+    """``_estimate_elem_gains`` with use_filter_engine False (kernel 1,
+    4 or 6 once per sample) and True (kernel 3, 5 or 7 once), 3 lanes,
+    the same keys; and the engine-off run launches no engine kernel."""
+    from repro_torch.core import DashConfig, SeedKey
+    from repro_torch.core.dash import _estimate_elem_gains
+    from repro_torch.kernels.filter_gains import logistic_filter_gains
+
+    engines = {"regression": filter_gains, "aopt": aopt_filter_gains,
+               "logistic": logistic_filter_gains}
+    on, off = (_slice6_problem(name, cuda, e) for e in (True, False))
+    st = on.add_set(on.init(3), torch.tensor([[0, 3, 9], [5, 5, 1],
+                                              [7, 2, 4]], device=cuda),
+                    torch.tensor([[True, True, False], [True, True, True],
+                                  [False, False, False]], device=cuda))
+    cfg = DashConfig(k=40, n_samples=6).resolve(on.n)
+    alive = torch.ones((3, on.n), dtype=torch.bool, device=cuda)
+    alive[1, ::3] = False
+    allowed = torch.tensor([40, 5, 9], device=cuda)
+    keys = SeedKey(11, host=True).split(3)
+    want = _estimate_elem_gains(on, st, alive, 8, allowed, keys, cfg)
+    before = engines[name].launches
+    got = _estimate_elem_gains(off, st, alive, 8, allowed, keys, cfg)
+    torch.cuda.synchronize()
+    assert engines[name].launches == before
+    rtol, atol = PER_SAMPLE_TOL[name]
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+def test_cluster_diversity_on_card_matches_cpu(cuda):
+    """Counts bitwise (integers in f32, whatever order the atomics run
+    in), values, gains and set gains as on the CPU."""
+    from repro_torch.core import ClusterDiversity
+
+    rng = np.random.default_rng(0)
+    n, c = 65536, 64
+    cl = rng.integers(0, c, n)
+    masks = torch.from_numpy(rng.uniform(size=(4, n)) < np.array(
+        [[0.0], [0.01], [0.3], [0.9]]))
+    idx = torch.from_numpy(rng.integers(0, n, (4, 8, 10)))
+    valid = torch.from_numpy(rng.uniform(size=(4, 8, 10)) < 0.8)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        div = ClusterDiversity(cl, c, 0.2, device=dev)
+        m = masks.to(dev)
+        out[dev] = [div.counts(m), div.value(m), div.gains(m),
+                    div.gains_at(m, idx[:, 0].to(dev)),
+                    div.set_gain(m, idx.to(dev), valid.to(dev))]
+    assert torch.equal(out["cuda"][0].cpu(), out["cpu"][0])
+    for got, want in zip(out["cuda"][1:], out["cpu"][1:]):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_checkpointed_dash_kill_and_resume_on_card(cuda, tmp_path):
+    """dash_checkpointed on the card: stepped equals fused, and a run
+    killed at round 2 and resumed from its snapshot equals the
+    uninterrupted run bit for bit (set, value, trace)."""
+    from repro_torch.core import (
+        DashConfig,
+        ResilienceConfig,
+        SeedKey,
+        dash,
+        dash_checkpointed,
+    )
+    from repro_torch.runtime import FailureInjector
+
+    obj = _slice6_problem("regression", cuda)
+    cfg = DashConfig(k=40, eps=0.25, alpha=0.6, n_samples=8)
+    opt = float(torch.max(obj.gains(obj.init()))) * 12.0
+    key = SeedKey(0)
+    fused = dash(obj, cfg, key, opt)
+    whole = dash_checkpointed(obj, cfg, key, opt,
+                              resilience=ResilienceConfig())
+    res = ResilienceConfig(ckpt_dir=str(tmp_path), every=1)
+    with pytest.raises(RuntimeError, match="injected"):
+        dash_checkpointed(obj, cfg, key, opt, resilience=res,
+                          failure_injector=FailureInjector(fail_at=(2,)))
+    resumed = dash_checkpointed(obj, cfg, key, opt, resilience=res,
+                                resume=True)
+    for run in (whole, resumed):
+        assert torch.equal(run.sel_mask, fused.sel_mask)
+        assert float(run.value) == float(fused.value)
+        for f in fused.trace._fields:
+            assert torch.equal(getattr(run.trace, f), getattr(fused.trace, f))
+
+
+def test_coreset_features_on_card_match_cpu(cuda):
+    """The reduced danube (f32) on the card — attention through the
+    flash kernel — against the CPU, all three modes, within 1e-4."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.objectives import coreset_features
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import params_to
+
+    cfg = get_reduced_config("h2o-danube-1.8b")
+    model = build_model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = model.init(gen)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32))
+    dev_params = params_to(params, cuda)
+    for mode in ("embed", "hidden", "grad"):
+        want = coreset_features(model, params, {"tokens": tok}, mode=mode)
+        before = flash_attention.launches
+        got = coreset_features(model, dev_params, {"tokens": tok.to(cuda)},
+                               mode=mode)
+        torch.cuda.synchronize()
+        if mode != "embed":
+            assert flash_attention.launches == before + cfg.n_layers
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
