@@ -114,6 +114,27 @@ exits nonzero, with no result line) when a check fails:
                = uninterrupted, async = blocking saves (bit for bit), an
                expired Deadline raises with its carry; snapshot bytes and
                save seconds
+     sharded — slice 7, the sharded runtime through select(..., mesh=)
+               on spawned ranks of a (pod 1, data 1, model W) mesh:
+               world 1 through NCCL and world 2 through gloo (both ranks
+               on the card, n_local = n / 2): DASH on the regression,
+               design and classification mains at full width (6 OPT
+               guesses × m = 8; the design's 12 lanes), greedy on the
+               main D1 at world 1; per run and rank host s, rounds,
+               value, launches (each objective's two kernels > 0 on every
+               rank, counters zeroed per run), values in range and above
+               RANDOM; world 1 against world 2 under the bits rule (the
+               same set, or the first parted filter decision's margin to
+               its threshold within the two runs' statistic difference,
+               printed); on the small D1, design and D3, world 1 on the
+               card against world 1 on the CPU (gloo, plain versions)
+               under the same rule, noise drawn on the host; TOP-K,
+               RANDOM, stochastic greedy and FAST (OPT pinned) twins at
+               world 2 on the small inputs = the single-device port on
+               the card; a world-2 snapshot (the small D1, killed at
+               round 2) resumed at world 1 = the uninterrupted world-2
+               run.  The card's ranks run the small inputs first (they
+               warm the process up); the CPU rank runs beside them
  14. timing  — CUDA-event times per call of each kernel, its plain
                version and a library call, beside the kernel's bound
                from its shapes and the H100 SXM peaks (kernel 8 at the lm
@@ -122,7 +143,9 @@ exits nonzero, with no result line) when a check fails:
                and shared memory per CTA; kernel 5 at b = 128; kernels
                3, 5 and 7 at FAST's prefix shapes (bounds counting the
                prefixes' nonzero columns), beside the MGS deltas of the
-               129 prefixes; kernels 4 and 5 at the coreset's shape
+               129 prefixes; kernels 4 and 5 at the coreset's shape; the
+               six selection kernels at a world-2 shard's shapes
+               ([sharded]: n_local = n / 2 of each main lattice)
  15. profile — greedy and DASH of the main phase, DASH of the design
                main phase, greedy and DASH of the classification main
                phase, 8 rounds of the registry main's FAST, one lm prefill and four
@@ -2158,6 +2181,412 @@ def phase_resilience(torch, out):
 
 
 # ---------------------------------------------------------------------------
+# [sharded]: the sharded runtime (core/distributed.py) on spawned ranks —
+# world 1 through NCCL, world 2 through gloo with both ranks on the card
+# ---------------------------------------------------------------------------
+
+SHARDED_AXES = ("pod", "data", "model")
+# Full width: the three main paths' DASH through select(..., mesh=) on a
+# (pod 1, data 1, model W) mesh, so W = 2 gives n_local = n / 2.
+SHARDED_FULL = ("regression", "design", "classification")
+SHARDED_KERNELS = {
+    "regression": ("regression_gains", "filter_gains"),
+    "design": ("aopt_gains", "aopt_filter_gains"),
+    "classification": ("logistic_gains", "logistic_filter_gains"),
+}
+# The small inputs of the parity phases: D1 600 × 200 (k 40), the design
+# 128 × 512 (k 32, α ∈ {0.3, 1}), D3 600 × 200 (support 50, k 20).
+SHARDED_SMALL = {"regression": 40, "design": 32, "classification": 20}
+SHARDED_TWINS = ("topk", "random", "stochastic_greedy", "fast")
+SHARDED_TIMEOUT_S = 600
+# f(S) of the world-1 greedy twin against single-device greedy's.
+GREEDY_TWIN_TOL = 1e-6
+
+
+def sharded_objective(torch, name, full, device, design_alphas=None):
+    """(objective, k, select options) of a main path (``full``) or of its
+    small parity input, on ``device``; data from the entry points'
+    generators and seeds."""
+    from repro_torch.core import (
+        AOptimalityObjective,
+        ClassificationObjective,
+        RegressionObjective,
+    )
+    from repro_torch.data.synthetic import (
+        make_d1_design,
+        make_d1_regression,
+        make_d3_classification,
+    )
+
+    base = dict(eps=0.25, n_samples=8, n_guesses=6)
+    if name == "regression":
+        cfg = MAIN if full else dict(d=600, n=200, support=40, k=40)
+        X, y, _ = make_d1_regression(seed=0, n_samples=cfg["d"],
+                                     n_features=cfg["n"],
+                                     support=cfg["support"])
+        return (RegressionObjective(X, y, cfg["k"], device=device), cfg["k"],
+                dict(base, alpha=0.6))
+    if name == "design":
+        d, n, k = ((DESIGN["d"], DESIGN["n"], DESIGN["k"]) if full
+                   else (128, 512, 32))
+        alphas = design_alphas if full else [0.3, 1.0]
+        X = make_d1_design(seed=0, n_samples=n, n_features=d)
+        return (AOptimalityObjective(X, k, device=device), k,
+                dict(base, alpha=min(alphas), alphas=list(alphas)))
+    cfg = CLASS if full else dict(d=600, n=200, support=50, k=20)
+    X, y, _ = make_d3_classification(seed=2, n_samples=cfg["d"],
+                                     n_features=cfg["n"],
+                                     support=cfg["support"])
+    return (ClassificationObjective(X, y, cfg["k"], device=device), cfg["k"],
+            dict(base, alpha=0.6))
+
+
+def twin_opts(obj, algo, k):
+    """FAST runs one probe, at OPT pinned to the lattice's geometric
+    midpoint (its binary search's three probes take a minute on the
+    small D1 twice over: twin and single-device)."""
+    if algo != "fast":
+        return {}
+    from repro_torch.core.dash import opt_guess_lattice
+
+    return {"opt": float(opt_guess_lattice(obj, 0.06, 1, k)[0])}
+
+
+def recorded_dash(torch, obj, k, key, mesh, opts, path):
+    """DASH through select(..., mesh=) with every filter decision's
+    inputs kept (each iteration's f(S), alive and selected masks and the
+    filter statistic, this rank's columns), saved to ``path``: what the
+    flip analysis of :func:`first_flip` reads.  The recorder adds a
+    value call per filter iteration and keeps every iteration's tensors,
+    so its host time is not the runtime's (:func:`sharded_rank` times an
+    untouched run).  Returns (host s, result, this rank's launches, the
+    lattice's OPT guesses and α)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import select
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.dash import lattice_grid, opt_guess_lattice
+
+    records, orig = [], dist._make_hooks
+
+    def make(*a, **kw):
+        hooks = orig(*a, **kw)
+
+        def elem(state, alive, allowed, keys):
+            eg = hooks.estimate_elem_gains(state, alive, allowed, keys)
+            records.append((hooks.value(state), alive, state[1], eg))
+            return eg
+
+        return dataclasses.replace(hooks, estimate_elem_gains=elem)
+
+    dist._make_hooks = make
+    try:
+        secs, res, launches = synced(torch, lambda: select(
+            "dash", obj, k, key, mesh=mesh, **opts))
+    finally:
+        dist._make_hooks = orig
+    np.savez(path, **{f"{f}_{i}": t.cpu().numpy()
+                      for i, rec in enumerate(records)
+                      for f, t in zip(("value", "alive", "sel", "eg"), rec)})
+    guesses = opt_guess_lattice(obj, opts["eps"], opts["n_guesses"], k)
+    lat_opts, lat_alphas = lattice_grid(
+        guesses, opts.get("alphas", [opts["alpha"]]))
+    return secs, res.raw, launches, (lat_opts.cpu().numpy(),
+                                     lat_alphas.cpu().numpy())
+
+
+def sharded_rank(world, root, design_alphas):
+    """One rank of the [sharded] phase on the card (world 1: NCCL; world
+    2: gloo).  Both worlds: the three main paths' DASH at full width.
+    World 1: greedy on the main D1, DASH on the small inputs, and the
+    resume of world 2's snapshot.  World 2: the TOP-K, RANDOM,
+    stochastic greedy and FAST twins on the small inputs, and the small
+    D1's checkpointed run, killed at round 2 and uninterrupted."""
+    import torch
+
+    from repro_torch.core import DashConfig, ResilienceConfig, SeedKey
+    from repro_torch.core import select
+    from repro_torch.core.distributed import dash_distributed
+    from repro_torch.launch.mesh import make_mesh, to_numpy
+    from repro_torch.runtime import FailureInjector
+
+    mesh = make_mesh((1, 1, world), SHARDED_AXES)
+    rank = mesh.index("model")
+    out = {"device": str(mesh.device), "n_local": {}}
+    # The small inputs first: they also warm the process up (CUDA
+    # context, cuBLAS, the communicator) before the timed full runs.
+    key = SeedKey(0, host=True)
+    for name in SHARDED_SMALL:
+        obj, k, opts = sharded_objective(torch, name, False, mesh.device)
+        if world == 1:
+            path = f"{root}/small_{name}_cuda_r0.npz"
+            out["small", name] = to_numpy(recorded_dash(
+                torch, obj, k, key, mesh, opts, path)) + (path,)
+        else:
+            for algo in SHARDED_TWINS:
+                secs, res, launches = synced(torch, lambda: select(
+                    algo, obj, k, key, mesh=mesh, **twin_opts(obj, algo, k)))
+                out["twin", name, algo] = dict(
+                    secs=secs, result=to_numpy(res.raw), launches=launches)
+    for name in SHARDED_FULL:
+        obj, k, opts = sharded_objective(torch, name, True, mesh.device,
+                                         design_alphas)
+        out["n_local"][name] = obj.n // world
+        # The untouched run gives the host time and the launches; a
+        # second, recorded run of the same call gives the flip records.
+        secs, res, launches = synced(torch, lambda: select(
+            "dash", obj, k, SeedKey(0), mesh=mesh, **opts))
+        path = f"{root}/full_{name}_w{world}_r{rank}.npz"
+        _, rec, _, lattice = recorded_dash(torch, obj, k, SeedKey(0), mesh,
+                                           opts, path)
+        out["full", name] = dict(secs=secs, result=to_numpy(res.raw),
+                                 launches=launches, record=path,
+                                 lattice=lattice,
+                                 recorded_same=bool(torch.equal(
+                                     res.raw.sel_mask, rec.sel_mask)))
+        if name == "regression" and world == 1:
+            secs, g, launches = synced(torch, lambda: select(
+                "greedy", obj, k, mesh=mesh))
+            out["greedy"] = dict(secs=secs, result=to_numpy(g.raw),
+                                 launches=launches)
+        del obj
+        torch.cuda.empty_cache()
+    obj, k, opts = sharded_objective(torch, "regression", False, mesh.device)
+    cfg = DashConfig(k=k, eps=0.25, alpha=0.6, n_samples=8)
+    opt = float(torch.max(obj.gains(obj.init()))) * 12.0
+    ckpt = f"{root}/ckpt"
+    if world == 2:
+        out["uninterrupted"] = to_numpy(dash_distributed(obj, cfg, key, opt,
+                                                         mesh))
+        try:
+            dash_distributed(obj, cfg, key, opt, mesh,
+                             resilience=ResilienceConfig(ckpt_dir=ckpt),
+                             failure_injector=FailureInjector(fail_at=(2,)))
+            out["killed"] = None
+        except RuntimeError as e:
+            out["killed"] = str(e)
+    else:
+        out["resumed"] = to_numpy(dash_distributed(obj, cfg, key, opt, mesh,
+                                                   resume=ckpt))
+    return out
+
+
+def sharded_cpu_rank(root):
+    """World 1 on the CPU (gloo, the plain versions): DASH on the small
+    inputs with the card's key, recorded like the card's."""
+    import torch
+
+    from repro_torch.core import SeedKey
+    from repro_torch.launch.mesh import make_mesh, to_numpy
+
+    mesh = make_mesh((1, 1, 1), SHARDED_AXES, device="cpu")
+    out = {}
+    for name in SHARDED_SMALL:
+        obj, k, opts = sharded_objective(torch, name, False, "cpu")
+        path = f"{root}/small_{name}_cpu_r0.npz"
+        out[name] = to_numpy(recorded_dash(
+            torch, obj, k, SeedKey(0, host=True), mesh, opts, path)) + (path,)
+    return out
+
+
+def load_records(paths):
+    """The recorded iterations of one run, every rank's columns joined."""
+    import numpy as np
+
+    files = [np.load(p) for p in paths]
+    out, i = [], 0
+    while f"eg_{i}" in files[0].files:
+        rec = {"value": files[0][f"value_{i}"]}
+        for f in ("alive", "sel", "eg"):
+            rec[f] = np.concatenate([z[f"{f}_{i}"] for z in files], axis=-1)
+        out.append(rec)
+        i += 1
+    return out
+
+
+def first_flip(rec_a, rec_b, opts, alphas, eps, k):
+    """The first filter decision on which two runs of one lattice part.
+    The runs share every input until then (noise from the same keys, the
+    same gathered columns); a decision is alive & (statistic ≥
+    α(1 + ε/2)·t/k) & not selected with t = (1 − ε)(OPT − f(S)).
+    Returns None when no decision parts, else the iteration, lane,
+    element, the element's margin to the threshold and the two runs'
+    statistic difference there (the flip is sound only if the margin
+    lies within that difference)."""
+    import numpy as np
+
+    for it, (a, b) in enumerate(zip(rec_a, rec_b)):
+        if not (np.array_equal(a["alive"], b["alive"])
+                and np.array_equal(a["sel"], b["sel"])):
+            return dict(iteration=it, lane=None, element=None,
+                        margin=None, diff=None, sound=False,
+                        why="the runs' alive or selected sets part before "
+                            "any filter decision did")
+        t = np.maximum((1.0 - eps) * (opts - a["value"]), 0.0)
+        thr = (alphas * (1.0 + eps / 2.0) * t / k)[:, None]
+        da = a["alive"] & (a["eg"] >= thr) & ~a["sel"]
+        db = b["alive"] & (b["eg"] >= thr) & ~b["sel"]
+        if not np.array_equal(da, db):
+            g, j = (int(v[0]) for v in np.nonzero(da != db))
+            margin = abs(float(a["eg"][g, j]) - float(thr[g, 0]))
+            diff = abs(float(a["eg"][g, j]) - float(b["eg"][g, j]))
+            return dict(iteration=it, lane=g, element=j, margin=margin,
+                        diff=diff, sound=margin <= diff, why="")
+    return None
+
+
+def compare_runs(tag, res_a, res_b, rec_a, rec_b, lattice, opts, k):
+    """Log and gate two runs of one lattice under the bits rule: the same
+    set, or the first parted filter decision's margin within the runs'
+    statistic difference there."""
+    import numpy as np
+
+    same = bool(np.array_equal(res_a.sel_mask, res_b.sel_mask))
+    va, vb = float(res_a.value), float(res_b.value)
+    if same:
+        log(f"[sharded] {tag}: same set ({int(res_a.sel_count)} selected), "
+            f"values {va:.6f} {vb:.6f}, trace equal="
+            f"{np.array_equal(res_a.trace.values, res_b.trace.values)}")
+        return True
+    flip = first_flip(load_records(rec_a), load_records(rec_b),
+                      lattice[0], lattice[1], opts["eps"], k)
+    log(f"[sharded] {tag}: sets part (values {va:.6f} {vb:.6f}); first "
+        f"parted decision {flip}")
+    need(flip is not None and flip["sound"],
+         f"{tag}: the sets part beyond the bits rule ({flip})")
+    return False
+
+
+def phase_sharded(torch, out, design, cls):
+    """select(..., mesh=) on spawned ranks: world 1 (NCCL) and world 2
+    (gloo, both ranks on the card) at full width, the small inputs'
+    parity with the CPU, the twins against the single-device port, and a
+    world-2 snapshot resumed at world 1."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import SeedKey, select
+    from repro_torch.launch.mesh import spawn_ranks
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_sharded_", dir=ROOT / "build")
+    alphas = list(design["alphas"])
+    def timed_launch(*a, **kw):
+        t0 = time.perf_counter()
+        return spawn_ranks(*a, **kw), time.perf_counter() - t0
+
+    try:
+        # One launch at a time, so no rank's host time shares the cores
+        # with another launch.
+        w2, t_w2 = timed_launch(sharded_rank, 2, (2, root, alphas),
+                                device="cuda", timeout_s=SHARDED_TIMEOUT_S)
+        (w1,), t_w1 = timed_launch(sharded_rank, 1, (1, root, alphas),
+                                   device="cuda", timeout_s=SHARDED_TIMEOUT_S)
+        (cpu,), t_cpu = timed_launch(sharded_cpu_rank, 1, (root,),
+                                     device="cpu",
+                                     timeout_s=SHARDED_TIMEOUT_S)
+        log(f"[sharded] launches took {t_w2:.1f} s (world 2), {t_w1:.1f} s "
+            f"(world 1), {t_cpu:.1f} s (world 1 on the CPU), process start "
+            f"and data included; devices {w1['device']}, "
+            f"{[r['device'] for r in w2]}")
+        floors = {"regression": out["random_value"],
+                  "design": design["random_value"],
+                  "classification": cls["random_value"]}
+        top = {"regression": 1.0, "design": float(DESIGN["d"]),
+               "classification": CLASS["d"] * math.log(2.0)}
+        sharded_launches = {}
+        for name in SHARDED_FULL:
+            k = {"regression": MAIN["k"], "design": DESIGN["k"],
+                 "classification": CLASS["k"]}[name]
+            runs = [("w1", 0, w1)] + [("w2", r, w2[r]) for r in range(2)]
+            for world, rank, res in runs:
+                row = res["full", name]
+                r = row["result"]
+                log(f"[sharded] {name} {world} rank {rank}: n_local="
+                    f"{res['n_local'][name]} host_s={row['secs']:.3f} "
+                    f"rounds={int(r.rounds)} value={float(r.value):.6f} "
+                    f"selected={int(r.sel_count)} best_guess="
+                    f"{int(r.best_guess)} launches={row['launches']} "
+                    f"recorded run same set={row['recorded_same']}")
+                need(row["recorded_same"], f"[sharded] {name} {world} rank "
+                     f"{rank}: the recorded run differs from the timed one")
+                for kernel in SHARDED_KERNELS[name]:
+                    need(row["launches"].get(kernel, 0) > 0,
+                         f"[sharded] {name} {world} rank {rank} never "
+                         f"launched {kernel}")
+                    sharded_launches.setdefault(kernel, {})[
+                        f"{world}_rank{rank}"] = row["launches"][kernel]
+                v = float(r.value)
+                need(v == v and 0.0 <= v <= top[name],
+                     f"[sharded] {name} value {v} out of range")
+                need(v > floors[name], f"[sharded] {name} DASH does not "
+                     f"beat RANDOM ({floors[name]:.6f})")
+            for r in range(2):
+                need(np.array_equal(w2[r]["full", name]["result"].sel_mask,
+                                    w2[0]["full", name]["result"].sel_mask),
+                     f"[sharded] {name}: the world-2 ranks disagree")
+            compare_runs(f"{name} full width world 1 vs world 2",
+                         w1["full", name]["result"],
+                         w2[0]["full", name]["result"],
+                         [w1["full", name]["record"]],
+                         [w2[r]["full", name]["record"] for r in range(2)],
+                         w1["full", name]["lattice"], dict(eps=0.25), k)
+        # At world 1 the twin runs kernel 1 at the single-device shape:
+        # the same picks, and f(S) within GREEDY_TWIN_TOL.
+        g = w1["greedy"]
+        same = bool(np.array_equal(g["result"].sel_mask,
+                                   out["greedy"].sel_mask.cpu().numpy()))
+        dv = abs(float(g["result"].value) - out["greedy_value"])
+        log(f"[sharded] greedy on the main D1, world 1: value="
+            f"{float(g['result'].value):.6f} host_s={g['secs']:.3f} "
+            f"launches={g['launches']} same set as single-device greedy="
+            f"{same} |value diff|={dv:.3e}")
+        need(same and dv <= GREEDY_TWIN_TOL,
+             "[sharded] greedy at world 1 strays from single-device greedy")
+        sharded_launches["regression_gains"]["greedy_w1"] = \
+            g["launches"]["regression_gains"]
+        # The small inputs: world 1 on the card against the CPU.
+        for name in SHARDED_SMALL:
+            card, cpu_run = w1["small", name], cpu[name]
+            compare_runs(f"{name} small, card world 1 vs CPU world 1",
+                         card[1], cpu_run[1], [card[4]], [cpu_run[4]],
+                         card[3], dict(eps=0.25), SHARDED_SMALL[name])
+        # The twins at world 2 against the single-device port on the card.
+        key = SeedKey(0, host=True)
+        for name, k in SHARDED_SMALL.items():
+            obj, _, _ = sharded_objective(torch, name, False, "cuda")
+            for algo in SHARDED_TWINS:
+                single = select(algo, obj, k, key, device="cuda",
+                                **twin_opts(obj, algo, k))
+                twin = w2[0]["twin", name, algo]
+                same = bool(np.array_equal(twin["result"].sel_mask,
+                                           single.sel_mask.cpu().numpy()))
+                dv = abs(float(twin["result"].value) - float(single.value))
+                log(f"[sharded] twin {algo} on the small {name}, world 2: "
+                    f"same set as one device={same} |value diff|={dv:.3e} "
+                    f"host_s={twin['secs']:.3f} launches="
+                    f"{twin['launches']}")
+                need(same and dv < 1e-4, f"[sharded] the {algo} twin on the "
+                     f"small {name} differs from the single-device port")
+        # A world-2 snapshot resumed at world 1.
+        same = bool(np.array_equal(w1["resumed"].sel_mask,
+                                   w2[0]["uninterrupted"].sel_mask))
+        log(f"[sharded] small D1 killed at world 2 ({w2[0]['killed']}) and "
+            f"resumed at world 1: same set as the uninterrupted world-2 run="
+            f"{same}, values {float(w1['resumed'].value):.6f} "
+            f"{float(w2[0]['uninterrupted'].value):.6f}")
+        need(w2[0]["killed"] is not None and same,
+             "[sharded] the resumed run differs from the uninterrupted one")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return sharded_launches
+
+
+# ---------------------------------------------------------------------------
 # 14. timing
 # ---------------------------------------------------------------------------
 
@@ -2289,6 +2718,89 @@ def phase_timing(torch, worst, launches):
     log(f"[timing] shapes: d={d} n={n} kcap={k} G={G} m={m} b={b}; "
         f"regression_gains at G=1, filter_gains over G*m={G * m} states")
     return rows
+
+
+def phase_sharded_timing(torch):
+    """Each of the six selection kernels at the shape a world-2 shard of
+    ``[sharded]`` gives it (n_local = n / 2, DASH's lattice), f32:
+    kernel and plain version (CUDA events) beside the bound."""
+    from repro_torch.kernels.aopt_gains import aopt_gains, aopt_gains_ref
+    from repro_torch.kernels.filter_gains import (
+        aopt_filter_gains,
+        aopt_filter_gains_lattice_ref,
+        filter_gains,
+        filter_gains_lattice_ref,
+        logistic_filter_gains,
+        logistic_filter_gains_lattice_ref,
+    )
+    from repro_torch.kernels.logistic_gains import (
+        logistic_gains,
+        logistic_gains_ref,
+    )
+    from repro_torch.kernels.marginal_gains import (
+        regression_gains,
+        regression_gains_ref,
+    )
+
+    out = {}
+
+    def row(name, shape, t, p, bd_by):
+        bd, by = bd_by[:2]
+        out[name] = {"shape": shape, "ms": t, "plain_ms": p, "bound_ms": bd,
+                     "bound_by": by}
+        log(f"[timing] {name:21s} f32 sharded shape {shape}: kernel_ms="
+            f"{t:.4f} plain_ms={p:.4f} bound_ms={bd:.4f} ({by}) "
+            f"bound/kernel={bd / t:.3f}")
+
+    d, n, k = MAIN["d"], MAIN["n"] // 2, MAIN["k"]
+    G, m, b = MAIN["n_guesses"], MAIN["n_samples"], MAIN_BLOCK
+    X, Q, D, R, csq = make_operands(torch, d, n, k, b, m, G, seed=17)
+    rG = R[:, 0].contiguous()
+    row("regression_gains", f"d={d} n_local={n} G={G} k={k}",
+        time_ms(torch, lambda: regression_gains(X, Q, rG, csq)),
+        time_ms(torch, lambda: regression_gains_ref(X, Q, rG, csq)),
+        bound(2.0 * d * n * (k + 1) * G,
+              4 * (d * n + G * d * k + G * d + n + G * n)))
+    row("filter_gains", f"d={d} n_local={n} G={G} m={m} b={b}",
+        time_ms(torch, lambda: filter_gains(X, Q, D, R, csq)),
+        time_ms(torch, lambda: filter_gains_lattice_ref(X, Q, D, R, csq)),
+        bound(2.0 * d * n * (G * k + G * m * (b + 1)),
+              4 * (d * n + G * d * k + G * m * d * b + G * m * d + n
+                   + G * m * n)))
+    del X, Q, D, R, csq
+    d, n, g = DESIGN["d"], DESIGN["n"] // 2, DESIGN_LANES
+    m, b = DESIGN["n_samples"], DESIGN_BLOCK
+    X, W, E, F, isig2 = make_aopt_operands(torch, d, n, g, m, b, n_sel=64,
+                                           seed=19)
+    row("aopt_gains", f"d={d} n_local={n} G={g}",
+        time_ms(torch, lambda: aopt_gains(X, W, isig2)),
+        time_ms(torch, lambda: aopt_gains_ref(X, W, isig2)),
+        bound(4.0 * d * n * g + 3.0 * g * n, 4 * (d * n * (1 + g) + g * n)))
+    row("aopt_filter_gains", f"d={d} n_local={n} G={g} m={m} b={b}",
+        time_ms(torch, lambda: aopt_filter_gains(X, W, E, F, isig2)),
+        time_ms(torch, lambda: aopt_filter_gains_lattice_ref(X, W, E, F,
+                                                             isig2)),
+        bound(4.0 * d * n * g + g * m * n * (4.0 * d * b + 2.0 * b * b
+                                             + 6.0 * b + 6.0),
+              4 * (d * n * (1 + g) + g * m * (d * b + b * b + n))))
+    del X, W, E, F
+    d, n, G = CLASS["d"], CLASS["n"] // 2, CLASS["n_guesses"]
+    m, b, steps = CLASS["n_samples"], CLASS_BLOCK, 3
+    X, y, Eta, etas = make_logistic_operands(torch, d, n, G, m, b,
+                                             n_sel=64, seed=23)
+    row("logistic_gains", f"d={d} n_local={n} G={G}",
+        time_ms(torch, lambda: logistic_gains(X, y, Eta, steps=steps)),
+        time_ms(torch, lambda: torch.stack([
+            logistic_gains_ref(X, y, e, steps=steps) for e in Eta]),
+            iters=3, warmup=1),
+        logistic_bound(d, n, G, steps, 4))
+    row("logistic_filter_gains", f"d={d} n_local={n} states={G * m}",
+        time_ms(torch, lambda: logistic_filter_gains(X, y, etas,
+                                                     steps=steps)),
+        time_ms(torch, lambda: logistic_filter_gains_lattice_ref(
+            X, y, etas, steps=steps), iters=3, warmup=1),
+        logistic_bound(d, n, G * m, steps, 4))
+    return out
 
 
 def phase_aopt_timing(torch, worst, launches):
@@ -2828,6 +3340,7 @@ def main() -> int:
     worst = phase_kernels(torch, [
         (d, n, k, MAIN_BLOCK, m, G),    # the main path's lattice shapes
         (d, n, k, MAIN_BLOCK, 1, 1),    # greedy's one-lane shape
+        (d, n // 2, k, MAIN_BLOCK, m, G),   # [sharded]: a world-2 shard
         (1000, 1537, 37, 1, 3, 2),      # ragged n, b = 1, G > 1, m > 1
         (257, 513, 0, 3, 4, 2),         # odd d, k = 0
         (513, 777, 130, 17, 2, 3),      # k, b above one basis tile
@@ -2844,6 +3357,8 @@ def main() -> int:
     worst.update(phase_aopt_kernels(torch, [
         # d, n, G, m, b, |S|, sigma2
         (dd, dn, DESIGN_LANES, dm, DESIGN_BLOCK, 64, 1.0),  # design lattice
+        # [sharded]: the design lattice on a world-2 shard
+        (dd, dn // 2, DESIGN_LANES, dm, DESIGN_BLOCK, 64, 1.0),
         (dd, dn, 1, dm, DESIGN_BLOCK, dk - 1, 1.0),  # greedy's last state
         (1000, 1537, 2, 3, 1, 5, 0.5),   # ragged d and n, b = 1, σ² ≠ 1
         (257, 513, 2, 4, 0, 7, 1.0),     # b = 0: the singleton gain
@@ -2865,6 +3380,7 @@ def main() -> int:
     worst.update(phase_logistic_kernels(torch, [
         # d, n, G, m, b, |S|, steps
         (cd, cn, cg, cm, CLASS_BLOCK, 64, 3),    # the main lattice
+        (cd, cn // 2, cg, cm, CLASS_BLOCK, 64, 3),   # [sharded]: a shard
         (cd, cn, 1, 1, CLASS_BLOCK, CLASS["k"] - 1, 3),  # greedy's last
         (cd, cn, 1, 1, CLASS_BLOCK, 0, 3),       # greedy's first: η = 0
         (cd, cn, 1, 7, CLASS_BLOCK, 64, 3),      # 7 states: a ragged batch
@@ -2923,10 +3439,15 @@ def main() -> int:
     phase_resilience(torch, out)
     log(f"[resilience] done at {time.perf_counter() - t0:.1f} s; slice 6's "
         f"phases took {time.perf_counter() - t6:.1f} s")
+    t7 = time.perf_counter()
+    sharded_launches = phase_sharded(torch, out, design, cls)
+    log(f"[sharded] done at {time.perf_counter() - t0:.1f} s; the phase "
+        f"took {time.perf_counter() - t7:.1f} s")
     rows = phase_timing(torch, worst, launches)
     rows += phase_aopt_timing(torch, worst, launches)
     rows += phase_logistic_timing(torch, worst, launches)
     rows += phase_lm_timing(torch, lm_worst, launches)
+    sharded_rows = phase_sharded_timing(torch)
     fast_rows = phase_fast_timing(torch, out["objective"], fast_launches)
     coreset_rows = phase_coreset_timing(torch, coreset["launches"])
     for row in rows:
@@ -2934,6 +3455,9 @@ def main() -> int:
             row["fast_prefix_shape"] = fast_rows[row["name"]]
         if row["name"] in coreset_rows:
             row["coreset_shape"] = coreset_rows[row["name"]]
+        if row["name"] in sharded_launches:
+            row["sharded_shape"] = dict(sharded_rows[row["name"]],
+                                        launches=sharded_launches[row["name"]])
     runs = profile_runs(out, design, cls,
                         float(registry["rows"]["fast"]["result"].raw.opt))
     runs.update(slice6_profile_runs(torch, design, lm))

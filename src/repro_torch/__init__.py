@@ -14,7 +14,11 @@ sequencing, LASSO — with the §5 comparison
 (``repro_torch.bench_selection``); slice 6 the other objectives (R²,
 cluster diversity with the diversified design, training-batch coresets
 from an LM's features) and the single-device resilience layer
-(checkpoints, restarts, hedged resumes, ``dash_checkpointed``).
+(checkpoints, restarts, hedged resumes, ``dash_checkpointed``); slice 7
+the sharded runtime on ``torch.distributed`` (``launch/mesh.py``,
+``core/distributed.py``: sharded DASH and its guess lattice, the sharded
+baselines and FAST behind ``select(..., mesh=)``, round snapshots and
+elastic resumes).
 
 Layers:
   repro_torch.kernels  — hand-written CUDA C++ kernels for sm_90a (the
@@ -30,8 +34,11 @@ Layers:
                          §5 roster (greedy family, FAST, adaptive
                          sequencing, the one-shot baselines), LASSO and
                          the γ/α estimators
+  repro_torch.launch   — process meshes on torch.distributed and the
+                         launcher of local ranks
   repro_torch.ckpt     — atomic, manifest-checked checkpoints (npz)
-  repro_torch.runtime  — restarts, hedged resumes, the straggler simulator
+  repro_torch.runtime  — restarts, hedged resumes, the straggler
+                         simulator, elastic meshes and resharding
   repro_torch.data     — the paper's synthetic D1–D4 and D1 design data
                          (numpy only)
   repro_torch.configs  — the dense LM configs (copies of the JAX

@@ -22,8 +22,9 @@ Format: one ``arrays.npz`` per checkpoint plus ``manifest.json``; keys
 are ``/``-joined tree paths (dict keys in sorted order, NamedTuple field
 names, sequence indices).  A tree is nested dicts, lists, tuples and
 NamedTuples whose leaves are tensors, numpy arrays or Python scalars.
-``restore_checkpoint`` takes ``device=`` where the reference takes a
-mesh and sharding specs (ROADMAP item 11).
+``restore_checkpoint`` places the leaves on ``device=``, or, given a
+``mesh=`` and ``specs=``, gives each rank its block of every leaf
+(``runtime/elastic.py::reshard_tree``): the elastic restore.
 """
 
 from __future__ import annotations
@@ -240,14 +241,23 @@ def _validate_manifest(manifest: dict, flat_like: dict, npz_files,
 
 
 def restore_checkpoint(directory: str, like: Any, *, step: int | None = None,
-                       device=None) -> tuple[Any, int]:
+                       device=None, mesh=None,
+                       specs=None) -> tuple[Any, int]:
     """Restore into the structure of ``like``; returns (tree, step).
 
     A tensor leaf of ``like`` comes back as a tensor on ``device``
     (default: that leaf's device), any other leaf as a numpy array.
+    With ``mesh`` and ``specs`` (a tree of per-leaf specs in the
+    structure of ``like``, see ``runtime/elastic.py``) each leaf comes
+    back as this rank's block, tensors on the mesh's device.
     ``step=None`` restores the newest complete checkpoint, skipping a
     truncated or half-written newer directory.
     """
+    if (mesh is None) != (specs is None):
+        raise ValueError("restore_checkpoint: pass mesh= and specs= "
+                         "together")
+    if mesh is not None:
+        device = mesh.device
     if step is None:
         step = latest_complete_step(directory)
         if step is None:
@@ -266,8 +276,13 @@ def restore_checkpoint(directory: str, like: Any, *, step: int | None = None,
             return torch.from_numpy(arrays[key]).to(dev)
         return arrays[key]
 
-    restored = {k: rebuild(k, v) for k, v in flat_like.items()}
-    return _unflatten(like, restored), manifest["step"]
+    restored = _unflatten(like, {k: rebuild(k, v)
+                                 for k, v in flat_like.items()})
+    if mesh is not None:
+        from repro_torch.runtime.elastic import reshard_tree
+
+        restored = reshard_tree(restored, specs, mesh)
+    return restored, manifest["step"]
 
 
 class CheckpointManager:

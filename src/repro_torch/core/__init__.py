@@ -2,7 +2,8 @@
 logistic-classification, R², diversity and coreset objectives, DASH, the
 §5 roster behind the ``select`` registry, the γ estimators, and the
 single-device resilience of the selection loop (slices 1–3, 5 and 6 of
-the port).
+the port); the sharded runtime is ``core/distributed.py`` (slice 7),
+reached through ``select(..., mesh=)``.
 
 Public API:
     objectives: RegressionObjective, AOptimalityObjective,

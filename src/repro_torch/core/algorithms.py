@@ -6,13 +6,16 @@ Ports the single-device half of ``repro/core/algorithms.py``:
     res = select("greedy", obj, k)                  # on the card
     res = select("fast", obj, k, key, device="cpu") # the plain path
 
+    res = select("dash", obj, k, key, mesh=mesh)    # sharded (SPMD)
+
 Every algorithm is an :class:`AlgorithmSpec`: its single-device
 implementation, an adaptivity/query cost model for the benchmark tables,
-and a ``distributed`` twin, which is ``None`` until the sharded runtime
-is ported (``ROADMAP.md`` item 11).  ``select`` normalizes every native
+and its ``distributed`` twin on a ``launch/mesh.py::Mesh``
+(``core/distributed.py``; ``None`` for lazy greedy and adaptive
+sequencing, as in the reference).  ``select`` normalizes every native
 result into one :class:`SelectionResult`.  ``device=None`` means the
-card, as for every entry point of the port; it is checked against the
-objective's device.
+card (the mesh's device with ``mesh=``), as for every entry point of the
+port; it is checked against the objective's device.
 """
 
 from __future__ import annotations
@@ -56,9 +59,9 @@ class SelectionResult(NamedTuple):
 @dataclass(frozen=True)
 class AlgorithmSpec:
     """Registry entry.  ``single(obj, k, key, **opts)`` returns the native
-    result; ``distributed`` is the sharded twin (``None`` in the port so
-    far); ``needs_key`` marks randomized algorithms; ``cost(n, k)``
-    returns ``{"oracle_calls", "adaptive_rounds"}``."""
+    result; ``distributed(obj, k, key, mesh, **opts)`` is the sharded
+    twin (or ``None``); ``needs_key`` marks randomized algorithms;
+    ``cost(n, k)`` returns ``{"oracle_calls", "adaptive_rounds"}``."""
 
     name: str
     single: Callable[..., Any]
@@ -133,24 +136,57 @@ def _prepare(algo, obj, k, opts, device):
     return spec, k, obj
 
 
+def _validate_mesh(obj, mesh, algo: str) -> None:
+    """Mesh dispatch preconditions, checked before any collective: the
+    objective has the ``dist_*`` contract, ``mesh.shape`` is a named-axis
+    mapping, and n divides the model axis."""
+    if not hasattr(obj, "dist_init"):
+        raise ValueError(
+            f"objective {type(obj).__name__} does not implement the "
+            f"DistributedObjective contract (dist_init/...), so "
+            f"select({algo!r}, ..., mesh=...) cannot dispatch the "
+            f"distributed twin")
+    try:
+        axes = dict(mesh.shape)
+    except (AttributeError, TypeError):
+        raise ValueError(
+            f"mesh must expose a named-axis .shape mapping, got "
+            f"{type(mesh).__name__}") from None
+    model = int(axes.get("model", 1) or 1)
+    X = getattr(obj, "X", None)
+    if X is not None and model > 1 and X.shape[1] % model:
+        raise ValueError(
+            f"ground set n={X.shape[1]} does not divide the mesh's model "
+            f"axis ({model}) — pad_ground_set the columns first")
+
+
 def select(algo: str, obj, k: int, key=None, mesh=None, *, device=None,
            **opts) -> SelectionResult:
     """Run any registered selection algorithm — the entry point.
 
     ``key`` seeds the randomized algorithms and defaults to
     ``SeedKey(0)``.  Extra ``**opts`` pass through to the algorithm
-    (``subsample=``, ``opt=``, ``n_guesses=``, …).  ``precision="bf16"``
-    runs every kernel call through the objective's ``with_precision``
-    view.  ``mesh=`` raises: no distributed twin is ported yet.
+    (``subsample=``, ``opt=``, ``n_guesses=``, ``model_axis=`` …).
+    ``precision="bf16"`` runs every kernel call through the objective's
+    ``with_precision`` view.  ``mesh=None`` runs the single-device
+    implementation; a ``Mesh`` dispatches to the distributed twin, which
+    every rank of the mesh calls with the same arguments (SPMD), and
+    ``device`` then defaults to the mesh's.  Raises for an algorithm
+    without a twin, an objective without the ``dist_*`` contract, or an
+    n that does not divide the mesh's model axis.
     """
-    if mesh is not None:
-        raise ValueError(
-            f"select({algo!r}, ..., mesh=...): the port has no distributed "
-            "twins yet (ROADMAP.md item 11, the sharded runtime)")
+    if mesh is not None and device is None:
+        device = getattr(mesh, "device", None)
     spec, k, obj = _prepare(algo, obj, k, opts, device)
     if spec.needs_key and key is None:
         key = SeedKey(0)
-    return _normalize(spec.single(obj, k, key, device=obj.device, **opts))
+    if mesh is None:
+        return _normalize(spec.single(obj, k, key, device=obj.device,
+                                      **opts))
+    if spec.distributed is None:
+        raise ValueError(f"algorithm {algo!r} has no distributed twin")
+    _validate_mesh(obj, mesh, algo)
+    return _normalize(spec.distributed(obj, k, key, mesh, **opts))
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +208,33 @@ def _dash_single(obj, k, key, **opts):
     return dash_auto(obj, k, key, **opts)
 
 
+def _dash_distributed(obj, k, key, mesh, **opts):
+    from repro_torch.core.dash import DashConfig
+    from repro_torch.core.distributed import (
+        dash_auto_distributed,
+        dash_distributed,
+    )
+
+    opt = opts.pop("opt", None)
+    if opt is not None:
+        cfg = DashConfig(k=k, **{kk: opts.pop(kk) for kk in _DASH_CFG_KEYS
+                                 if kk in opts})
+        return dash_distributed(obj, cfg, key, opt, mesh, **opts)
+    if "pod" not in mesh.shape:
+        raise ValueError(
+            "select('dash', ..., mesh=...) without opt= sweeps the (OPT, α) "
+            "guess lattice over the mesh's 'pod' axis — build the mesh with "
+            "make_lattice_mesh, or pass an explicit opt= guess for a "
+            "(data, model) mesh")
+    return dash_auto_distributed(obj, k, key, mesh, **opts)
+
+
+def _dist():
+    from repro_torch.core import distributed
+
+    return distributed
+
+
 def _dash_cost(n: int, k: int) -> dict:
     # Thm 10: O(log n) adaptive rounds, O(n log n) oracle queries.
     r = max(1, min(k, int(math.ceil(math.log2(max(n, 2))))))
@@ -187,7 +250,7 @@ def _adseq_cost(n: int, k: int) -> dict:
 register(AlgorithmSpec(
     name="dash",
     single=_dash_single,
-    distributed=None,
+    distributed=_dash_distributed,
     needs_key=True,
     cost=_dash_cost,
     summary="Alg. 1 adaptive sampling: O(log n) rounds, "
@@ -197,7 +260,8 @@ register(AlgorithmSpec(
 register(AlgorithmSpec(
     name="greedy",
     single=lambda obj, k, key, **o: greedy(obj, k, **o),
-    distributed=None,
+    distributed=lambda obj, k, key, mesh, **o: _dist().greedy_distributed(
+        obj, k, mesh, key=key, **o),
     needs_key=False,
     cost=greedy_parallel_cost,
     summary="parallel SDS_MA: k rounds, batched argmax per round, "
@@ -217,7 +281,8 @@ register(AlgorithmSpec(
 register(AlgorithmSpec(
     name="stochastic_greedy",
     single=lambda obj, k, key, **o: stochastic_greedy(obj, k, key, **o),
-    distributed=None,
+    distributed=lambda obj, k, key, mesh, **o:
+        _dist().stochastic_greedy_distributed(obj, k, key, mesh, **o),
     needs_key=True,
     cost=stochastic_greedy_cost,
     summary="Mirzasoleiman subsampled argmax: k rounds of "
@@ -227,7 +292,8 @@ register(AlgorithmSpec(
 register(AlgorithmSpec(
     name="topk",
     single=lambda obj, k, key, **o: top_k_select(obj, k, **o),
-    distributed=None,
+    distributed=lambda obj, k, key, mesh, **o: _dist().top_k_distributed(
+        obj, k, mesh, key=key, **o),
     needs_key=False,
     cost=lambda n, k: {"oracle_calls": n, "adaptive_rounds": 1},
     summary="largest k singleton values in one sweep; γ²-approximation "
@@ -237,7 +303,8 @@ register(AlgorithmSpec(
 register(AlgorithmSpec(
     name="fast",
     single=lambda obj, k, key, **o: fast(obj, k, key, **o),
-    distributed=None,
+    distributed=lambda obj, k, key, mesh, **o: _dist().fast_distributed(
+        obj, k, key, mesh, **o),
     needs_key=True,
     cost=fast_cost,
     summary="Breuer et al. FAST: adaptive sequencing + binary-search "
@@ -258,7 +325,8 @@ register(AlgorithmSpec(
 register(AlgorithmSpec(
     name="random",
     single=lambda obj, k, key, **o: random_select(obj, k, key, **o),
-    distributed=None,
+    distributed=lambda obj, k, key, mesh, **o: _dist().random_distributed(
+        obj, k, key, mesh, **o),
     needs_key=True,
     cost=lambda n, k: {"oracle_calls": 1, "adaptive_rounds": 1},
     summary="uniform without-replacement sample (Gumbel top-k) — the "

@@ -15,7 +15,7 @@ Lemma-21 iteration cap.  ``dash_auto(guess_mode="loop")`` runs the guesses
 one after another instead.  ``dash_checkpointed`` steps one lane round
 by round from the host, with a snapshot of the carry at every round
 boundary (``core.selection_loop``'s resilience half).  The sharded
-lattice waits for the sharded runtime (ROADMAP item 11).
+runtime (``core/distributed.py``) runs the same loop on a mesh.
 """
 
 from __future__ import annotations
@@ -188,8 +188,8 @@ def dash_checkpointed(obj, cfg: DashConfig, key, opt, *,
     the carry is what is saved.  A snapshot needs ``SeedKey`` keys.
     ``failure_injector.check(rho)`` runs before each round; an expired
     ``deadline`` raises ``SelectionDeadlineExceeded``.  One device has
-    no responders to lose, so there is no straggler mask (the sharded
-    runtime, ROADMAP item 11).  ``device=None`` means the card.
+    no responders to lose, so the round ignores the straggler mask
+    (``core/distributed.py`` reads it).  ``device=None`` means the card.
     """
     check_device(obj, device)
     if precision is not None:
@@ -209,7 +209,7 @@ def dash_checkpointed(obj, cfg: DashConfig, key, opt, *,
             carry, start_round = restored
 
     carry = drive_checkpointed_rounds(
-        lambda rho, c: body(rho, c, opt_v, alpha_v),
+        lambda rho, c, arrived: body(rho, c, opt_v, alpha_v),
         carry, cfg, resilience=resilience, start_round=start_round,
         failure_injector=failure_injector, deadline=deadline,
         snapshot_extra={"algo": "dash", "n": int(obj.n)},

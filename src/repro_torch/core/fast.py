@@ -103,6 +103,17 @@ def sequence_prefix_gains(obj, state, seq_idx, slot_ok, *, engine: bool):
     return G, marg
 
 
+def ladder_commit(slot_ok, marg, t, eps: float):
+    """A round's decision: the length of the leading run of sequence
+    elements that cleared t at their own insertion point (``marg``
+    (L,)), and the next threshold — a round that commits nothing (the
+    threshold outran the pool) steps down, t ← (1 − ε)·t."""
+    clear = slot_ok & (q_cmp(marg) >= q_cmp(t))
+    c_len = torch.sum(torch.cumprod(clear.to(torch.int32), 0))
+    c_len = c_len.to(torch.int32)
+    return c_len, torch.where(c_len > 0, t, (1.0 - eps) * t)
+
+
 def _fast_core(obj, k: int, eps: float, r_max: int, engine: bool):
     """The single-guess FAST run: ``run(key, opt) -> FastResult``."""
     n, dev = obj.n, obj.device
@@ -133,15 +144,9 @@ def _fast_core(obj, k: int, eps: float, r_max: int, engine: bool):
             slot_ok = seq_valid & (ar < allowed)
             G, marg = sequence_prefix_gains(obj, state, seq_idx, slot_ok,
                                             engine=engine)
-            # The leading run of elements that cleared t at their own
-            # insertion point.
-            clear = slot_ok & (q_cmp(marg) >= q_cmp(t))
-            c_len = torch.sum(torch.cumprod(clear.to(torch.int32), 0))
-            c_len = c_len.to(torch.int32)
+            c_len, t = ladder_commit(slot_ok, marg, t, eps)
             state = obj.add_set(state, seq_idx[None], (ar < c_len)[None])
             count = count + c_len
-            # An empty round: the threshold outran the pool, step down.
-            t = torch.where(c_len > 0, t, (1.0 - eps) * t)
             g_c = G[c_len.long()]
             alive = (q_cmp(g_c) >= q_cmp(t)) & ~state.sel_mask[0]
             values[rho] = obj.value(state)[0]

@@ -14,7 +14,8 @@ Ports the single-device half of ``repro/core/greedy.py``:
                         ``gains_subset`` call.
 ``*_cost``            — adaptivity and oracle-query accounting.
 
-The distributed twins wait for the sharded slice.
+The distributed twins are ``core/distributed.py``'s
+``greedy_distributed`` and ``stochastic_greedy_distributed``.
 """
 
 from __future__ import annotations

@@ -25,8 +25,13 @@ defaults to its jnp references (``use_kernel=False``).  The Cholesky
 factorizations, triangular solves and Woodbury factors stay
 ``torch.linalg`` and ``torch.matmul``, batched over lanes, because the
 reference computes them outside any Pallas kernel; they keep its
-formulas so the two agree.  The ``dist_*`` contract waits for the
-sharded slice.
+formulas so the two agree.
+
+The ``dist_*`` methods are the sharded runtime's column-based contract
+(``base.DistributedObjective``): M and its factor L are the same on
+every rank, the shared solve W = M⁻¹X_local is the shard's (refreshed
+once per ``dist_add_set``), and the sweeps run kernel 4 and kernel 5
+(on the Woodbury factors of the gathered columns) on the shard.
 """
 
 from __future__ import annotations
@@ -53,6 +58,14 @@ class AOptState(NamedTuple):
     W: torch.Tensor          # (G, d, n) cached shared solve M⁻¹X
     sel_mask: torch.Tensor   # (G, n) bool
     value: torch.Tensor      # (G,) f32
+
+
+class AOptDistState(NamedTuple):
+    """The sharded runtime's state: M and L replicated, W the shard's."""
+
+    M: torch.Tensor          # (G, d, d) posterior precision — replicated
+    L: torch.Tensor          # (G, d, d) chol(M) — replicated
+    W: torch.Tensor          # (G, d, n_local) M⁻¹X_local — the shard's
 
 
 def _solve_lower(L, B):
@@ -161,12 +174,10 @@ class AOptimalityObjective:
         return self.isig2 * torch.sum(Z * Z, dim=(-2, -1))
 
     def set_gain(self, state: AOptState, idx, mask):
-        """f_S(R) per lane for idx/mask (G, *B, m); returns (G, *B)."""
-        lanes, batch, m = idx.shape[0], idx.shape[1:-1], idx.shape[-1]
-        idx3 = idx.reshape(lanes, -1, m)
-        mask3 = mask.reshape(lanes, -1, m)
-        C = gather_columns(self.X, idx3, mask3)            # (G, S, d, m)
-        return self._set_gain_cols(state.L, C, mask3).reshape(lanes, *batch)
+        """f_S(R) per lane for idx/mask (G, *B, m); returns (G, *B): the
+        column contract's ``dist_set_gain`` on the gathered columns."""
+        return self.dist_set_gain(state, gather_columns(self.X, idx, mask),
+                                  mask)
 
     def add_set(self, state: AOptState, idx, mask) -> AOptState:
         """State for S ∪ R per lane; idx/mask (G, m).  Re-adding a
@@ -231,6 +242,48 @@ class AOptimalityObjective:
         sel = mark_selected(state.sel_mask[:, None, :].repeat(1, s, 1),
                             idx, mask)
         return torch.where(sel, torch.zeros_like(g), g)
+
+    # -- distributed contract (column-based; see DistributedObjective) ----
+    def dist_init(self, X_local, lanes: int = 1) -> AOptDistState:
+        eye = self._eye(self.d)
+        return AOptDistState(
+            M=(self.beta2 * eye).repeat(lanes, 1, 1),
+            L=(math.sqrt(self.beta2) * eye).repeat(lanes, 1, 1),
+            W=(X_local / self.beta2).repeat(lanes, 1, 1),
+        )
+
+    def dist_value(self, ds: AOptDistState):
+        return self.tr_prior - self._trace_inv(ds.L)
+
+    def dist_gains(self, ds: AOptDistState, X_local):
+        """(G, n_local): kernel 4 on the shard."""
+        return aopt_gains(X_local, ds.W, self.isig2, precision=self.precision)
+
+    def dist_set_gain(self, ds, C, mask):
+        """Woodbury f_S(R) for gathered columns C (G, *B, d, m); returns
+        (G, *B).  Reads only ``L``, which both state types carry."""
+        lanes, batch, m = C.shape[0], C.shape[1:-2], C.shape[-1]
+        C = C.reshape(lanes, -1, self.d, m)
+        val = self._set_gain_cols(ds.L, C, mask.reshape(lanes, -1, m))
+        return val.reshape(lanes, *batch)
+
+    def dist_add_set(self, ds: AOptDistState, C, mask, X_local):
+        """C (G, d, m), mask (G, m); refreshes the shard's W."""
+        C = C * mask.to(C.dtype)[:, None, :]
+        M = ds.M + self.isig2 * (C @ C.mT)
+        L = self._chol(M)
+        lanes, n_local = C.shape[0], X_local.shape[1]
+        W = self._minv(L, X_local.expand(lanes, self.d, n_local))
+        return AOptDistState(M=M, L=L, W=W.contiguous())
+
+    def dist_filter_gains_batch(self, ds: AOptDistState, Cs, masks, X_local):
+        """Cs (G, S, d, b), masks (G, S, b) → (G, S, n_local): kernel 5
+        on the shard, with the factors of M_{S∪R_i}⁻¹ = M⁻¹ − E Eᵀ."""
+        Cs = Cs * masks.to(Cs.dtype)[..., None, :]
+        E, F = self._woodbury_factors(Cs, self._minv_cols(ds.L, Cs))
+        return aopt_filter_gains(X_local, ds.W, E.contiguous(),
+                                 F.contiguous(), self.isig2,
+                                 precision=self.precision)
 
     # -- exact reference (tests) ------------------------------------------
     def brute_value(self, sel_idx):

@@ -13,7 +13,10 @@ State conventions: ``state`` is a NamedTuple with at least
 
 Set arguments are ``(idx, mask)``: int64 index tensors padded
 arbitrarily and bool masks marking the real entries, with the lane axis
-leading.  The sharded ``dist_*`` contract waits for the sharded slice.
+leading.  The sharded runtime (``core/distributed.py``) reads the
+column-based ``dist_*`` contract of :class:`DistributedObjective`,
+lane-batched the same way: it gathers each sampled set's columns across
+the ranks and hands the objective the columns themselves.
 """
 
 from __future__ import annotations
@@ -73,14 +76,63 @@ class SupportsFilterEngine(Objective, Protocol):
         """(G, m, n) gains w.r.t. S ∪ R_i for each sampled R_i."""
 
 
-def resolve_engine(obj) -> bool:
+class DistributedObjective(Objective, Protocol):
+    """Column-based oracle bundle for the sharded runtime.
+
+    Implemented by ``RegressionObjective`` (and ``R2Objective``),
+    ``AOptimalityObjective`` (and ``CoresetObjective``) and
+    ``ClassificationObjective``; consumed by ``core/distributed.py``.
+    ``dstate`` is a NamedTuple of lane-batched tensors, the same on every
+    rank of the ``model`` axis except for its shard-local caches (the
+    column norms, the A-optimal shared solve W = M⁻¹X_local), whose last
+    axis is the shard's column axis; it carries no ``sel_mask``.  ``C`` is
+    (G, *B, d, m) of sampled columns gathered from every shard, invalid
+    slots zeroed; ``mask`` (G, *B, m) marks the valid slots.
+
+    The methods issue no collective and read neither ``self.X`` nor any
+    other (n,)-shaped global: only ``X_local`` (d, n_local), which must
+    be contiguous (the kernel wrappers raise otherwise), and (d,)-shaped
+    data.
+    """
+
+    X: torch.Tensor  # (d, n) ground-set columns — sharded BY THE RUNNER
+
+    def dist_init(self, X_local, lanes: int = 1):
+        """State for S = ∅ on ``lanes`` lanes (plus shard-local caches)."""
+
+    def dist_value(self, dstate) -> torch.Tensor:
+        """(G,) f(S) from the replicated state."""
+
+    def dist_gains(self, dstate, X_local) -> torch.Tensor:
+        """(G, n_local) singleton marginals of this shard's candidates,
+        through the kernel wrappers (the kernel on the card)."""
+
+    def dist_set_gain(self, dstate, C, mask) -> torch.Tensor:
+        """(G, *B) f_S(R) for the gathered sample columns."""
+
+    def dist_add_set(self, dstate, C, mask, X_local):
+        """State for S ∪ R; C (G, d, m), mask (G, m) (the accept and
+        capacity rules of ``add_set``; zero columns — padding — are
+        never accepted)."""
+
+    def dist_filter_gains_batch(self, dstate, Cs, masks,
+                                X_local) -> torch.Tensor:
+        """(G, S, n_local) gains w.r.t. S ∪ R_i for this shard — the
+        filter engine, one kernel call for every lane and sample;
+        Cs (G, S, d, m), masks (G, S, m)."""
+
+
+def resolve_engine(obj, *, dist: bool = False) -> bool:
     """Whether DASH's filter statistic, FAST's prefix sweep and adaptive
-    sequencing go through ``filter_gains_batch``: the objective's
+    sequencing go through the filter engine: the objective's
     ``use_filter_engine`` flag (False where it has none), and the
-    objective must have the method.  Otherwise they take the per-sample
-    path, one ``gains(add_set(...))`` a sample or prefix."""
+    objective must have the engine method — ``filter_gains_batch``, or
+    ``dist_filter_gains_batch`` for the sharded runtime (``dist``).
+    Otherwise they take the per-sample path, one ``gains(add_set(...))``
+    a sample or prefix."""
+    method = "dist_filter_gains_batch" if dist else "filter_gains_batch"
     return (bool(getattr(obj, "use_filter_engine", False))
-            and hasattr(obj, "filter_gains_batch"))
+            and hasattr(obj, method))
 
 
 def with_precision(obj, precision: str | None):
@@ -108,6 +160,18 @@ def normalize_columns(X: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     X = X - torch.mean(X, dim=0, keepdim=True)
     nrm = torch.sqrt(torch.sum(X * X, dim=0, keepdim=True))
     return X / torch.clamp(nrm, min=eps)
+
+
+def one_hot_columns(idx: torch.Tensor, mask: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """(*B, n, m) selection matrices E with E[idx[j], j] = mask[j], for
+    idx and mask of shape (*B, m): ``X @ E`` gathers the padded set's
+    columns as a product."""
+    m = idx.shape[-1]
+    e = torch.zeros((*idx.shape[:-1], n, m), dtype=torch.float32,
+                    device=idx.device)
+    return e.scatter_(-2, idx.unsqueeze(-2),
+                      mask.to(torch.float32).unsqueeze(-2))
 
 
 def gather_columns(X: torch.Tensor, idx: torch.Tensor,

@@ -27,7 +27,12 @@ defaults to its jnp references (``use_kernel=False``).  The IRLS refit
 step) stays ``torch.matmul`` and ``torch.linalg``, as the reference
 computes it outside any Pallas kernel; it keeps the reference's formulas
 and issues no host sync (``cholesky_ex``; the step cap is a tensor op).
-The ``dist_*`` contract waits for the sharded slice.
+
+The ``dist_*`` methods are the sharded runtime's column-based contract
+(``base.DistributedObjective``): the support stores its gathered columns
+themselves (global indices mean nothing on a shard), the same on every
+rank, so every refit is shard-independent; the sweeps run kernel 6 and
+kernel 7 (on the refit logits) on the shard's columns.
 """
 
 from __future__ import annotations
@@ -62,6 +67,15 @@ class ClassificationState(NamedTuple):
     eta: torch.Tensor        # (G, d) current logits X_S w
     sel_mask: torch.Tensor   # (G, n) bool
     value: torch.Tensor      # (G,) f32 — ℓ(w^S) − ℓ(0)
+
+
+class ClassificationDistState(NamedTuple):
+    """The sharded runtime's support state, the same on every rank."""
+
+    sup_cols: torch.Tensor   # (G, d, kcap) support columns, zero-padded
+    sup_k: torch.Tensor      # (G, kcap) bool — live support slots
+    w: torch.Tensor          # (G, kcap) f32 — weights on the support
+    eta: torch.Tensor        # (G, d) current logits X_S w
 
 
 class ClassificationObjective:
@@ -212,9 +226,16 @@ class ClassificationObjective:
         cols = gather_columns(self.X, sup_idx, sup_mask)
         w0 = torch.cat([state.w[:, None].expand(-1, idx3.shape[1], -1),
                         torch.zeros(new.shape, device=self.device)], dim=-1)
+        gain = self._support_gain(cols, sup_mask, w0,
+                                  state.value + self.ll0)
+        return gain.reshape(lanes, *batch)
+
+    def _support_gain(self, cols, sup_mask, w0, ll_s):
+        """max(ℓ(S ∪ R) − ℓ(S), 0) from the refit on the padded supports
+        (G, S, d, ·) of ``set_gain`` and ``dist_set_gain``; ``ll_s``
+        (G,) is each lane's ℓ(S)."""
         _, _, ll = self._refit(cols, sup_mask, w0, self.newton_steps)
-        gain = ll - (state.value + self.ll0)[:, None]
-        return torch.clamp(gain, min=0.0).reshape(lanes, *batch)
+        return torch.clamp(ll - ll_s[:, None], min=0.0)
 
     def _accept(self, state, new):
         """The accept rule of ``add_set`` in cumsum form: dedup against S
@@ -288,6 +309,99 @@ class ClassificationObjective:
         sel = mark_selected(state.sel_mask[:, None, :].repeat(1, s, 1),
                             idx, mask)
         return torch.where(sel, torch.zeros_like(g), g)
+
+    # -- distributed contract (column-based; see DistributedObjective) ----
+    def dist_init(self, X_local, lanes: int = 1) -> ClassificationDistState:
+        dev = self.device
+        return ClassificationDistState(
+            sup_cols=torch.zeros((lanes, self.d, self.kmax), device=dev),
+            sup_k=torch.zeros((lanes, self.kmax), dtype=torch.bool,
+                              device=dev),
+            w=torch.zeros((lanes, self.kmax), device=dev),
+            eta=torch.zeros((lanes, self.d), device=dev),
+        )
+
+    def dist_value(self, ds: ClassificationDistState):
+        return _loglik(ds.eta, self.y) - self.ll0
+
+    def dist_gains(self, ds: ClassificationDistState, X_local):
+        """(G, n_local): kernel 6 on the shard (or the quadratic proxy)."""
+        if self.gain_mode == "quadratic":
+            return self._quadratic_gains(ds.eta, X_local)
+        return logistic_gains(X_local, self.y, ds.eta,
+                              steps=self.newton_gain_steps,
+                              precision=self.precision)
+
+    def _dist_union(self, ds, C, take):
+        """Supports S ∪ R from gathered columns C (G, S, d, m) and their
+        accepted slots ``take`` (G, S, m): columns, mask and warm start
+        (G, S, ·, kcap + m), S's slots first."""
+        g, s = C.shape[:2]
+        sup_cols = torch.cat([ds.sup_cols[:, None].expand(g, s, -1, -1),
+                              C * take.to(C.dtype).unsqueeze(-2)], dim=-1)
+        sup_mask = torch.cat([ds.sup_k[:, None].expand(g, s, -1), take],
+                             dim=-1)
+        w_s = (ds.w * ds.sup_k)[:, None].expand(g, s, -1)
+        w0 = torch.cat([w_s, torch.zeros(take.shape, device=self.device)],
+                       dim=-1)
+        return sup_cols, sup_mask, w0
+
+    def dist_set_gain(self, ds: ClassificationDistState, C, mask):
+        """f_S(R) for gathered columns C (G, *B, d, m); returns (G, *B).
+        No capacity cut: the support is kcap + m slots."""
+        lanes, batch, m = C.shape[0], C.shape[1:-2], C.shape[-1]
+        C = C.reshape(lanes, -1, self.d, m)
+        mask = mask.reshape(lanes, -1, m)
+        take = mask & (torch.sum(C * C, dim=-2) > 0)
+        gain = self._support_gain(*self._dist_union(ds, C, take),
+                                  _loglik(ds.eta, self.y))
+        return gain.reshape(lanes, *batch)
+
+    def dist_add_set(self, ds: ClassificationDistState, C, mask, X_local):
+        """C (G, d, m), mask (G, m).  Accepted columns append to the
+        support in slot order; zero (padding) columns are never accepted
+        and elements past kmax are dropped (the reference's slot loop)."""
+        take = mask & (torch.sum(C * C, dim=-2) > 0)
+        cnt0 = torch.sum(ds.sup_k.to(torch.int64), dim=-1)
+        order = torch.cumsum(take.to(torch.int64), dim=-1)
+        take = take & (cnt0[:, None] + order <= self.kmax)
+        # Rejected columns write to a spare slot that is dropped.
+        slot = torch.where(take, cnt0[:, None] + order - 1,
+                           torch.full_like(order, self.kmax))
+        g = C.shape[0]
+        spare = torch.zeros((g, self.d, 1), device=self.device)
+        sup_cols = torch.cat([ds.sup_cols, spare], dim=-1).scatter(
+            2, slot[:, None, :].expand(-1, self.d, -1),
+            C)[..., :self.kmax]
+        sup_k = torch.cat([ds.sup_k, spare[:, 0].bool()], dim=1).scatter(
+            1, slot, take)[:, :self.kmax] | ds.sup_k
+        w, eta, _ = self._refit(sup_cols, sup_k, ds.w * ds.sup_k,
+                                self.newton_steps + 2)
+        return ClassificationDistState(sup_cols=sup_cols, sup_k=sup_k, w=w,
+                                       eta=eta)
+
+    def _dist_expand_logits(self, ds: ClassificationDistState, Cs, masks):
+        """Refit logits for every S_g ∪ R_gi from gathered columns (the
+        accept rule and step count of ``dist_add_set``, uncommitted);
+        Cs (G, S, d, m) → (G, S, d)."""
+        new = masks & (torch.sum(Cs * Cs, dim=-2) > 0)
+        cnt0 = torch.sum(ds.sup_k.to(torch.int64), dim=-1)
+        order = torch.cumsum(new.to(torch.int64), dim=-1)
+        take = new & (cnt0[:, None, None] + order <= self.kmax)
+        _, eta, _ = self._refit(*self._dist_union(ds, Cs, take),
+                                self.newton_steps + 2)
+        return eta
+
+    def dist_filter_gains_batch(self, ds: ClassificationDistState, Cs,
+                                masks, X_local):
+        """Cs (G, S, d, m), masks (G, S, m) → (G, S, n_local): kernel 7
+        on the shard, at every sample's refit logits."""
+        etas = self._dist_expand_logits(ds, Cs, masks)
+        if self.gain_mode == "quadratic":
+            return self._quadratic_gains(etas, X_local)
+        return logistic_filter_gains(X_local, self.y, etas.contiguous(),
+                                     steps=self.newton_gain_steps,
+                                     precision=self.precision)
 
     # -- exact reference (tests) ------------------------------------------
     def brute_value(self, sel_idx, steps: int = 60):

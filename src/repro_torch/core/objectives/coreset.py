@@ -12,8 +12,8 @@ preparation and the real-vs-padded bookkeeping.
 
 ``coreset_features`` runs the port's dense decoder: on the card the
 backbone's attention goes through the flash-attention kernel, as in
-``Model.prefill``.  The sharded ``dist_*`` contract waits for ROADMAP
-item 11.
+``Model.prefill``.  The sharded runtime's ``dist_*`` contract is
+``AOptimalityObjective``'s, inherited.
 """
 
 from __future__ import annotations

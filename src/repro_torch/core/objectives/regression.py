@@ -16,6 +16,11 @@ hand-written kernels whenever the objective lives on the card — unlike
 the JAX reference, whose objective defaults to its jnp references.  The
 small products of MGS and the batched Cholesky stay ``torch.matmul`` and
 ``torch.linalg``, as the reference leaves them to XLA.
+
+The ``dist_*`` methods are the sharded runtime's column-based contract
+(``base.DistributedObjective``): the basis, its count and the residual
+are the same on every rank, the column norms are the shard's, and the
+sweeps run kernels 1 and 3 on the shard's columns.
 """
 
 from __future__ import annotations
@@ -45,6 +50,16 @@ class RegressionState(NamedTuple):
     resid: torch.Tensor      # (G, d) residual y − QQᵀy
     sel_mask: torch.Tensor   # (G, n) bool
     value: torch.Tensor      # (G,) f32 — normalized f(S)
+
+
+class RegressionDistState(NamedTuple):
+    """The sharded runtime's state: no ``sel_mask`` (the runner keeps the
+    shard's), ``col_sq`` the shard's column norms."""
+
+    Q: torch.Tensor          # (G, d, kcap) orthonormal basis — replicated
+    count: torch.Tensor      # (G,) int32 — replicated
+    resid: torch.Tensor      # (G, d) — replicated
+    col_sq: torch.Tensor     # (n_local,) — the shard's
 
 
 def _project_shared(Q, V):
@@ -192,29 +207,10 @@ class RegressionObjective:
         return torch.where(sel, torch.zeros_like(g), g)
 
     def set_gain(self, state: RegressionState, idx, mask):
-        """f_S(R) per lane for idx/mask (G, *B, m); returns (G, *B)."""
-        lanes, batch, m = idx.shape[0], idx.shape[1:-1], idx.shape[-1]
-        idx3 = idx.reshape(lanes, -1, m)
-        mask3 = mask.reshape(lanes, -1, m)
-        s = idx3.shape[1]
-        C = gather_columns(self.X, idx3, mask3)            # (G, S, d, m)
-        Cm = C.permute(0, 2, 1, 3).reshape(lanes, self.d, s * m)
-        P = state.Q @ (state.Q.transpose(-1, -2) @ Cm)     # project on span(Q)
-        Ct = C - P.reshape(lanes, self.d, s, m).permute(0, 2, 1, 3)
-        G = Ct.transpose(-1, -2) @ Ct                      # (G, S, m, m)
-        # Padded/in-span columns: pin the diagonal so Cholesky stays PD.
-        diag_fix = torch.where(
-            mask3, self.jitter * torch.clamp(self.col_sq[idx3], min=1.0),
-            torch.ones_like(mask3, dtype=torch.float32))
-        G = G + torch.diag_embed(diag_fix)
-        b = (Ct.transpose(-1, -2) @ state.resid[:, None, :, None])[..., 0]
-        b = b * mask3
-        L, info = torch.linalg.cholesky_ex(G)
-        z = torch.linalg.solve_triangular(L, b[..., None], upper=False)[..., 0]
-        val = torch.sum(z * z, dim=-1) / self.ysq
-        # A failed factorization gives NaN, as jnp.linalg.cholesky does.
-        val = torch.where(info == 0, val, torch.full_like(val, torch.nan))
-        return val.reshape(lanes, *batch)
+        """f_S(R) per lane for idx/mask (G, *B, m); returns (G, *B): the
+        column contract's ``dist_set_gain`` on the gathered columns."""
+        return self.dist_set_gain(state, gather_columns(self.X, idx, mask),
+                                  mask)
 
     def add_set(self, state: RegressionState, idx, mask) -> RegressionState:
         """State for S ∪ R per lane; idx/mask (G, m)."""
@@ -250,3 +246,64 @@ class RegressionObjective:
         sel = mark_selected(state.sel_mask[:, None, :].repeat(1, s, 1),
                             idx, mask)
         return torch.where(sel, torch.zeros_like(g), g)
+
+    # -- distributed contract (column-based; see DistributedObjective) ----
+    def dist_init(self, X_local, lanes: int = 1) -> RegressionDistState:
+        return RegressionDistState(
+            Q=torch.zeros((lanes, self.d, self.kmax), device=self.device),
+            count=torch.zeros((lanes,), dtype=torch.int32,
+                              device=self.device),
+            resid=self.y.repeat(lanes, 1),
+            col_sq=torch.sum(X_local * X_local, dim=0),
+        )
+
+    def dist_value(self, ds: RegressionDistState):
+        return (self.ysq - torch.sum(ds.resid * ds.resid, dim=-1)) / self.ysq
+
+    def dist_gains(self, ds: RegressionDistState, X_local):
+        """(G, n_local): kernel 1 on the shard."""
+        return regression_gains(X_local, ds.Q, ds.resid, ds.col_sq,
+                                precision=self.precision) / self.ysq
+
+    def dist_set_gain(self, ds, C, mask):
+        """f_S(R) for gathered columns C (G, *B, d, m); returns (G, *B).
+        Reads only ``Q`` and ``resid``, which both state types carry."""
+        lanes, batch, m = C.shape[0], C.shape[1:-2], C.shape[-1]
+        C = C.reshape(lanes, -1, self.d, m)
+        mask = mask.reshape(lanes, -1, m)
+        s = C.shape[1]
+        Cm = C.permute(0, 2, 1, 3).reshape(lanes, self.d, s * m)
+        P = ds.Q @ (ds.Q.transpose(-1, -2) @ Cm)
+        Ct = C - P.reshape(lanes, self.d, s, m).permute(0, 2, 1, 3)
+        csq = torch.sum(C * C, dim=-2)
+        G = Ct.transpose(-1, -2) @ Ct
+        # Padded/in-span columns: pin the diagonal so Cholesky stays PD.
+        diag_fix = torch.where(mask & (csq > 0),
+                               self.jitter * torch.clamp(csq, min=1.0),
+                               torch.ones_like(csq))
+        G = G + torch.diag_embed(diag_fix)
+        b = (Ct.transpose(-1, -2) @ ds.resid[:, None, :, None])[..., 0]
+        b = b * mask
+        L, info = torch.linalg.cholesky_ex(G)
+        z = torch.linalg.solve_triangular(L, b[..., None], upper=False)[..., 0]
+        val = torch.sum(z * z, dim=-1) / self.ysq
+        # A failed factorization gives NaN, as jnp.linalg.cholesky does.
+        val = torch.where(info == 0, val, torch.full_like(val, torch.nan))
+        return val.reshape(lanes, *batch)
+
+    def dist_add_set(self, ds: RegressionDistState, C, mask, X_local):
+        """C (G, d, m), mask (G, m)."""
+        C = C * mask.to(C.dtype)[:, None, :]
+        Q, count, resid = mgs_extend(ds.Q, ds.count, ds.resid, C, self.kmax,
+                                     self.span_tol)
+        return ds._replace(Q=Q, count=count, resid=resid)
+
+    def dist_filter_gains_batch(self, ds: RegressionDistState, Cs, masks,
+                                X_local):
+        """Cs (G, S, d, m), masks (G, S, m) → (G, S, n_local): kernel 3 on
+        the shard."""
+        Cs = Cs * masks.to(Cs.dtype)[..., None, :]
+        D, R = mgs_expand(ds.Q, ds.count, ds.resid, Cs, self.kmax,
+                          self.span_tol)
+        return filter_gains(X_local, ds.Q, D, R, ds.col_sq,
+                            precision=self.precision) / self.ysq

@@ -214,21 +214,45 @@ def run_selection_rounds(hooks: SelectionHooks, cfg: DashConfig, opt, keys,
 
 @dataclass(frozen=True)
 class ResilienceConfig:
-    """How a selection run snapshots and resumes.
+    """How a selection run snapshots, resumes and rides out stragglers.
 
-    With ``ckpt_dir`` set, the host-stepped driver saves the
+    With ``ckpt_dir`` set, the host-stepped drivers save the
     :class:`SelectionCarry` through ``ckpt/checkpoint.py`` every
     ``every`` completed rounds (atomic rename; ``async_save`` hands the
     write to a thread so the device keeps stepping), pruning to the
-    ``keep_last`` newest complete snapshots.  The straggler fields of
-    the reference's config (a simulated responder mask and its robust
-    reduction) are read only by the sharded runtime, ROADMAP item 11.
+    ``keep_last`` newest complete snapshots.
+
+    Straggler simulation: ``drop_rate > 0`` makes each round's
+    Monte-Carlo replicas miss the deadline independently with that
+    probability (``runtime/straggler.py::simulate_arrivals``, a pure
+    function of ``(straggler_seed, round)``, so an interrupted and a
+    resumed run see the same arrivals; at least ``min_arrived`` arrive).
+    ``policy`` (a ``StragglerPolicy``; the default one when None) sets
+    the robust reduction of an incomplete round.  Only the sharded
+    runtime (``core/distributed.py``) reads the responder mask: one
+    device has no responders to lose, so ``dash_checkpointed`` ignores
+    it, as in the reference.
     """
 
     ckpt_dir: str | None = None
     every: int = 1
     keep_last: int = 3
     async_save: bool = True
+    drop_rate: float = 0.0
+    straggler_seed: int = 0
+    min_arrived: int = 1
+    policy: Any = None
+
+    @property
+    def straggler(self) -> bool:
+        return self.drop_rate > 0.0
+
+    def resolved_policy(self):
+        if self.policy is not None:
+            return self.policy
+        from repro_torch.runtime.straggler import StragglerPolicy
+
+        return StragglerPolicy()
 
 
 class Deadline:
@@ -341,8 +365,21 @@ def restore_carry(ckpt_dir: str, like: SelectionCarry, *, device=None):
     return carry_from_snapshot(snap), rounds
 
 
+def round_arrivals(resilience: ResilienceConfig | None, cfg: DashConfig,
+                   rho: int) -> np.ndarray:
+    """The round's (n_samples,) responder mask — all ones unless the
+    resilience config simulates deadline misses.  Pure in (config, ρ)."""
+    if resilience is not None and resilience.straggler:
+        from repro_torch.runtime.straggler import simulate_arrivals
+
+        return simulate_arrivals(
+            resilience.straggler_seed, rho, cfg.n_samples,
+            resilience.drop_rate, min_arrived=resilience.min_arrived)
+    return np.ones((cfg.n_samples,), bool)
+
+
 def drive_checkpointed_rounds(
-    step_fn: Callable[[int, SelectionCarry], SelectionCarry],
+    step_fn: Callable[[int, SelectionCarry, np.ndarray], SelectionCarry],
     carry: SelectionCarry,
     cfg: DashConfig,
     *,
@@ -351,17 +388,22 @@ def drive_checkpointed_rounds(
     failure_injector=None,
     snapshot_extra: dict | None = None,
     deadline: Deadline | None = None,
+    snapshot_view: Callable[[SelectionCarry], Any] | None = None,
 ) -> SelectionCarry:
     """Host-driven round loop with snapshots — the resilient twin of
     :func:`run_selection_rounds`.
 
-    ``step_fn(rho, carry)`` is one round (built from
-    :func:`make_round_body`).  ``failure_injector.check(rho)`` runs before
-    each round, so an injected kill loses at most the rounds since the
-    last snapshot.  An expired ``deadline`` raises
+    ``step_fn(rho, carry, arrived)`` is one round (built from
+    :func:`make_round_body`); ``arrived`` is the round's responder mask
+    (:func:`round_arrivals`).  ``failure_injector.check(rho)`` runs
+    before each round, so an injected kill loses at most the rounds
+    since the last snapshot.  An expired ``deadline`` raises
     :class:`SelectionDeadlineExceeded` (with the partial carry) at the
     next round boundary.  With ``resilience.ckpt_dir`` set, a key
     without a snapshot form raises ``TypeError`` before round 0.
+    ``snapshot_view(carry)`` (the sharded runtime's) gives what a save
+    writes, the global view of a sharded carry, or ``None`` on a rank
+    that writes nothing; it is called on every rank at every save.
     """
     ckpt = (RoundCheckpointer(resilience)
             if resilience is not None and resilience.ckpt_dir else None)
@@ -373,9 +415,12 @@ def drive_checkpointed_rounds(
                 raise SelectionDeadlineExceeded(rho, carry)
             if failure_injector is not None:
                 failure_injector.check(rho)
-            carry = step_fn(rho, carry)
+            carry = step_fn(rho, carry, round_arrivals(resilience, cfg, rho))
             if ckpt is not None and (rho + 1) % resilience.every == 0:
-                ckpt.save(rho + 1, carry, extra=snapshot_extra)
+                view = carry if snapshot_view is None else snapshot_view(
+                    carry)
+                if view is not None:
+                    ckpt.save(rho + 1, view, extra=snapshot_extra)
     finally:
         if ckpt is not None:
             # Let an in-flight write land (so that a restore after an

@@ -30,8 +30,13 @@ filter iterations.
 
     PYTHONPATH=src python -m repro_torch.experimental_design --device cpu --d 64 --n 512 --k 16
 
-Not ported yet: the example's distributed DASH over a device mesh (it
-waits for the sharded runtime, ROADMAP item 11).
+:func:`distributed` (``--ranks W``) is the example's first half: the
+distributed DASH, ``core/distributed.py::dash_distributed`` on W
+spawned ranks laid out by ``make_host_mesh`` (data-major), the stimuli
+padded to the model axis's multiple and sharded over it, OPT = 1.05 ×
+greedy's value; padding is never selected.
+
+    PYTHONPATH=src python -m repro_torch.experimental_design --device cpu --ranks 4 --d 64 --n 510 --k 16
 """
 
 from __future__ import annotations
@@ -121,6 +126,52 @@ def diversified(obj, k: int, alpha: float, *, seed: int = 0,
     return out
 
 
+def _distributed_rank(d: int, n: int, k: int, seed: int,
+                      n_samples: int) -> dict:
+    from repro_torch.core import DashConfig
+    from repro_torch.core.distributed import dash_distributed, pad_ground_set
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh()
+    dev = mesh.device
+    X = make_d1_design(seed=seed, n_samples=n, n_features=d)
+    gamma = float(gamma_aopt(torch.as_tensor(X).to(dev), 1.0, 1.0))
+    alpha = max(float(alpha_from_gamma(gamma)), ALPHA_FLOOR)
+    Xp, n_real = pad_ground_set(torch.as_tensor(X), mesh.size("model"))
+    obj = AOptimalityObjective(Xp, kmax=k, device=dev)
+    out = {"mesh": dict(mesh.shape), "alpha": alpha}
+    g = _timed("greedy", lambda: greedy(obj, k, device=dev), dev, out)
+    cfg = DashConfig(k=k, eps=0.25, alpha=alpha, n_samples=n_samples)
+    res = _timed("dash", lambda: dash_distributed(
+        obj, cfg, SeedKey(seed), float(g.value) * 1.05, mesh), dev, out)
+    out.update(greedy_value=float(g.value), dash_value=float(res.value),
+               dash_rounds=int(res.rounds), dash_selected=int(res.sel_count),
+               padding_selected=bool(torch.any(res.sel_mask[n_real:])))
+    return out
+
+
+def distributed(ranks: int = 2, device=None, d: int = 128, n: int = 512,
+                k: int = 32, seed: int = 0, n_samples: int = 8,
+                verbose: bool = True) -> dict:
+    """Distributed DASH on ``ranks`` spawned ranks of the device (the
+    example's first half); returns rank 0's report, which every rank
+    shares."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    dev = resolve_device(device)
+    out = spawn_ranks(_distributed_rank, ranks, (d, n, k, seed, n_samples),
+                      device=dev)[0]
+    if out["padding_selected"]:
+        raise RuntimeError("distributed DASH selected a padding column")
+    if verbose:
+        print(f"greedy:           f_A = {out['greedy_value']:.4f} "
+              f"({k} rounds)")
+        print(f"DASH distributed: f_A = {out['dash_value']:.4f} "
+              f"({out['dash_rounds']} adaptive rounds, mesh {out['mesh']}, "
+              f"|S| = {out['dash_selected']}, α = {out['alpha']:.3f})")
+    return out
+
+
 def main(device=None, d: int = 128, n: int = 512, k: int = 32,
          seed: int = 0, n_guesses: int = 6, n_samples: int = 8,
          verbose: bool = True) -> dict:
@@ -192,5 +243,10 @@ if __name__ == "__main__":
     ap.add_argument("--n", type=int, default=512,
                     help="candidate experiments (columns of X)")
     ap.add_argument("--k", type=int, default=32, help="experiments to pick")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run the distributed DASH on this many ranks")
     a = ap.parse_args()
-    main(device=a.device, d=a.d, n=a.n, k=a.k)
+    if a.ranks:
+        distributed(a.ranks, device=a.device, d=a.d, n=a.n, k=a.k)
+    else:
+        main(device=a.device, d=a.d, n=a.n, k=a.k)

@@ -1,7 +1,11 @@
-"""Single-device resilience of the port: restarts, hedged resumes and
-the straggler simulator (``runtime/elastic.py`` needs a mesh: ROADMAP
-item 11)."""
+"""Resilience of the port: restarts, hedged resumes, the straggler
+simulator and, on a mesh, elastic resharding (``runtime/elastic.py``)."""
 
+from repro_torch.runtime.elastic import (
+    elastic_mesh,
+    gather_tree,
+    reshard_tree,
+)
 from repro_torch.runtime.fault_tolerance import (
     FailureInjector,
     run_with_restart,
@@ -19,6 +23,9 @@ from repro_torch.runtime.straggler import (
 )
 
 __all__ = [
+    "elastic_mesh",
+    "gather_tree",
+    "reshard_tree",
     "run_with_restart",
     "FailureInjector",
     "HedgePolicy",

@@ -12,9 +12,9 @@ return late or stale.  The policy:
     single replica.
 
 ``robust_estimate`` is the reduction for a round whose responder set is
-incomplete; the sharded runtime that applies it is ROADMAP item 11, and
-the single-device ``dash_checkpointed`` ignores the responder mask, as
-in the reference.  The arrival masks are numpy and equal the
+incomplete; the sharded runtime (``core/distributed.py``, with
+``ResilienceConfig.drop_rate > 0``) applies it, and the single-device
+``dash_checkpointed`` ignores the responder mask, as in the reference.  The arrival masks are numpy and equal the
 reference's bit for bit.
 """
 

@@ -158,8 +158,9 @@ def _close(got, want):
 def test_roster_matches_reference():
     assert available_algorithms() == jalg.available_algorithms()
     assert set(available_algorithms()) == set(ROSTER)
-    # no distributed twin is ported yet (ROADMAP item 11)
-    assert available_algorithms(distributed=True) == ()
+    # the same distributed twins (core/distributed.py)
+    assert (available_algorithms(distributed=True)
+            == jalg.available_algorithms(distributed=True))
     for name in ROSTER:
         spec, ref = get_algorithm(name), jalg.get_algorithm(name)
         assert spec.needs_key == ref.needs_key, name
@@ -183,7 +184,7 @@ def test_registry_errors():
     for bad in (0, -3):
         with pytest.raises(ValueError, match="positive integer"):
             select("greedy", tobj, bad, device="cpu")
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="named-axis .shape"):
         select("greedy", tobj, k, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="lazy_greedy"):
         select_batched("lazy_greedy", tobj, k, [SeedKey(0)], device="cpu")

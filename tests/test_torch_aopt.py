@@ -125,6 +125,22 @@ def _genuine(d, n, g, m, b, n_sel=6, sigma2=1.0, seed=0):
 # the kernels' plain versions
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("d,n,g,parts", [(24, 48, 1, 4), (96, 64, 3, 2),
+                                         (33, 1000, 2, 8)])
+def test_aopt_gains_ref_bits_do_not_depend_on_width(d, n, g, parts):
+    """A column's plain-version gain has the same bits in a call over
+    all n columns and in one over a column block of them (the sharded
+    runtime's ties break as on one device)."""
+    X, W, _, _, isig2 = _genuine(d, n, g, 1, 1, sigma2=0.7)
+    X, W = torch.from_numpy(X), torch.from_numpy(W)
+    whole = aopt_gains_ref(X, W, isig2)
+    w = n // parts
+    blocks = torch.cat([aopt_gains_ref(X[:, i * w:(i + 1) * w].contiguous(),
+                                       W[..., i * w:(i + 1) * w].contiguous(),
+                                       isig2) for i in range(parts)], dim=-1)
+    assert torch.equal(blocks, whole)
+
+
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("d,n,g", [(24, 50, 1), (64, 300, 3), (33, 129, 2)])
 def test_aopt_gains_ref_matches(d, n, g, precision):

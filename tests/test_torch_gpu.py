@@ -1304,3 +1304,111 @@ def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q48, k48, v48)
     assert flash_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the sharded runtime on the card (spawned ranks: NCCL at world 1, gloo at
+# world 2, both ranks of world 2 on the one card)
+# ---------------------------------------------------------------------------
+
+SHARDED_AXES = ("pod", "data", "model")
+# The kernel wrappers each objective's sharded DASH launches.
+SHARDED_KERNELS = {
+    "regression": ("regression_gains", "filter_gains"),
+    "aopt": ("aopt_gains", "aopt_filter_gains"),
+    "logistic": ("logistic_gains", "logistic_filter_gains"),
+}
+
+
+def _kernel_wrappers():
+    from repro_torch.kernels.aopt_gains import ops as aopt_ops
+    from repro_torch.kernels.filter_gains import ops as filter_ops
+    from repro_torch.kernels.logistic_gains import ops as logistic_ops
+    from repro_torch.kernels.marginal_gains import ops as marginal_ops
+
+    return {"regression_gains": marginal_ops.regression_gains,
+            "filter_gains": filter_ops.filter_gains,
+            "aopt_gains": aopt_ops.aopt_gains,
+            "aopt_filter_gains": filter_ops.aopt_filter_gains,
+            "logistic_gains": logistic_ops.logistic_gains,
+            "logistic_filter_gains": filter_ops.logistic_filter_gains}
+
+
+def _sharded_dash_rank(name, world):
+    """One rank: DASH through select(..., mesh=) on (pod 1, data 1, model
+    world) at OPT = 1.05 × greedy's value and α = 1, where every
+    objective's first rounds filter (and launch its engine); the result
+    and this rank's launches."""
+    from repro_torch.core import SeedKey, greedy, select
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 1, world), SHARDED_AXES)
+    obj = _slice6_problem(name, mesh.device)
+    opt = float(greedy(obj, 40).value) * 1.05
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = select("dash", obj, 40, SeedKey(0, host=True), mesh=mesh, opt=opt,
+                 alpha=1.0, eps=0.25, n_samples=4)
+    return res.raw, {k: fn.launches for k, fn in wrappers.items()}
+
+
+@pytest.mark.parametrize("name", ["regression", "aopt", "logistic"])
+def test_sharded_dash_world2_matches_world1_on_card(cuda, name):
+    """World 2 (gloo, both ranks on the card, n_local = n/2) selects the
+    set of world 1 (NCCL), with the same value and trace; every rank of
+    world 2 launches the objective's two kernels."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    (one, _), = spawn_ranks(_sharded_dash_rank, 1, (name, 1),
+                            device="cuda", timeout_s=600)
+    two = spawn_ranks(_sharded_dash_rank, 2, (name, 2), device="cuda",
+                      timeout_s=600)
+    for res, launches in two:
+        np.testing.assert_array_equal(res.sel_mask, one.sel_mask)
+        np.testing.assert_allclose(res.trace.values, one.trace.values,
+                                   rtol=1e-5, atol=1e-6)
+        for kernel in SHARDED_KERNELS[name]:
+            assert launches[kernel] > 0, (kernel, launches)
+    assert int(one.sel_count) > 0
+
+
+def _x_local_devices_rank():
+    """World 1 on the card: every oracle call sees X_local on the card,
+    and kernels 1 and 3 launch."""
+    from repro_torch.core import DashConfig, SeedKey
+    from repro_torch.core.distributed import dash_distributed, shard_columns
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    obj = _slice6_problem("regression", mesh.device)
+    seen = {"shard": shard_columns(obj.X, mesh, "model").device.type}
+    for meth in ("dist_gains", "dist_add_set", "dist_filter_gains_batch"):
+        orig = getattr(obj, meth)
+
+        def spy(*a, _orig=orig, _meth=meth):
+            seen.setdefault(_meth, set()).add(a[-1].device.type)
+            return _orig(*a)
+
+        setattr(obj, meth, spy)
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    opt = float(torch.max(obj.gains(obj.init()))) * 12.0
+    dash_distributed(obj, DashConfig(k=40, eps=0.25, alpha=0.6, n_samples=8),
+                     SeedKey(0), opt, mesh)
+    return ({k: sorted(v) if isinstance(v, set) else v
+             for k, v in seen.items()},
+            {k: fn.launches for k, fn in wrappers.items()})
+
+
+def test_cuda_mesh_keeps_x_local_on_the_card(cuda):
+    from repro_torch.launch.mesh import spawn_ranks
+
+    (seen, launches), = spawn_ranks(_x_local_devices_rank, 1, (),
+                                    device="cuda", timeout_s=600)
+    assert seen["shard"] == "cuda"
+    for meth in ("dist_gains", "dist_add_set", "dist_filter_gains_batch"):
+        assert seen[meth] == ["cuda"], (meth, seen)
+    assert launches["regression_gains"] > 0
+    assert launches["filter_gains"] > 0
