@@ -135,6 +135,24 @@ exits nonzero, with no result line) when a check fails:
                round 2) resumed at world 1 = the uninterrupted world-2
                run.  The card's ranks run the small inputs first (they
                warm the process up); the CPU rank runs beside them
+     serve   — slice 8, the selection service: one SelectionServer on
+               the card, tenants the main D1 and the design main, queue
+               caps 8/16/32, the default ServePolicy; load: 4 deadline
+               requests (k = 64, 5 s, the example's seeded latency model:
+               served at topk, degraded), 20 DASH on D1 (4 shed, two
+               8-lane buckets), 8 DASH on the design (pinned at the
+               design main's winning guess), 4 stochastic greedy; one
+               terminal reply each, no FAILED, retry hints, values in
+               range, DASH at least RANDOM, kernels 1, 3 on D1 and 4, 5
+               on the design (counters zeroed per launch); every DASH
+               bucket = select_batched bit for bit; the load under
+               FailureInjector(fail_at=(1,)): hedged sets = the calm
+               run's; lane 0 alone vs its 8-lane bucket under the bits
+               rule; a warm update of 64 columns = a fresh server, no
+               runner built, the OPT probe recomputed; the small D1 and
+               design, card against CPU (host noise); per launch tier,
+               lanes, rounds, attempts, host s; requests/s, reply
+               latency p50/p99, each tier's EWMA, the phase's seconds
  14. timing  — CUDA-event times per call of each kernel, its plain
                version and a library call, beside the kernel's bound
                from its shapes and the H100 SXM peaks (kernel 8 at the lm
@@ -145,7 +163,8 @@ exits nonzero, with no result line) when a check fails:
                prefixes' nonzero columns), beside the MGS deltas of the
                129 prefixes; kernels 4 and 5 at the coreset's shape; the
                six selection kernels at a world-2 shard's shapes
-               ([sharded]: n_local = n / 2 of each main lattice)
+               ([sharded]: n_local = n / 2 of each main lattice; kernels
+               1, 3 and 5 beside their cuBLAS products)
  15. profile — greedy and DASH of the main phase, DASH of the design
                main phase, greedy and DASH of the classification main
                phase, 8 rounds of the registry main's FAST, one lm prefill and four
@@ -2590,6 +2609,465 @@ def phase_sharded(torch, out, design, cls):
 # 14. timing
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# slice 8: the selection service
+# ---------------------------------------------------------------------------
+
+# The service's queue caps: the 20 DASH requests on d1 meet the bucket
+# cap of 16 (4 shed); the whole load fills max_pending exactly.
+SERVE_ADMISSION = dict(max_batch=8, max_queue=16, max_pending=32)
+SERVE_K = 128
+# The degraded slice: k = 64 with a 5 s deadline against the example's
+# seeded latency model (dash and stochastic greedy observed at 100 s).
+SERVE_DEADLINE = dict(k=64, deadline_s=5.0, seeded_s=100.0)
+SERVE_UPDATE_COLS = 64
+# The pinned d1 requests' (OPT, α): R²'s upper bound and the regression
+# main's α.  On an H100 the bucket's seed 8 then filters 79 iterations in
+# one round; at the policy's α 0.5, at OPT 1.0 or greedy's value, every
+# lane filtered once.
+SERVE_D1_GUESS = dict(opt=1.0, alpha=0.6)
+# The phase's own budget, about a tenth of the script's.
+SERVE_BUDGET_S = 90.0
+
+
+def serve_load(design_guess):
+    """The offered load: the deadline slice first (so that its budget is
+    not spent queued behind the DASH buckets), 20 DASH requests on d1
+    (seeds 0-7 at the server's TOP-k probe OPT, under which D1's DASH
+    hardly filters; seeds 8-15 pinned at ``SERVE_D1_GUESS``, where it
+    does;
+    seeds 16-19 meet the queue cap), 8 on the design
+    (pinned at the design main's winning (OPT, α): on the unit-norm
+    design every singleton gain ties, so the TOP-k probe is the first k
+    columns' value, no better than RANDOM's), 4 stochastic greedy on
+    d1."""
+    from repro_torch.serve import SelectRequest
+
+    d_opt, d_alpha = design_guess
+    k, dl = SERVE_K, SERVE_DEADLINE
+    reqs = [SelectRequest("d1", dl["k"], 100 + s, deadline_s=dl["deadline_s"])
+            for s in range(4)]
+    reqs += [SelectRequest("d1", k, s,
+                           **(SERVE_D1_GUESS if 8 <= s < 16 else {}))
+             for s in range(20)]
+    reqs += [SelectRequest("design", k, 200 + s, opt=d_opt, alpha=d_alpha)
+             for s in range(8)]
+    reqs += [SelectRequest("d1", k, 300 + s, algo="stochastic_greedy")
+             for s in range(4)]
+    return reqs
+
+
+def serve_server(tenants, chaos=None, device="cuda"):
+    """A server with the phase's admission caps, the default ServePolicy
+    and the example's seeded latency model, the tenants registered."""
+    from repro_torch.serve import (
+        AdmissionPolicy,
+        LatencyModel,
+        SelectionServer,
+    )
+
+    lm = LatencyModel()
+    lm.observe("dash", SERVE_DEADLINE["seeded_s"])
+    lm.observe("stochastic_greedy", SERVE_DEADLINE["seeded_s"])
+    srv = SelectionServer(admission=AdmissionPolicy(**SERVE_ADMISSION),
+                          latency=lm, chaos=chaos, device=device)
+    for name, kind, X, y, kmax in tenants:
+        srv.register(name, kind, X, y, kmax=kmax)
+    return srv
+
+
+def serve_counted(torch, srv, reqs):
+    """Serve ``reqs``; returns (replies, host s, launches per tenant and
+    kernel), every kernel's counter set to 0 just before and read after
+    each launch.  A tenant's ``filter_iters`` counts its DASH buckets'
+    filter iterations (each round's most active lane's, read from the
+    carries' ``DashTrace``): one kernel 3 or 5 launch each."""
+    kernels = counted_kernels()
+    per = {}
+    orig = srv._launch
+    events, restore = serve_recorder(elems=False)
+
+    def launch(entry, k, tier, members, dl):
+        for f in kernels.values():
+            f.launches = 0
+        del events[:]
+        orig(entry, k, tier, members, dl)
+        c = per.setdefault(entry.name, {})
+        for name, f in kernels.items():
+            if f.launches:
+                c[name] = c.get(name, 0) + f.launches
+        c["filter_iters"] = c.get("filter_iters", 0) + sum(
+            int(ev[1].max()) for ev in events)
+
+    srv._launch = launch
+    try:
+        secs, replies, _ = synced(torch, lambda: srv.serve(reqs))
+    finally:
+        del srv._launch
+        restore()
+    return replies, secs, per
+
+
+def serve_recorder(elems=True):
+    """Record every DASH round a bucket runs: with ``elems``, each filter
+    iteration's inputs (f(S), alive and selected masks, the statistic),
+    and after each round the carry's ``filter_iters`` column.  Returns
+    (events, restore)."""
+    import dataclasses
+
+    from repro_torch.serve import batcher
+
+    events, orig = [], batcher.make_round_body
+
+    def make(hooks, cfg):
+        def elem(state, alive, allowed, keys):
+            eg = hooks.estimate_elem_gains(state, alive, allowed, keys)
+            events.append(("elem", hooks.value(state).cpu().numpy(),
+                           alive.cpu().numpy(),
+                           hooks.sel_mask(state).cpu().numpy(),
+                           eg.cpu().numpy()))
+            return eg
+
+        body = orig(dataclasses.replace(hooks, estimate_elem_gains=elem)
+                    if elems else hooks, cfg)
+
+        def round_body(rho, carry, opt, alpha):
+            c = body(rho, carry, opt, alpha)
+            events.append(("round",
+                           c.trace.filter_iters[:, rho].cpu().numpy()))
+            return c
+
+        return round_body
+
+    batcher.make_round_body = make
+    return events, lambda: setattr(batcher, "make_round_body", orig)
+
+
+def lane_records(events, lane):
+    """The recorded filter iterations in which ``lane`` was active, as
+    :func:`first_flip`'s one-lane records: a lane is active from the
+    start of a round, so they are the first ``filter_iters[lane, rho]``
+    iterations of each round."""
+    recs, this_round = [], []
+    for ev in events:
+        if ev[0] == "elem":
+            this_round.append(ev)
+            continue
+        for _, value, alive, sel, eg in this_round[:int(ev[1][lane])]:
+            recs.append({"value": value[lane:lane + 1],
+                         "alive": alive[lane:lane + 1],
+                         "sel": sel[lane:lane + 1],
+                         "eg": eg[lane:lane + 1]})
+        this_round = []
+    return recs
+
+
+def recorded_serve(torch, srv, reqs):
+    """Serve one bucket's requests under :func:`serve_recorder`."""
+    events, restore = serve_recorder()
+    try:
+        replies = srv.serve(reqs)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    return replies, events
+
+
+def bits_rule(tag, rep_a, rep_b, ev_a, ev_b, lane_a, lane_b, opt, alpha,
+              cfg):
+    """Two replies of one request under the bits rule of ``[sharded]``:
+    the same set, or the first parted filter decision's margin within the
+    two runs' statistic difference there.  Returns the number of filter
+    iterations in which the lane was active in run a."""
+    import numpy as np
+
+    rec_a, rec_b = lane_records(ev_a, lane_a), lane_records(ev_b, lane_b)
+    if np.array_equal(rep_a.sel_mask, rep_b.sel_mask):
+        log(f"[serve] {tag}: same set ({rep_a.sel_count} selected), "
+            f"values {rep_a.value:.6f} {rep_b.value:.6f}, filter "
+            f"iterations {len(rec_a)} {len(rec_b)}")
+        return len(rec_a)
+    flip = first_flip(rec_a, rec_b, np.float32([opt]), np.float32([alpha]),
+                      cfg.eps, cfg.k)
+    log(f"[serve] {tag}: sets part (values {rep_a.value:.6f} "
+        f"{rep_b.value:.6f}, filter iterations {len(rec_a)} "
+        f"{len(rec_b)}); first parted decision {flip}")
+    need(flip is not None and flip["sound"],
+         f"{tag}: the sets part beyond the bits rule ({flip})")
+    return len(rec_a)
+
+
+def serve_checks(replies, n_offered, chaos):
+    """The contract on one load's replies: one terminal reply each, no
+    FAILED, a retry hint on every rejection."""
+    from repro_torch.serve import FAILED, OK, REJECTED
+
+    need(len(replies) == n_offered and all(r is not None for r in replies),
+         "a request ended without a terminal reply")
+    for i, r in enumerate(replies):
+        need(r.status in (OK, REJECTED),
+             f"request {i}: {r.status} ({r.detail})"
+             + (" in the chaos run" if chaos else ""))
+        need(r.status != FAILED, f"request {i} failed: {r.detail}")
+        if r.status == REJECTED:
+            need(r.retry_after_s > 0, f"request {i} rejected without a hint")
+
+
+def phase_serve(torch, out, design):
+    """The selection service (``repro_torch.serve``) on the card at full
+    width: two tenants (the main D1 and the design main), the offered
+    load of :func:`serve_load` through one ``SelectionServer``; the same
+    load under a chaos schedule; lane 0 alone against its 8-lane bucket;
+    every DASH bucket against ``select_batched``; a warm column update
+    against a fresh server; the small D1 and design, card against CPU."""
+    import numpy as np
+
+    from repro_torch.core import SeedKey, random_select, select_batched
+    from repro_torch.core.dash import lattice_grid, opt_guess_lattice
+    from repro_torch.core.selection_loop import DashConfig
+    from repro_torch.data.synthetic import make_d1_design, make_d1_regression
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+    from repro_torch.serve import OK, REJECTED, SelectRequest, ServePolicy
+
+    t_phase = time.perf_counter()
+    k, pol = SERVE_K, ServePolicy()
+    reg, dobj = out["objective"], design["objective"]
+    X1, y1 = reg.X, reg.y
+    Xd = dobj.X
+    d_design = Xd.shape[0]
+    tenants = [("d1", "regression", X1, y1, k),
+               ("design", "aopt", Xd, None, k)]
+    rand = {"d1": float(random_select(reg, k, SeedKey(1),
+                                      device="cuda").value),
+            "design": float(random_select(dobj, k, SeedKey(1),
+                                          device="cuda").value)}
+    ranges = {"d1": 1.0, "design": float(d_design)}   # β² = 1
+    g_opts, g_alphas = lattice_grid(
+        opt_guess_lattice(dobj, 0.25, DESIGN["n_guesses"], k),
+        design["alphas"])
+    best = int(np.argmax([lane["value"] for lane in design["lanes"]]))
+    guess = (float(g_opts[best]), float(g_alphas[best]))
+    reqs = serve_load(guess)
+    tenant_of = [r.dataset for r in reqs]
+
+    def check_values(replies):
+        for r, t in zip(replies, tenant_of):
+            if r.status != OK:
+                continue
+            need(r.value == r.value and 0.0 <= r.value <= ranges[t],
+                 f"{t} value {r.value} out of [0, {ranges[t]}]")
+            if r.tier == "dash":
+                need(r.value >= rand[t],
+                     f"a DASH reply on {t} ({r.value}) is below RANDOM "
+                     f"({rand[t]})")
+
+    # -- the load ---------------------------------------------------------
+    srv = serve_server(tenants)
+    replies, secs, per = serve_counted(torch, srv, reqs)
+    serve_checks(replies, len(reqs), chaos=False)
+    check_values(replies)
+    ok = [r for r in replies if r.status == OK]
+    shed = [r for r in replies if r.status == REJECTED]
+    need(len(shed) == 4, f"{len(shed)} requests shed, expected 4")
+    need(all(r.tier == "topk" and r.degraded for r in replies[:4]),
+         "the deadline slice was not served degraded at topk")
+    for rec in srv.launch_log:
+        log(f"[serve] launch tier={rec['tier']} lanes={rec['lanes']} "
+            f"requests={rec['requests']} rounds={rec['rounds']} "
+            f"attempts={rec['attempts']} host_s={rec['host_s']:.4f}")
+    lat = np.array([r.latency_s for r in ok])
+    log(f"[serve] drain: {len(reqs)} offered, {len(ok)} served "
+        f"({sum(r.degraded for r in ok)} degraded), {len(shed)} shed "
+        f"(retry hints {[round(r.retry_after_s, 4) for r in shed]}) in "
+        f"{secs:.3f} s: {len(ok) / secs:.2f} served requests/s; reply "
+        f"latency p50={np.percentile(lat, 50):.4f} s "
+        f"p99={np.percentile(lat, 99):.4f} s")
+    obs = {}
+    for rec in srv.launch_log:
+        obs.setdefault(rec["tier"], []).append(rec["host_s"])
+    log(f"[serve] per-tier EWMA (dash and stochastic_greedy seeded at "
+        f"{SERVE_DEADLINE['seeded_s']} s): "
+        + ", ".join(f"{t}={v:.4f} s" for t, v in
+                    srv.latency.observed().items())
+        + "; mean launch host s: "
+        + ", ".join(f"{t}={sum(v) / len(v):.4f}" for t, v in obs.items()))
+    log(f"[serve] launches per tenant (filter_iters: the DASH buckets' "
+        f"filter iterations): {per}")
+    pd1, pdes = per.get("d1", {}), per.get("design", {})
+    need(pd1.get("regression_gains", 0) > 0
+         and pd1.get("filter_gains", 0) > 0,
+         f"kernels 1 and 3 did not both launch on d1: {pd1}")
+    need(pdes.get("aopt_gains", 0) > 0
+         and pdes.get("aopt_filter_gains", 0) > 0,
+         f"kernels 4 and 5 did not both launch on the design: {pdes}")
+    need(pd1.get("filter_gains") == pd1.get("filter_iters")
+         and pdes.get("aopt_filter_gains") == pdes.get("filter_iters"),
+         "a filter iteration did not launch its engine once: kernel 3 "
+         f"{pd1.get('filter_gains')} of {pd1.get('filter_iters')}, kernel "
+         f"5 {pdes.get('aopt_filter_gains')} of {pdes.get('filter_iters')}")
+
+    # -- every DASH bucket against select_batched --------------------------
+    probe = srv.cache.get("d1").opt_probe[k] * pol.opt_margin
+    cfgs = {}
+    for tag, name, obj, seeds, opt, alpha in (
+            ("d1 probe", "d1", reg, range(0, 8), probe, pol.alpha),
+            ("d1 pinned", "d1", reg, range(8, 16), SERVE_D1_GUESS["opt"],
+             SERVE_D1_GUESS["alpha"]),
+            ("design", "design", dobj, range(200, 208)) + guess):
+        cfg = DashConfig(k=k, eps=pol.eps, alpha=alpha,
+                         n_samples=pol.n_samples).resolve(obj.n)
+        cfgs[tag] = (opt, alpha, cfg)
+        want = select_batched("dash", obj, k, [SeedKey(s) for s in seeds],
+                              opt=opt, alpha=alpha, eps=pol.eps,
+                              n_samples=pol.n_samples, device="cuda")
+        got = [r for r, q in zip(replies, reqs)
+               if q.dataset == name and q.algo == "dash" and q.k == k
+               and q.key in seeds]
+        need(len(got) == 8, f"{tag}: {len(got)} replies of a bucket")
+        masks = want.sel_mask.cpu().numpy()
+        for lane, r in enumerate(got):
+            need(np.array_equal(r.sel_mask, masks[lane]),
+                 f"{tag} seed {seeds[lane]}: the served set is not "
+                 "select_batched's")
+        iters = want.raw.trace.filter_iters.cpu().numpy()
+        log(f"[serve] {tag} seeds {seeds.start}-{seeds.stop - 1}: 8 sets "
+            f"= select_batched's, bit for bit (OPT {opt:.6f}, alpha "
+            f"{alpha}, r={cfg.r}, b={cfg.block}); values "
+            f"{[round(r.value, 6) for r in got]}; filter iterations a "
+            f"lane {iters.sum(axis=1).tolist()}, in "
+            f"{int((iters.max(axis=0) > 0).sum())} of {cfg.r} rounds")
+        if tag == "d1 pinned":
+            need(iters.sum() > 0, "the pinned d1 bucket never filtered")
+
+    # -- chaos: every hedged reply is the unfailed run's set ---------------
+    csrv = serve_server(tenants, chaos=FailureInjector(fail_at=(1,)))
+    creplies, csecs, _ = serve_counted(torch, csrv,
+                                       serve_load(guess))
+    serve_checks(creplies, len(reqs), chaos=True)
+    check_values(creplies)
+    hedged, hedged_pinned = 0, 0
+    for base, r, q in zip(replies, creplies, reqs):
+        need(r.status == base.status, "the chaos run's statuses differ")
+        if r.status == OK and r.attempts > 1:
+            hedged += 1
+            hedged_pinned += q.dataset == "d1" and q.opt is not None
+            need(np.array_equal(base.sel_mask, r.sel_mask),
+                 "a hedged reply's set is not the unfailed run's")
+    need(hedged > 0 and hedged_pinned == 8,
+         f"the chaos schedule did not hedge every bucket ({hedged} hedged, "
+         f"{hedged_pinned} of the pinned d1 bucket)")
+    log(f"[serve] chaos fail_at=(1,): {hedged} hedged replies ("
+        f"{hedged_pinned} of the pinned d1 bucket) = the unfailed run's "
+        f"sets, bit for bit; {csrv.stats['hedge_retries']} hedge retries; "
+        f"drain {csecs:.3f} s")
+
+    # -- the design at the server's default OPT (the TOP-k probe) ----------
+    dreqs = [SelectRequest("design", k, 210 + s) for s in range(8)]
+    dreplies, dsecs, dper = serve_counted(torch, srv, dreqs)
+    serve_checks(dreplies, len(dreqs), chaos=False)
+    dvals = [r.value for r in dreplies]
+    need(all(0.0 <= v <= ranges["design"] for v in dvals),
+         f"a default-OPT design value out of range: {dvals}")
+    pinned = [r.value for r, q in zip(replies, reqs) if q.dataset == "design"]
+    log(f"[serve] design at the default OPT ({pol.opt_margin} x the TOP-k "
+        f"probe {srv.cache.get('design').opt_probe[k]:.6f}): values "
+        f"{min(dvals):.6f}-{max(dvals):.6f} (mean "
+        f"{sum(dvals) / len(dvals):.6f}) against RANDOM's "
+        f"{rand['design']:.6f} and the pinned bucket's mean "
+        f"{sum(pinned) / len(pinned):.6f}; {dper.get('design')}; "
+        f"{dsecs:.3f} s (not gated against RANDOM)")
+
+    # -- lane 0 alone against its 8-lane bucket (the pinned one) -----------
+    opt, alpha, cfg = cfgs["d1 pinned"]
+    bucket, ev8 = recorded_serve(torch, srv, [
+        SelectRequest("d1", k, s, **SERVE_D1_GUESS) for s in range(8, 16)])
+    need(all(np.array_equal(a.sel_mask, b.sel_mask)
+             for a, b in zip(bucket, replies[12:20])),
+         "a repeated bucket gave other sets")
+    alone, ev1 = recorded_serve(torch, srv, [
+        SelectRequest("d1", k, 8, **SERVE_D1_GUESS)])
+    need(srv.launch_log[-1]["lanes"] == 1, "lane 0 alone was not B = 1")
+    active = bits_rule("d1 seed 8 alone (B=1) vs lane 0 of its pinned "
+                       "8-lane bucket", alone[0], bucket[0], ev1, ev8, 0, 0,
+                       opt, alpha, cfg)
+    need(active > 0, "lane 0 of the pinned bucket never filtered alone")
+
+    # -- a warm update of 64 columns ---------------------------------------
+    entry = srv.cache.get("d1")
+    builds, probe0 = entry.builds, entry.opt_probe[k]
+    rng = np.random.default_rng(5)
+    idx = np.arange(0, reg.n, reg.n // SERVE_UPDATE_COLS)[:SERVE_UPDATE_COLS]
+    cols = rng.normal(size=(reg.d, SERVE_UPDATE_COLS)).astype(np.float32)
+    cols -= cols.mean(axis=0, keepdims=True)
+    cols /= np.linalg.norm(cols, axis=0, keepdims=True)
+    srv.update_columns("d1", idx, cols)
+    need(not entry.opt_probe, "the warm update kept the OPT probe")
+    wreqs = [SelectRequest("d1", k, 400 + s,
+                           **(SERVE_D1_GUESS if s % 2 else {}))
+             for s in range(8)]
+    warm = srv.serve(wreqs)
+    X2 = X1.cpu().numpy().copy()
+    X2[:, idx] = cols
+    fresh = serve_server([("d1", "regression", X2, y1, k)])
+    cold = fresh.serve(wreqs)
+    need(all(r.status == OK for r in warm + cold), "a warm reply failed")
+    need(all(np.array_equal(a.sel_mask, b.sel_mask)
+             for a, b in zip(warm, cold)),
+         "after the warm update the sets are not a fresh server's")
+    need(entry.builds == builds, "the warm update built a runner")
+    need(k in entry.opt_probe, "the OPT probe was not recomputed")
+    log(f"[serve] warm update of {SERVE_UPDATE_COLS} d1 columns: 8 sets = "
+        f"a fresh server's, runner builds {builds} -> {entry.builds}, "
+        f"objective builds {entry.objective_builds}, OPT probe "
+        f"{probe0:.6f} -> {entry.opt_probe[k]:.6f}")
+    del fresh, X2
+
+    # -- small inputs: the card against the CPU, host noise -----------------
+    Xs, ys, _ = make_d1_regression(seed=0, n_samples=600, n_features=200,
+                                   support=40)
+    Xds = make_d1_design(seed=0, n_samples=512, n_features=128)
+    small = [("d1", "regression", Xs, ys, 40), ("design", "aopt", Xds, None,
+                                                32)]
+
+    def small_opt(name, lane):
+        # d1's odd lanes pinned at 1.0, where its DASH filters.
+        return 1.0 if name == "d1" and lane % 2 else None
+
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        s_srv = serve_server(small, device=dev)
+        runs[dev] = [recorded_serve(torch, s_srv, [
+            SelectRequest(name, kk, SeedKey(s, host=True),
+                          opt=small_opt(name, s)) for s in range(4)])
+            for name, _, _, _, kk in small]
+        runs[dev].append((s_srv.serve([SelectRequest(
+            "d1", 40, SeedKey(9, host=True), algo="topk")]), None))
+        runs[dev].append({name: s_srv.cache.get(name).opt_probe[kk]
+                          for name, _, _, _, kk in small})
+    for (name, _, X, _, kk), (rc, ec), (rg, eg_) in zip(
+            small, runs["cpu"][:2], runs["cuda"][:2]):
+        scfg = DashConfig(k=kk, eps=pol.eps, alpha=pol.alpha,
+                          n_samples=pol.n_samples).resolve(X.shape[1])
+        sopt = runs["cpu"][3][name] * pol.opt_margin
+        active = 0
+        for lane, (a, b) in enumerate(zip(rc, rg)):
+            need(a.status == OK and b.status == OK, "a small reply failed")
+            active += bits_rule(
+                f"small {name} lane {lane}, CPU vs card", a, b, ec, eg_,
+                lane, lane, small_opt(name, lane) or sopt, pol.alpha, scfg)
+        need(name != "d1" or active > 0,
+             "the small d1's pinned lanes never filtered")
+    tc, tg = runs["cpu"][2][0][0], runs["cuda"][2][0][0]
+    need(np.array_equal(tc.sel_mask, tg.sel_mask),
+         "small d1 TOP-k: the card's set is not the CPU's")
+    secs_phase = time.perf_counter() - t_phase
+    log(f"[serve] phase took {secs_phase:.1f} s (budget "
+        f"{SERVE_BUDGET_S:.0f} s)")
+    need(secs_phase < 2 * SERVE_BUDGET_S, "the serve phase ran far past "
+         "its budget")
+    return per
+
+
 def time_ms(torch, fn, iters=10, warmup=2):
     for _ in range(warmup):
         fn()
@@ -2744,30 +3222,39 @@ def phase_sharded_timing(torch):
 
     out = {}
 
-    def row(name, shape, t, p, bd_by):
+    def row(name, shape, t, p, bd_by, lib=None, lib_what=""):
         bd, by = bd_by[:2]
         out[name] = {"shape": shape, "ms": t, "plain_ms": p, "bound_ms": bd,
-                     "bound_by": by}
+                     "bound_by": by, "library_ms": lib}
+        lib_s = "n/a" if lib is None else f"{lib:.4f} ({lib_what})"
         log(f"[timing] {name:21s} f32 sharded shape {shape}: kernel_ms="
             f"{t:.4f} plain_ms={p:.4f} bound_ms={bd:.4f} ({by}) "
-            f"bound/kernel={bd / t:.3f}")
+            f"library_ms={lib_s} bound/kernel={bd / t:.3f}")
 
     d, n, k = MAIN["d"], MAIN["n"] // 2, MAIN["k"]
     G, m, b = MAIN["n_guesses"], MAIN["n_samples"], MAIN_BLOCK
     X, Q, D, R, csq = make_operands(torch, d, n, k, b, m, G, seed=17)
     rG = R[:, 0].contiguous()
+    # cuBLAS f32 products that dominate each kernel (no epilogue): only
+    # part of the function, timed as a yardstick.
+    qt = Q.permute(0, 2, 1).reshape(-1, d).contiguous()
     row("regression_gains", f"d={d} n_local={n} G={G} k={k}",
         time_ms(torch, lambda: regression_gains(X, Q, rG, csq)),
         time_ms(torch, lambda: regression_gains_ref(X, Q, rG, csq)),
         bound(2.0 * d * n * (k + 1) * G,
-              4 * (d * n + G * d * k + G * d + n + G * n)))
+              4 * (d * n + G * d * k + G * d + n + G * n)),
+        time_ms(torch, lambda: qt @ X), "cuBLAS f32 Q^T X of the G lanes")
+    stacked = torch.cat([qt, D.permute(0, 1, 3, 2).reshape(-1, d),
+                         R.reshape(-1, d)]).contiguous()
     row("filter_gains", f"d={d} n_local={n} G={G} m={m} b={b}",
         time_ms(torch, lambda: filter_gains(X, Q, D, R, csq)),
         time_ms(torch, lambda: filter_gains_lattice_ref(X, Q, D, R, csq)),
         bound(2.0 * d * n * (G * k + G * m * (b + 1)),
               4 * (d * n + G * d * k + G * m * d * b + G * m * d + n
-                   + G * m * n)))
-    del X, Q, D, R, csq
+                   + G * m * n)),
+        time_ms(torch, lambda: stacked @ X),
+        "cuBLAS f32 stacked [Q;D;R]^T X")
+    del X, Q, D, R, csq, qt, stacked
     d, n, g = DESIGN["d"], DESIGN["n"] // 2, DESIGN_LANES
     m, b = DESIGN["n_samples"], DESIGN_BLOCK
     X, W, E, F, isig2 = make_aopt_operands(torch, d, n, g, m, b, n_sel=64,
@@ -2776,14 +3263,19 @@ def phase_sharded_timing(torch):
         time_ms(torch, lambda: aopt_gains(X, W, isig2)),
         time_ms(torch, lambda: aopt_gains_ref(X, W, isig2)),
         bound(4.0 * d * n * g + 3.0 * g * n, 4 * (d * n * (1 + g) + g * n)))
+    et = E.permute(0, 1, 3, 2).reshape(g, m * b, d)
+    et_all = et.reshape(g * m * b, d).contiguous()
+    et = et.contiguous()
     row("aopt_filter_gains", f"d={d} n_local={n} G={g} m={m} b={b}",
         time_ms(torch, lambda: aopt_filter_gains(X, W, E, F, isig2)),
         time_ms(torch, lambda: aopt_filter_gains_lattice_ref(X, W, E, F,
                                                              isig2)),
         bound(4.0 * d * n * g + g * m * n * (4.0 * d * b + 2.0 * b * b
                                              + 6.0 * b + 6.0),
-              4 * (d * n * (1 + g) + g * m * (d * b + b * b + n))))
-    del X, W, E, F
+              4 * (d * n * (1 + g) + g * m * (d * b + b * b + n))),
+        time_ms(torch, lambda: (et_all @ X, torch.bmm(et, W))),
+        "cuBLAS f32 E^T X and E_g^T W_g only")
+    del X, W, E, F, et, et_all
     d, n, G = CLASS["d"], CLASS["n"] // 2, CLASS["n_guesses"]
     m, b, steps = CLASS["n_samples"], CLASS_BLOCK, 3
     X, y, Eta, etas = make_logistic_operands(torch, d, n, G, m, b,
@@ -3443,6 +3935,9 @@ def main() -> int:
     sharded_launches = phase_sharded(torch, out, design, cls)
     log(f"[sharded] done at {time.perf_counter() - t0:.1f} s; the phase "
         f"took {time.perf_counter() - t7:.1f} s")
+    phase_serve(torch, out, design)
+    log(f"[serve] done at {time.perf_counter() - t0:.1f} s")
+    t_timing = time.perf_counter()
     rows = phase_timing(torch, worst, launches)
     rows += phase_aopt_timing(torch, worst, launches)
     rows += phase_logistic_timing(torch, worst, launches)
@@ -3458,11 +3953,14 @@ def main() -> int:
         if row["name"] in sharded_launches:
             row["sharded_shape"] = dict(sharded_rows[row["name"]],
                                         launches=sharded_launches[row["name"]])
+    log(f"[timing] done at {time.perf_counter() - t0:.1f} s; the phase "
+        f"took {time.perf_counter() - t_timing:.1f} s")
     runs = profile_runs(out, design, cls,
                         float(registry["rows"]["fast"]["result"].raw.opt))
     runs.update(slice6_profile_runs(torch, design, lm))
     runs.update(lm_profile_runs(torch, lm))
     phase_profile(torch, runs)
+    log(f"[profile] done at {time.perf_counter() - t0:.1f} s")
     log(f"[smoke] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

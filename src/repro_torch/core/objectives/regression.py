@@ -35,6 +35,7 @@ from repro_torch.core.objectives.base import (
     write_accepted_column,
 )
 from repro_torch.kernels.common import (
+    by_column_blocks,
     resolve_device,
     resolve_precision,
     set_full_f32_matmul,
@@ -42,6 +43,12 @@ from repro_torch.kernels.common import (
 )
 from repro_torch.kernels.filter_gains.ops import filter_gains
 from repro_torch.kernels.marginal_gains.ops import regression_gains
+
+
+def column_sq_norms(X: torch.Tensor) -> torch.Tensor:
+    """(n,) ‖x_a‖², on the CPU each column summed in an order fixed by d,
+    so that a shard's norms are the whole X's bits."""
+    return by_column_blocks(lambda Xb: torch.sum(Xb * Xb, dim=0), X)
 
 
 class RegressionState(NamedTuple):
@@ -161,7 +168,7 @@ class RegressionObjective:
         self.use_filter_engine = bool(use_filter_engine)
         self.precision = resolve_precision(precision)
         self.ysq = torch.clamp(torch.sum(self.y * self.y), min=1e-12)
-        self.col_sq = torch.sum(self.X * self.X, dim=0)
+        self.col_sq = column_sq_norms(self.X)
 
     def _x_stream(self):
         """X in the streamed storage dtype, made once per precision view."""
@@ -254,7 +261,7 @@ class RegressionObjective:
             count=torch.zeros((lanes,), dtype=torch.int32,
                               device=self.device),
             resid=self.y.repeat(lanes, 1),
-            col_sq=torch.sum(X_local * X_local, dim=0),
+            col_sq=column_sq_norms(X_local),
         )
 
     def dist_value(self, ds: RegressionDistState):

@@ -71,6 +71,41 @@ def quantize(x: torch.Tensor, precision: str | None) -> torch.Tensor:
     return x.to(dt).to(torch.float32)
 
 
+# Columns per block of the CPU plain versions (``by_column_blocks``): a
+# multiple of 32 (on an AVX-512 host with MKL, blocks of 208 = 13 × 16
+# columns still gave width-dependent bits), small enough that a shard of
+# a few dozen columns pays little padding.
+COLUMN_BLOCK = 128
+
+
+def by_column_blocks(fn, *cols: torch.Tensor):
+    """``fn(*cols)``, on the CPU over fixed-width blocks of the columns.
+
+    ``fn`` maps its arguments column by column to (..., n): the last axis
+    of every argument runs over the same n columns (X (d, n), its column
+    norms (n,), ...).  On the CPU every call of ``fn`` sees
+    ``COLUMN_BLOCK`` columns (the last block zero-padded), so each
+    product and each sum over d has one shape whatever n is: a column's
+    bits depend on d and the lane and sample shapes, never on the width
+    of the call, and a shard of the columns gets the whole sweep's bits
+    (torch's vectorized sums and BLAS's blocking order a column's sum by
+    the call's width).  Zero columns must map to finite values.  On the
+    card a CUDA tensor's sweep goes to the kernels, whose split of d
+    depends on n anyway, so there ``fn`` takes all n columns at once.
+    """
+    if cols[0].device.type != "cpu":
+        return fn(*cols)
+    n = cols[0].shape[-1]
+    nb = -(-n // COLUMN_BLOCK)
+    pad = nb * COLUMN_BLOCK - n
+    if pad:
+        cols = [torch.nn.functional.pad(a, (0, pad)) for a in cols]
+    outs = [fn(*(a[..., j * COLUMN_BLOCK:(j + 1) * COLUMN_BLOCK].contiguous()
+                 for a in cols)) for j in range(nb)]
+    out = outs[0] if nb == 1 else torch.cat(outs, dim=-1)
+    return out[..., :n].contiguous() if pad else out
+
+
 def resolve_device(device) -> torch.device:
     """The port's entry-point rule: ``None`` means the card.
 

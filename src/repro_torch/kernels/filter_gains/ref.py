@@ -17,13 +17,17 @@ samples plus a small per-sample delta:
 * logistic: per-sample refit logits η_i; each row is exactly
   ``logistic_gains_ref`` at η_i.
 
-Transliterations of ``repro/kernels/filter_gains/ref.py``.
+Transliterations of ``repro/kernels/filter_gains/ref.py``, evaluated on
+the CPU over fixed-width column blocks
+(``kernels/common.py::by_column_blocks``) so that a column's bits do not
+depend on n.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import by_column_blocks
 from repro_torch.kernels.logistic_gains.ref import logistic_gains_ref
 
 SPAN_TOL = 1e-6
@@ -33,6 +37,11 @@ def filter_gains_ref(X, Q, D, R, col_sq, *, span_tol: float = SPAN_TOL):
     """X: (d, n); Q: (d, k) shared zero-padded orthonormal basis;
     D: (m, d, b) per-sample delta bases (zero-padded, ⊥ Q);
     R: (m, d) per-sample residuals; col_sq: (n,).  Returns (m, n) f32."""
+    return by_column_blocks(
+        lambda Xb, c: _filter_gains(Xb, Q, D, R, c, span_tol), X, col_sq)
+
+
+def _filter_gains(X, Q, D, R, col_sq, span_tol):
     c = R @ X                                           # (m, n)
     B = Q.T @ X                                         # (k, n)
     base = torch.sum(B * B, dim=0)                      # (n,) — shared
@@ -61,6 +70,11 @@ def aopt_filter_gains_ref(X, W, E, F, isig2):
 
         σ⁻² ‖M_i⁻¹x_a‖² / (1 + σ⁻² x_aᵀM_i⁻¹x_a).
     """
+    return by_column_blocks(
+        lambda Xb, Wb: _aopt_filter_gains(Xb, Wb, E, F, isig2), X, W)
+
+
+def _aopt_filter_gains(X, W, E, F, isig2):
     wsq = torch.sum(W * W, dim=0)                       # (n,) — shared
     xw = torch.sum(X * W, dim=0)                        # (n,) — shared
     T = torch.einsum("mdb,dn->mbn", E, X)               # E_iᵀ X

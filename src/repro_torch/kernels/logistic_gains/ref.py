@@ -15,12 +15,16 @@ differences instead; ``chip_smoke.py`` holds both against this function
 run in float64).  softplus is ``torch.logaddexp(z, 0)``, as
 ``jax.nn.softplus``; ``torch.nn.functional.softplus`` cuts off at
 ``threshold=20`` and is another function.  The functions take any float
-dtype, so float64 is the anchor of the kernels' parity gate.
+dtype, so float64 is the anchor of the kernels' parity gate.  On the CPU
+the sweep runs over fixed-width column blocks (``kernels/common.py::
+by_column_blocks``), so a column's bits do not depend on n.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.common import by_column_blocks
 
 
 def softplus(z: torch.Tensor) -> torch.Tensor:
@@ -47,5 +51,6 @@ def newton_gain_sweep(x, y, eta, *, steps: int, eps: float):
 
 def logistic_gains_ref(X, y, eta, *, steps: int = 3, eps: float = 1e-9):
     """X: (d, n), y: (d,) ∈ {0,1}, eta: (d,) current logits.  → (n,)."""
-    return newton_gain_sweep(X, y[:, None], eta[:, None], steps=steps,
-                             eps=eps)[0]
+    return by_column_blocks(
+        lambda Xb: newton_gain_sweep(Xb, y[:, None], eta[:, None],
+                                     steps=steps, eps=eps), X)[0]

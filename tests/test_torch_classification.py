@@ -38,6 +38,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -211,6 +213,40 @@ def test_logistic_filter_lattice_ref_matches(d, n, g, m, steps, precision):
     _close_gains(got, jax_logistic_filter_gains(
         jnp.asarray(X), jnp.asarray(y), jnp.asarray(etas), steps=steps,
         interpret=True, precision=precision), y, etas)
+
+
+def _width_invariant(fn, X, n):
+    """``fn(X_block)`` over all n columns equals its calls over n/2 and
+    n/4 of them, bit for bit."""
+    whole = fn(X)
+    for parts in (2, 4):
+        w = n // parts
+        got = torch.cat([fn(X[:, i * w:(i + 1) * w].contiguous())
+                         for i in range(parts)], dim=-1)
+        assert torch.equal(got, whole), parts
+
+
+@pytest.mark.parametrize("d,n,steps", [(24, 48, 1), (120, 32, 2),
+                                       (600, 200, 3), (64, 1000, 3)])
+def test_logistic_gains_ref_bits_do_not_depend_on_width(d, n, steps):
+    """A column's plain-version gain has the same bits in a call over all
+    n columns and in one over a block of them (the sharded runtime's
+    ties break as on one device)."""
+    X, y, etas = _genuine(d, n, 1, 2)
+    ty, te = torch.from_numpy(y), torch.from_numpy(etas[0, 1])
+    _width_invariant(lambda Xb: logistic_gains_ref(Xb, ty, te, steps=steps),
+                     torch.from_numpy(X), n)
+
+
+@pytest.mark.parametrize("d,n,g,m", [(24, 48, 1, 2), (120, 32, 2, 3),
+                                     (200, 400, 2, 4)])
+def test_logistic_filter_gains_ref_bits_do_not_depend_on_width(d, n, g, m):
+    """As above, for the logistic filter engine's plain version."""
+    X, y, etas = _genuine(d, n, g, m, seed=2)
+    ty, tE = torch.from_numpy(y), torch.from_numpy(etas)
+    _width_invariant(
+        lambda Xb: logistic_filter_gains_lattice_ref(Xb, ty, tE, steps=3),
+        torch.from_numpy(X), n)
 
 
 def test_wrappers_check_their_arguments():

@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401
+
 import functools  # noqa: E402
 import importlib  # noqa: E402
 

@@ -26,6 +26,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401
+
 import torch_dist_helpers as H  # noqa: E402
 from repro_torch.core import greedy, select  # noqa: E402
 from repro_torch.core.distributed import pad_ground_set  # noqa: E402

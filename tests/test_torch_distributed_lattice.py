@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401
+
 import torch_dist_helpers as H  # noqa: E402
 from repro_torch.core import DashConfig, SeedKey, greedy  # noqa: E402
 from repro_torch.core.distributed import (  # noqa: E402

@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401
+
 import torch_dist_helpers as H  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     DashConfig,

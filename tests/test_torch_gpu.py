@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401
+
 from repro_torch.kernels.aopt_gains import aopt_gains, aopt_gains_ref  # noqa: E402
 from repro_torch.kernels.common import (  # noqa: E402
     STREAM_PARITY_TOL,
@@ -1412,3 +1414,91 @@ def test_cuda_mesh_keeps_x_local_on_the_card(cuda):
         assert seen[meth] == ["cuda"], (meth, seen)
     assert launches["regression_gains"] > 0
     assert launches["filter_gains"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the selection service on the card
+# ---------------------------------------------------------------------------
+
+def _serve_d1():
+    from repro_torch.data.synthetic import make_d1_regression
+
+    X, y, _ = make_d1_regression(seed=0, n_samples=600, n_features=200,
+                                 support=40)
+    return X, y
+
+
+def _served(dev, reqs, chaos=None):
+    from repro_torch.runtime.hedging import HedgePolicy
+    from repro_torch.serve import SelectionServer
+
+    srv = SelectionServer(device=dev, chaos=chaos, hedge=HedgePolicy(
+        max_attempts=3, backoff_s=0.0, sleep_fn=lambda s: None))
+    X, y = _serve_d1()
+    srv.register("d1", "regression", X, y, kmax=40)
+    return srv, srv.serve(reqs)
+
+
+def test_serve_small_d1_matches_cpu(cuda):
+    """A DASH bucket, stochastic greedy and TOP-k on the small D1 through
+    the service: the card's sets are the CPU's, noise drawn on the
+    host; the card's run launches kernels 1 and 3 (OPT pinned at 1.0,
+    where DASH filters; at the TOP-k probe's guess it does not)."""
+    from repro_torch.core import SeedKey
+    from repro_torch.serve import SelectRequest
+
+    reqs = [SelectRequest("d1", 40, SeedKey(s, host=True), opt=1.0)
+            for s in range(3)]
+    reqs += [SelectRequest("d1", 20, SeedKey(7, host=True),
+                           algo="stochastic_greedy"),
+             SelectRequest("d1", 20, SeedKey(8, host=True), algo="topk")]
+    _, cpu = _served("cpu", reqs)
+    regression_gains.launches = filter_gains.launches = 0
+    _, card = _served(cuda, reqs)
+    assert regression_gains.launches > 0 and filter_gains.launches > 0
+    for a, b in zip(cpu, card):
+        assert a.ok and b.ok and a.tier == b.tier
+        np.testing.assert_array_equal(a.sel_mask, b.sel_mask)
+        assert abs(a.value - b.value) <= 1e-4
+
+
+def test_serve_hedged_resume_is_bitwise(cuda):
+    """A launch killed at rounds 1 and 3 and resumed from its last round
+    commits the unfailed run's sets and values, bit for bit."""
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+    from repro_torch.serve import SelectRequest
+
+    reqs = [SelectRequest("d1", 40, s) for s in range(3)]
+    _, base = _served(cuda, reqs)
+    srv, hedged = _served(cuda, reqs, chaos=FailureInjector(fail_at=(1, 3)))
+    assert srv.stats["hedge_retries"] == 2
+    for a, b in zip(base, hedged):
+        assert b.attempts == 3
+        np.testing.assert_array_equal(a.sel_mask, b.sel_mask)
+        assert a.value == b.value
+
+
+def test_serve_warm_update_rebuilds_objective_not_runners(cuda):
+    """A warm column update on the card: a new X tensor (the old one
+    untouched), the objective rebuilt, no runner built, and the sets of
+    a fresh server on the patched data."""
+    from repro_torch.serve import SelectRequest, SelectionServer
+
+    reqs = [SelectRequest("d1", 40, s) for s in range(2)]
+    srv, _ = _served(cuda, reqs)
+    entry = srv.cache.get("d1")
+    X0, X0_copy = entry.arrays["X"], entry.arrays["X"].clone()
+    builds, objs = entry.builds, entry.objective_builds
+    cols = np.random.default_rng(3).normal(size=(600, 4)).astype(np.float32)
+    srv.update_columns("d1", [1, 50, 99, 150], cols)
+    warm = srv.serve(reqs)
+    assert torch.equal(X0, X0_copy)
+    assert entry.builds == builds and entry.objective_builds == objs + 1
+    assert entry.arrays["X"].is_cuda
+    X, y = _serve_d1()
+    X2 = np.array(X, copy=True)
+    X2[:, [1, 50, 99, 150]] = cols
+    fresh = SelectionServer(device=cuda)
+    fresh.register("d1", "regression", X2, y, kmax=40)
+    for a, b in zip(warm, fresh.serve(reqs)):
+        np.testing.assert_array_equal(a.sel_mask, b.sel_mask)

@@ -19,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -149,6 +151,60 @@ def test_regression_gains_lane_axis_matches_per_lane():
     for g in range(3):
         want = jax_regression_gains_ref(X, Q[g], R[g, 0], csq)
         _close(got[g], want)
+
+
+# d, n, k, b, m, g: ragged widths and the sharded runtime's test shapes.
+WIDTH_SHAPES = [(24, 48, 4, 2, 3, 1), (96, 64, 8, 3, 4, 3),
+                (120, 32, 6, 2, 3, 2), (200, 1000, 16, 4, 8, 2),
+                (600, 200, 40, 5, 4, 1)]
+
+
+def _by_parts(fn, n, parts, cols):
+    """``fn`` on each of ``parts`` equal column blocks, concatenated;
+    ``cols(sl)`` gives the call's arguments for the column slice."""
+    w = n // parts
+    return torch.cat([fn(*cols(slice(i * w, (i + 1) * w)))
+                      for i in range(parts)], dim=-1)
+
+
+def _width_invariant(fn, n, cols):
+    """A call over all n columns equals calls over n/2 and n/4 of them,
+    bit for bit."""
+    whole = fn(*cols(slice(0, n)))
+    for parts in (2, 4):
+        assert torch.equal(_by_parts(fn, n, parts, cols), whole), parts
+
+
+def _c(a, sl):
+    return a[..., sl].contiguous()
+
+
+@pytest.mark.parametrize("d,n,k,b,m,g", WIDTH_SHAPES)
+def test_regression_gains_ref_bits_do_not_depend_on_width(d, n, k, b, m, g):
+    """A column's plain-version gain has the same bits in a call over all
+    n columns and in one over a block of them (the sharded runtime's
+    ties break as on one device)."""
+    X, Q, _, R, csq = _t(*_problem(5, d, n, k, b, m, g=g))
+    _width_invariant(regression_gains_ref, n,
+                     lambda sl: (_c(X, sl), Q, R[:, 0], _c(csq, sl)))
+
+
+@pytest.mark.parametrize("d,n,k,b,m,g", WIDTH_SHAPES)
+def test_filter_gains_ref_bits_do_not_depend_on_width(d, n, k, b, m, g):
+    """As above, for the regression filter engine's plain version."""
+    X, Q, D, R, csq = _t(*_problem(6, d, n, k, b, m, g=g))
+    _width_invariant(filter_gains_lattice_ref, n,
+                     lambda sl: (_c(X, sl), Q, D, R, _c(csq, sl)))
+
+
+@pytest.mark.parametrize("d,n,k,b,m,g", WIDTH_SHAPES)
+def test_aopt_filter_gains_ref_bits_do_not_depend_on_width(d, n, k, b, m, g):
+    """As above, for the A-optimal filter engine's plain version, on
+    operands of a real solve."""
+    X, W, E, F, isig2 = _genuine(d, n, g, m, b, sigma2=0.7)
+    X, W, E, F = _t(X, W, E, F)
+    _width_invariant(aopt_filter_gains_lattice_ref, n,
+                     lambda sl: (_c(X, sl), _c(W, sl), E, F, isig2))
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])

@@ -122,8 +122,39 @@ def logi_problem():
     return X.astype(np.float32), y.astype(np.float32), k
 
 
+def _tie_columns(X, seed):
+    """X's first 6 columns, 8 copies each, in a seeded order: every gain
+    ties 8 ways in exact arithmetic, at 48 positions of the ground set."""
+    part = X[:, :6]
+    order = np.random.default_rng(seed).permutation(8 * part.shape[1])
+    return np.ascontiguousarray(np.concatenate([part] * 8, axis=1)[:, order])
+
+
+def reg_tied_problem():
+    """The regression problem's first 6 columns, 8 copies each: 96 × 48,
+    k 8."""
+    X, y, k = reg_problem()
+    return _tie_columns(X, 11), y, k
+
+
+def logi_tied_problem():
+    """The logistic problem's first 6 columns, 8 copies each: 120 × 48,
+    k 6."""
+    X, y, k = logi_problem()
+    return _tie_columns(X, 12), y, k
+
+
+def aopt_tied_problem():
+    """The scaled design's first 6 columns (no f32 tie between them), 8
+    copies each: 24 × 48, k 8."""
+    X, _, k = aopt_scaled_problem()
+    return _tie_columns(X, 13), None, k
+
+
 PROBLEMS = {"reg": reg_problem, "aopt": aopt_problem,
-            "aopt_scaled": aopt_scaled_problem, "logi": logi_problem}
+            "aopt_scaled": aopt_scaled_problem, "logi": logi_problem,
+            "reg_tied": reg_tied_problem, "logi_tied": logi_tied_problem,
+            "aopt_tied": aopt_tied_problem}
 LOGI_KW = {"newton_steps": 4, "newton_gain_steps": 2}
 # The reference suite's DASH settings per objective.
 DASH_CFG = {"reg": dict(eps=0.25, alpha=0.6, n_samples=4),
@@ -139,7 +170,7 @@ def port_objective(name, device="cpu", **kw):
     )
 
     X, y, k = PROBLEMS[name]()
-    if name == "reg":
+    if name.startswith("reg"):
         return RegressionObjective(X, y, k, device=device, **kw), k
     if name.startswith("aopt"):
         return AOptimalityObjective(X, k, device=device, **kw), k
@@ -159,7 +190,7 @@ from repro.launch.mesh import make_mesh
 
 def ref_objective(name, **kw):
     X, y, k = H.PROBLEMS[name]()
-    if name == "reg":
+    if name.startswith("reg"):
         return RegressionObjective(jnp.asarray(X), jnp.asarray(y), kmax=k,
                                    **kw), k
     if name.startswith("aopt"):
