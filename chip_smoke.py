@@ -72,7 +72,9 @@ exits nonzero, with no result line) when a check fails:
                plain version's reading and two planted faults', which
                must exceed it): danube's heads at S 8192 with window 4096,
                the JAX test's sweep, ragged S, softcap 30 without the
-               causal mask, q_offset, D 16/32/64/80/128; an f32 case that
+               causal mask, q_offset, D 16/32/64/80/128, and D 256 at
+               recurrentgemma's heads (S 8192, window 2048; ragged Sq and
+               Skv with a q_offset; softcap); an f32 case that
                misses against the f32 plain version is gated against the
                plain version in float64, both errors printed (run with
                the kernel phases, before the main phase)
@@ -153,6 +155,23 @@ exits nonzero, with no result line) when a check fails:
                design, card against CPU (host noise); per launch tier,
                lanes, rounds, attempts, host s; requests/s, reply
                latency p50/p99, each tier's EWMA, the phase's seconds
+     moe     — slice 9: grok-1-314b (4 of 64 layers) and
+               llama4-maverick-400b-a17b (1 of 48) at published width,
+               bf16, through serve_lm (batch 4, prompt 2048, 32 tokens,
+               greedy then top-k), one model at a time: flash launches =
+               layers × prefills, the greedy and top-k checks, layer 0's
+               routed, kept and dropped assignments per expert against
+               the capacity, a finite aux loss, layer 0's bf16 moe_apply
+               against the MoE formula in f32 on tokens that overflow an
+               expert (MOE_GATE, beside two planted faults); prefill s,
+               decode s per token, peak memory
+     hybrid  — recurrentgemma-2b whole at published width, bf16, through
+               serve_lm (batch 4, prompt 8192, 32 tokens): 8 flash
+               launches per prefill (kernel 8 at head_dim 256), the
+               greedy and top-k checks, prefill S − 1 then decode against
+               prefill S (HYBRID_CONSIST_TOL, three planted faults), the
+               log-depth scan against a float64 recurrence (SCAN_GATE,
+               one planted fault)
  14. timing  — CUDA-event times per call of each kernel, its plain
                version and a library call, beside the kernel's bound
                from its shapes and the H100 SXM peaks (kernel 8 at the lm
@@ -164,13 +183,17 @@ exits nonzero, with no result line) when a check fails:
                129 prefixes; kernels 4 and 5 at the coreset's shape; the
                six selection kernels at a world-2 shard's shapes
                ([sharded]: n_local = n / 2 of each main lattice; kernels
-               1, 3 and 5 beside their cuBLAS products)
+               1, 3 and 5 beside their cuBLAS products); kernels 1, 3, 4
+               and 5 at [serve]'s 8-lane bucket shapes; kernel 8 at
+               head_dim 256 at [hybrid]'s prefill shape
  15. profile — greedy and DASH of the main phase, DASH of the design
                main phase, greedy and DASH of the classification main
                phase, 8 rounds of the registry main's FAST, one lm prefill and four
                lm decode steps, once more under torch.profiler: device
                busy time by kernel and the device's busy share of the
-               host wall time
+               host wall time ([moe] and [hybrid] profile one prefill
+               and four decode steps of their own runs the same way,
+               before they free their weights)
 
 The last three lines of output: the kernels JSON, the card's name and
 power limit as nvidia-smi prints them, and the result JSON.  Imports
@@ -278,7 +301,8 @@ BF16_TC_FLOPS = 989e12
 # Kernel 8's checks: (B, Sq, Skv, H, Hkv, D, causal, window, softcap,
 # q_offset) — danube's prefill heads at S 8192, the JAX test's sweep
 # (tests/test_kernels.py), ragged S, softcap 30 without the causal mask,
-# decode-shaped q_offset, D 64/80/128 and the reduced configs' D 16.
+# decode-shaped q_offset, D 64/80/128, the reduced configs' D 16 and
+# recurrentgemma's D 256.
 LM_FLASH_CASES = (
     [(1, 8192, 8192, 32, 8, 80, True, 4096, 0.0, 0)]
     + [(2, sq, skv, h, hkv, d, c, w, cap, 0)
@@ -293,6 +317,13 @@ LM_FLASH_CASES = (
        (1, 1, 100, 4, 2, 32, True, 0, 0.0, 99)]
     + [(2, 513, 513, 8, 2, d, True, 256, 0.0, 0) for d in (64, 80, 128)]
     + [(2, 48, 48, 4, 2, 16, True, 32, 0.0, 0)]
+    # head_dim 256: recurrentgemma's heads at S 8192 with window 2048,
+    # ragged Sq and Skv with a q_offset (with and without a window), and
+    # softcap without the causal mask
+    + [(1, 8192, 8192, 10, 1, 256, True, 2048, 0.0, 0),
+       (2, 1000, 1537, 10, 1, 256, True, 300, 0.0, 537),
+       (2, 1000, 1537, 10, 1, 256, True, 0, 0.0, 537),
+       (2, 513, 700, 4, 2, 256, False, 0, 30.0, 0)]
 )
 
 # [r2 main]: DASH's R² value against Def. 14 of its set solved in
@@ -1422,11 +1453,11 @@ def phase_lm_kernels(torch, cases):
     return worst
 
 
-def phase_lm_main(torch):
-    """The port's serve_lm entry point at full width, greedy then top-k,
-    with the flash launch counter set to 0 just before and read just
-    after; then the first tokens are checked against a fresh prefill and
-    decode of the same weights and prompt."""
+def serve_runs(torch, tag, arch, run, n_layers=None):
+    """The port's serve_lm entry point at full width (``n_layers`` deep
+    when given), greedy then top-k, with the flash launch counter set to
+    0 just before and read just after.  Returns the runs, the launches,
+    the peak memory and what earlier phases hold."""
     from repro_torch import serve_lm
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -1436,42 +1467,36 @@ def phase_lm_main(torch):
     flash_attention.launches = 0
     runs = {}
     for name, temp in (("greedy", 0.0), ("top-k", 0.8)):
-        runs[name] = serve_lm.main(**LM, temperature=temp, full=True,
-                                   device="cuda", verbose=False)
+        runs[name] = serve_lm.main(arch, **run, temperature=temp, full=True,
+                                   n_layers=n_layers, device="cuda",
+                                   verbose=False)
         if name == "greedy":   # the top-k run draws the same weights
             runs[name].pop("params")
     launches = flash_attention.launches
     peak = torch.cuda.max_memory_allocated()
-    res = runs["top-k"]
-    cfg, model, params = res["cfg"], res["model"], res["params"]
-    b, n = LM["batch"], LM["new_tokens"]
-    log(f"[lm] {cfg.name} full width: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.attn.n_heads} query / {cfg.attn.n_kv_heads} "
-        f"KV heads of {cfg.attn.head_dim}, window {cfg.attn.window}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
-        f"{cfg.dtype}; random weights (seed 0); batch {b}, prompt "
-        f"{LM['prompt_len']}, {n} new tokens")
     for name, r in runs.items():
-        log(f"[lm] {name:6s} prefill_s={r['prefill_s']:.4f} "
+        log(f"{tag} {name:6s} prefill_s={r['prefill_s']:.4f} "
             f"decode_s_per_token={r['decode_s_per_token']:.5f} "
             f"tokens_per_s={r['tok_s']:.2f} total_s={r['seconds']:.4f} "
             f"ids[0][:12]={r['tokens'][0, :12].tolist()}")
-    log(f"[lm] max_memory_allocated={peak} bytes, {peak - held} above "
-        f"the {held} that earlier phases hold; flash_attention "
-        f"launches={launches} ({launches / 2:g} per prefill)")
-    need(launches == 2 * LM_LAYERS,
-         f"flash_attention launched {launches} times in two prefills of "
-         f"{LM_LAYERS} layers")
+    return runs, launches, peak, held
+
+
+def check_first_tokens(torch, tag, runs, n_new):
+    """Tokens of the runs in range; then a fresh prefill and one decode
+    step of the same weights and prompt: greedy's first two tokens are
+    their argmax, top-k's first token lies within the 40 largest
+    logits."""
+    res = runs["top-k"]
+    cfg, model, params = res["cfg"], res["model"], res["params"]
+    prompt = res["prompt"]
+    b = prompt.shape[0]
     for name, r in runs.items():
         tok = r["tokens"]
-        need(tuple(tok.shape) == (b, n) and tok.dtype == torch.int32,
+        need(tuple(tok.shape) == (b, n_new) and tok.dtype == torch.int32,
              f"{name}: tokens of shape {tuple(tok.shape)}")
         need(int(tok.min()) >= 0 and int(tok.max()) < cfg.padded_vocab,
              f"{name}: a token outside the padded vocab")
-    # A fresh prefill and one decode step of the same weights and prompt:
-    # greedy's first two tokens are their argmax; top-k's first token
-    # lies within the 40 largest logits.
-    prompt = res["prompt"]
     logits, cache = model.prefill(params, {"tokens": prompt})
     need(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     need(tuple(logits.shape) == (b, cfg.padded_vocab), "prefill logits "
@@ -1483,7 +1508,7 @@ def phase_lm_main(torch):
     logits2, _ = model.decode_step(params, cache, g[:, :1],
                                    cache["step_offset"])
     second = torch.argmax(logits2, dim=-1).to(torch.int32)
-    log(f"[lm] check: greedy token 0 = prefill argmax: "
+    log(f"{tag} check: greedy token 0 = prefill argmax: "
         f"{bool(torch.equal(first, g[:, 0]))}, token 1 = decode argmax: "
         f"{bool(torch.equal(second, g[:, 1]))}, top-k token 0 within the "
         f"top 40: {bool((pick >= kth).all())}; logits rms "
@@ -1492,6 +1517,31 @@ def phase_lm_main(torch):
     need(torch.equal(second, g[:, 1]), "greedy token 1 is not the argmax")
     need(bool((pick >= kth).all()), "top-k drew outside the top 40")
     del logits, logits2, cache
+
+
+def phase_lm_main(torch):
+    """The port's serve_lm entry point at full width, greedy then top-k,
+    with the flash launch counter set to 0 just before and read just
+    after; then the first tokens are checked against a fresh prefill and
+    decode of the same weights and prompt."""
+    run = {k: v for k, v in LM.items() if k != "arch"}
+    runs, launches, peak, held = serve_runs(torch, "[lm]", LM["arch"], run)
+    res = runs["top-k"]
+    cfg = res["cfg"]
+    b, n = LM["batch"], LM["new_tokens"]
+    log(f"[lm] {cfg.name} full width: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.attn.n_heads} query / {cfg.attn.n_kv_heads} "
+        f"KV heads of {cfg.attn.head_dim}, window {cfg.attn.window}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+        f"{cfg.dtype}; random weights (seed 0); batch {b}, prompt "
+        f"{LM['prompt_len']}, {n} new tokens")
+    log(f"[lm] max_memory_allocated={peak} bytes, {peak - held} above "
+        f"the {held} that earlier phases hold; flash_attention "
+        f"launches={launches} ({launches / 2:g} per prefill)")
+    need(launches == 2 * LM_LAYERS,
+         f"flash_attention launched {launches} times in two prefills of "
+         f"{LM_LAYERS} layers")
+    check_first_tokens(torch, "[lm]", runs, n)
     return res, launches, peak
 
 
@@ -1619,11 +1669,13 @@ def flash_staging_bytes(info, b, s, h, hkv, d, causal, window):
     return kv + ctas * tiles * rows * d * 2, kv
 
 
-def lm_flash_case(torch, dt, seed=3):
-    """Kernel 8's inputs at the lm-main prefill shape (B 4, S 8192, H 32,
-    Hkv 8, D 80, window 4096, causal) and its keyword arguments."""
-    b, s = LM["batch"], LM["prompt_len"]
-    h, hkv, d, w = (LM_HEADS[x] for x in ("h", "hkv", "d", "window"))
+def lm_flash_case(torch, dt, seed=3, heads=None, run=None):
+    """Kernel 8's inputs at a prefill shape (default the lm main's: B 4,
+    S 8192, H 32, Hkv 8, D 80, window 4096, causal) and its keyword
+    arguments."""
+    heads, run = heads or LM_HEADS, run or LM
+    b, s = run["batch"], run["prompt_len"]
+    h, hkv, d, w = (heads[x] for x in ("h", "hkv", "d", "window"))
     return (flash_inputs(torch, b, s, s, h, hkv, d, dt, seed=seed),
             dict(causal=True, window=w, softcap=0.0))
 
@@ -1636,14 +1688,15 @@ def time_flash(torch, q, k, v, kw, iters=10):
                    iters=iters, warmup=1)
 
 
-def phase_lm_timing(torch, worst, launches):
-    """Kernel 8 at the lm-main prefill shape: CUDA-event ms, f32 and bf16,
+def time_flash_shape(torch, heads, run):
+    """Kernel 8 at a causal prefill shape: CUDA-event ms, f32 and bf16,
     beside its bound, its plain version (B 1: the (B, H, S, S) scores of
     B 4 do not fit) and SDPA with the same mask as a yardstick.  The bf16
     bound is the largest of three: the tensor cores' flops, the SFUs' one
     exp2 per valid pair, the bytes of Q, K, V and O once; beside it the
     L2 → shared-memory bytes the kernel stages per call and its registers
-    and shared memory per CTA."""
+    and shared memory per CTA.  Returns per precision ms, plain_ms,
+    bound_ms, bound_by, library_ms and the kernel's info."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
@@ -1653,16 +1706,16 @@ def phase_lm_timing(torch, worst, launches):
     )
     from repro_torch.kernels.flash_attention.ref import attention_mask
 
-    b, s = LM["batch"], LM["prompt_len"]
-    h, hkv, d, w = (LM_HEADS[x] for x in ("h", "hkv", "d", "window"))
+    b, s = run["batch"], run["prompt_len"]
+    h, hkv, d, w = (heads[x] for x in ("h", "hkv", "d", "window"))
     pairs = count_valid_pairs(s, s, True, w)
     flops = 4.0 * d * pairs * b * h
     exps = float(pairs * b * h)
     torch.cuda.empty_cache()
-    rows, out = [], {}
+    out = {}
     for prec, dt, peak in (("bf16", torch.bfloat16, BF16_TC_FLOPS),
                            ("f32", torch.float32, F32_PEAK_FLOPS)):
-        (q, k, v), kw = lm_flash_case(torch, dt)
+        (q, k, v), kw = lm_flash_case(torch, dt, heads=heads, run=run)
         nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
         parts = {"operations": flops / peak * 1e3,
                  "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
@@ -1708,6 +1761,13 @@ def phase_lm_timing(torch, worst, launches):
             f"bound/kernel={bd / t:.3f} achieved "
             f"{flops / t / 1e9:.1f} TFLOP/s"
             + (f"; SDPA vs kernel max diff {diff:.3e}" if lib else ""))
+        if prec == "f32":
+            info32 = kernel_info(dt, d)
+            log(f"[timing] flash_attention f32  kernel: "
+                f"{info32['registers']} registers/thread, "
+                f"{info32['spill_bytes']} spill bytes, "
+                f"{info32['smem_bytes']} B shared/CTA, "
+                f"{info32['ctas_per_sm']} CTAs/SM")
         if info is not None:
             kv_x = staged_kv / (2 * k.numel() * k.element_size())
             log(f"[timing] flash_attention {prec:4s} kernel: "
@@ -1721,11 +1781,21 @@ def phase_lm_timing(torch, worst, launches):
                 f"{kv_x:.1f}x the K and V in device memory)")
         del q, k, v, q1, k1, v1
         torch.cuda.empty_cache()
-    log(f"[timing] flash_attention valid (q, k) pairs per (b, h): {pairs} "
-        f"of {s * s}; launches per lm main run {launches['flash_attention']}"
-        f" ({LM_LAYERS} per prefill)")
+    log(f"[timing] flash_attention valid (q, k) pairs per (b, h) at D={d}: "
+        f"{pairs} of {s * s}")
+    return out
+
+
+def phase_lm_timing(torch, worst, launches):
+    """Kernel 8 at the lm-main prefill shape (``time_flash_shape``): the
+    kernels line's row."""
+    b, s = LM["batch"], LM["prompt_len"]
+    h, hkv, d = (LM_HEADS[x] for x in ("h", "hkv", "d"))
+    out = time_flash_shape(torch, LM_HEADS, LM)
+    log(f"[timing] flash_attention launches per lm main run "
+        f"{launches['flash_attention']} ({LM_LAYERS} per prefill)")
     r, info = out["bf16"], out["bf16"]["info"]
-    rows.append({
+    return [{
         "name": "flash_attention", "route": "cuda",
         "source": SOURCES["flash_attention"],
         "replaces": REPLACES["flash_attention"],
@@ -1741,8 +1811,453 @@ def phase_lm_timing(torch, worst, launches):
         "library_ms": r["library_ms"], "ms_f32": out["f32"]["ms"],
         "plain_ms_f32": out["f32"]["plain_ms"],
         "bound_ms_f32": out["f32"]["bound_ms"],
-    })
-    return rows
+    }]
+
+
+def phase_hybrid_flash_timing(torch, launches):
+    """Kernel 8 at head_dim 256, at ``[hybrid]``'s prefill shape (B 4, S
+    8192, H 10, Hkv 1, window 2048, causal): a shape record for the
+    kernels line's flash_attention row."""
+    b, s = HYBRID["batch"], HYBRID["prompt_len"]
+    h, hkv, d, w = (HYBRID_HEADS[x] for x in ("h", "hkv", "d", "window"))
+    out = time_flash_shape(torch, HYBRID_HEADS, HYBRID)
+    log(f"[timing] flash_attention D=256 launches per hybrid run "
+        f"{launches} ({HYBRID_FLASH_PER_PREFILL} per prefill)")
+    r, info = out["bf16"], out["bf16"]["info"]
+    return {"shape": f"B={b} S={s} H={h} Hkv={hkv} D={d} window={w} causal",
+            "launches": launches, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "plain_shape": f"B=1 S={s} H={h} Hkv={hkv} D={d}",
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "registers": info["registers"],
+            "spill_bytes": info["spill_bytes"],
+            "smem_bytes_per_cta": info["smem_bytes"],
+            "ms_f32": out["f32"]["ms"],
+            "plain_ms_f32": out["f32"]["plain_ms"],
+            "bound_ms_f32": out["f32"]["bound_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# slice 9: the MoE archs and the RG-LRU hybrid
+# ---------------------------------------------------------------------------
+
+# [moe]: grok-1-314b and llama4-maverick-400b-a17b at published width
+# (d_model, heads, d_ff, experts, top-k, vocab, bf16), depth cut to what
+# one card holds beside what earlier phases keep.  Reckoned from the
+# configs: an MoE layer's experts take 9.66 GB (grok-1) and 32.2 GB
+# (llama4); embedding and untied head 3.2 and 4.1 GB; so grok-1 4 layers
+# (≈ 42.6 GB) and llama4 1 layer (≈ 36.5 GB), one model at a time.  Batch
+# 4, prompt 2048 (the expert hiddens of 8192 tokens stay near 1 GB), 32
+# new tokens.
+MOE_RUN = dict(batch=4, prompt_len=2048, new_tokens=32)
+MOE_DEPTHS = {"grok-1-314b": 4, "llama4-maverick-400b-a17b": 1}
+# The card's bf16 moe_apply at layer 0 against the MoE formula in f32 on
+# the same weights and routing (one expert at a time, the expert's
+# assignments in (token, rank) order up to the capacity), on the first
+# MOE_CHECK_TOKENS tokens of layer 0's prefill input pushed MOE_SKEW along
+# the router's expert-0 column, so expert 0 overflows and the capacity
+# cut decides which tokens it serves.  Reading: max |out − f32| over the
+# rows, over the rms of the f32 output's nonzero rows.  Two planted faults
+# (the cut keeping each expert's last assignments instead of its first;
+# one slot more a expert) are read the same way and must land above the
+# gate.
+MOE_CHECK_TOKENS = 2048
+MOE_SKEW = 4.0
+# Readings on the H100 80GB HBM3 at 700 W: sound 7.389e-02 (grok-1),
+# 2.040e-02 (llama4); the faults at least 8.238 and 3.917; the gate is
+# about the geometric mean of the larger sound and the weaker fault's.
+MOE_GATE = 0.5
+# [hybrid]: recurrentgemma-2b whole (26 layers: 18 rglru, 8 local_attn of
+# head_dim 256, 10 query heads and 1 KV head, window 2048) at published
+# width, bf16; batch 4, prompt 8192 (past the window: ring caches), 32
+# new tokens.
+HYBRID = dict(arch="recurrentgemma-2b", batch=4, prompt_len=8192,
+              new_tokens=32)
+HYBRID_HEADS = dict(h=10, hkv=1, d=256, window=2048)
+HYBRID_FLASH_PER_PREFILL = 8
+# Prefill S − 1, decode one, against prefill S, as [lm consistency], but
+# in f32 (the served weights cast): in bf16 the two paths' rounding,
+# through 26 random layers, reads 0.172 on the H100, beside planted
+# faults of 0.195 (ring slots zeroed) and 0.227 (position S − 2), too
+# close to gate; the bf16 reading is logged.  Planted faults: decoding at
+# S − 2, every rglru layer's h zeroed, one 64-slot block of every
+# attention layer's ring zeroed.  Readings in f32 on the H100 80GB HBM3 at
+# 700 W: sound 4.470e-05; faults 1.336e-01, 2.644 and 9.909e-02; the
+# limit is about the geometric mean of the sound and the weakest fault's,
+# a factor 45–50 from each.
+HYBRID_CONSIST_S = 6000
+HYBRID_CONSIST_TOL = 2e-3
+HYBRID_FAULT_SLOTS = (0, 64)
+# The card's log-depth scan against a sequential float64 recurrence on
+# layer 0's (a, b) at the [hybrid] prompt, batch row 0, the first
+# SCAN_CHANNELS channels: max |h − h64| / max |h64|.  Planted faults:
+# the combine with the left element's a where the right one's belongs,
+# and the scan of a and b rounded to bf16.  Readings on the H100 80GB
+# HBM3 at 700 W: sound 9.566e-08, faults 5.059e-01 and 2.505e-03; the
+# gate is about the geometric mean of the sound and the weaker fault's.
+SCAN_CHANNELS = 256
+SCAN_GATE = 1.5e-5
+
+
+def moe_plain_f32(torch, p, x, cfg):
+    """The MoE layer's formula in f32, written independently of the
+    port's dispatch: routing from ``moe.route`` (the bf16 router product),
+    then per expert its assignments in (token, rank) order up to the
+    capacity, its three products in f32 on the expert's weights cast one
+    expert at a time, combined with the routing weights."""
+    from repro_torch.models.layers import moe
+    from repro_torch.models.layers.mlp import _act
+
+    m = cfg.moe
+    d = x.shape[-1]
+    xt = x.reshape(-1, d)
+    _, top_w, top_e = moe.route(p, xt, cfg)
+    t, k = top_e.shape
+    cap = max(int(-(-(t * k) // m.n_experts) * m.capacity_factor), 1)
+    flat_e, flat_w = top_e.reshape(-1), top_w.reshape(-1)
+    xf = xt.float()
+    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    for e in range(m.n_experts):
+        idx = torch.nonzero(flat_e == e)[:, 0][:cap]
+        if idx.numel() == 0:
+            continue
+        tok = idx // k
+        xe = xf[tok]
+        h = _act(cfg.activation, xe @ p["w1"][e].float())
+        if m.gated:
+            h = h * (xe @ p["w3"][e].float())
+        y = h @ p["w2"][e].float()
+        out.index_add_(0, tok, y * flat_w[idx][:, None])
+    return out.reshape(x.shape)
+
+
+def moe_reversed_dispatch(torch):
+    """A planted fault: ``_dispatch_group`` whose capacity cut keeps each
+    expert's last assignments (sorted by expert, then token descending)."""
+    def dispatch(xt, flat_e, e, cap, topk):
+        d, tk = xt.shape[1], flat_e.shape[0]
+        ar = torch.arange(tk, device=xt.device)
+        sort_idx = torch.argsort(flat_e * tk + (tk - 1 - ar), stable=True)
+        sorted_e = flat_e[sort_idx]
+        counts = torch.bincount(flat_e, minlength=e)
+        starts = torch.cumsum(counts, 0) - counts
+        pos = ar - starts[sorted_e]
+        keep = pos < cap
+        dest = torch.where(keep, sorted_e * cap + pos, e * cap)
+        buf = torch.zeros((e * cap + 1, d), dtype=xt.dtype, device=xt.device)
+        buf.index_add_(0, dest, xt[sort_idx // topk]
+                       * keep[:, None].to(xt.dtype))
+        return buf[:e * cap].reshape(e, cap, d), dest, keep, sort_idx, counts
+    return dispatch
+
+
+def moe_layer_check(torch, tag, p, h, cfg):
+    """Layer 0's bf16 moe_apply on the card against ``moe_plain_f32`` on
+    the skewed tokens, beside two planted faults; returns the readings."""
+    from repro_torch.models.layers import moe
+
+    x = h.reshape(-1, h.shape[-1])[:MOE_CHECK_TOKENS][None]
+    r0 = p["router"][:, 0].float()
+    x = (x.float() + MOE_SKEW * r0 / r0.norm()).to(h.dtype).contiguous()
+    want = moe_plain_f32(torch, p, x, cfg)
+    nonzero = want.reshape(-1, want.shape[-1]).abs().amax(-1) > 0
+    scale = float(want.reshape(-1, want.shape[-1])[nonzero].pow(2).mean()
+                  .sqrt())
+
+    def reading():
+        got, _ = moe.moe_apply(p, x, cfg)
+        return float((got.float() - want).abs().max()) / scale
+
+    counts, kept, cap = moe.dispatch_counts(p, x, cfg)
+    sound = reading()
+    real_dispatch, real_cap = moe._dispatch_group, moe.expert_capacity
+    try:
+        moe._dispatch_group = moe_reversed_dispatch(torch)
+        f_order = reading()
+        moe._dispatch_group = real_dispatch
+        moe.expert_capacity = lambda tk, e, f: real_cap(tk, e, f) + 1
+        f_cap = reading()
+    finally:
+        moe._dispatch_group, moe.expert_capacity = real_dispatch, real_cap
+    routed = counts[:4].tolist()
+    log(f"{tag} layer 0 bf16 moe_apply vs f32 formula on {x.shape[1]} "
+        f"tokens skewed {MOE_SKEW} toward expert 0 (routed {routed}..., "
+        f"cap {cap}, dropped {int((counts - kept).sum())}; "
+        f"{int(nonzero.sum())} nonzero rows, rms {scale:.4e}): max_err/rms "
+        f"= {sound:.4e} (gate {MOE_GATE}); planted faults: last "
+        f"assignments kept {f_order:.4e}, one slot more {f_cap:.4e}")
+    need(int(counts[0]) > cap, "the skewed tokens did not overflow "
+         "expert 0")
+    need(sound <= MOE_GATE, f"{tag} bf16 moe_apply disagrees with the f32 "
+         "formula")
+    need(min(f_order, f_cap) > MOE_GATE, f"{tag} the MoE gate does not "
+         "see a planted fault")
+    return {"sound": sound, "reversed_order": f_order, "cap_plus_1": f_cap}
+
+
+def phase_moe(torch):
+    """grok-1 and llama4-maverick at published width through serve_lm,
+    depth cut (MOE_DEPTHS), one model at a time: flash launches = layers ×
+    prefills, greedy and top-k checks, layer 0's routed, kept and dropped
+    assignments per expert against the capacity, a finite aux loss, and
+    layer 0 in bf16 against the f32 formula (MOE_GATE)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import moe
+
+    out = {}
+    for arch, depth in MOE_DEPTHS.items():
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        seen = []
+        real = transformer.moe_apply
+
+        def spy(p, x, cfg):
+            if not seen:          # layer 0's input in the first prefill
+                seen.append(x)
+            return real(p, x, cfg)
+
+        transformer.moe_apply = spy
+        try:
+            runs, launches, peak, held = serve_runs(
+                torch, "[moe]", arch, MOE_RUN, n_layers=depth)
+        finally:
+            transformer.moe_apply = real
+        res = runs["top-k"]
+        cfg, model, params = res["cfg"], res["model"], res["params"]
+        a, m = cfg.attn, cfg.moe
+        log(f"[moe] {cfg.name} published width: d_model {cfg.d_model}, "
+            f"{a.n_heads} query / {a.n_kv_heads} KV heads of {a.head_dim}, "
+            f"softcap {a.softcap}, d_ff {cfg.d_ff}, {m.n_experts} experts "
+            f"top-{m.top_k}, capacity factor {m.capacity_factor}, vocab "
+            f"{cfg.vocab_size}, {cfg.dtype}; depth cut: {depth} of "
+            f"{full.n_layers} layers; random weights (seed 0); batch "
+            f"{MOE_RUN['batch']}, prompt {MOE_RUN['prompt_len']}, "
+            f"{MOE_RUN['new_tokens']} new tokens")
+        log(f"[moe] {cfg.name} max_memory_allocated={peak} bytes, "
+            f"{peak - held} above the {held} that earlier phases hold; "
+            f"flash_attention launches={launches}")
+        need(launches == 2 * depth, f"{arch}: flash_attention launched "
+             f"{launches} times in two prefills of {depth} layers")
+        check_first_tokens(torch, "[moe]", runs, MOE_RUN["new_tokens"])
+        p0 = params["layers"][0]["moe"]
+        counts, kept, cap = moe.dispatch_counts(p0, seen[0], cfg)
+        t = seen[0].shape[0] * seen[0].shape[1]
+        dropped = counts - kept
+        log(f"[moe] {cfg.name} layer 0 of the prefill: {t} tokens x top-"
+            f"{m.top_k} over {m.n_experts} experts, cap {cap}; routed "
+            f"{counts.tolist()}; dropped {dropped.tolist()} "
+            f"({int(dropped.sum())} of {t * m.top_k})")
+        need(int(counts.sum()) == t * m.top_k, "routed assignments do not "
+             "add up to T·k")
+        need(torch.equal(kept, torch.clamp(counts, max=cap)),
+             "an expert kept other than min(routed, cap)")
+        x = model._embed_tokens(params, res["prompt"])
+        _, _, aux = model._backbone(params, x, impl="kernel")
+        log(f"[moe] {cfg.name} aux loss over {depth} layers: {float(aux):.6f}")
+        need(bool(torch.isfinite(aux)), "the MoE aux loss is not finite")
+        readings = moe_layer_check(torch, f"[moe] {cfg.name}", p0, seen[0],
+                                   cfg)
+        phase_profile(torch, served_profile_runs(f"moe {arch}", res))
+        out[arch] = {"layers": depth, "published_layers": full.n_layers,
+                     "prefill_s": res["prefill_s"],
+                     "decode_s_per_token": res["decode_s_per_token"],
+                     "peak": peak, "launches": launches, **readings}
+        del runs, res, model, params, p0, seen, x
+        torch.cuda.empty_cache()
+        log(f"[moe] {cfg.name} took {time.perf_counter() - t_arch:.1f} s")
+    return out
+
+
+def scan_left_a(torch, a, b):
+    """A planted fault: the Hillis–Steele scan whose combine multiplies
+    the earlier element's b by its own a instead of the later one's."""
+    s, step = a.shape[1], 1
+    while step < s:
+        a_new, b_new = a.clone(), b.clone()
+        a_new[:, step:] = a[:, step:] * a[:, :-step]
+        b_new[:, step:] = a[:, :-step] * b[:, :-step] + b[:, step:]
+        a, b = a_new, b_new
+        step *= 2
+    return b
+
+
+def phase_hybrid_scan(torch, p, x, cfg):
+    """Layer 0's (a, b) from its prefill input x: the card's linear_scan
+    against a sequential float64 recurrence on the CPU (batch row 0, the
+    first SCAN_CHANNELS channels), beside two planted faults."""
+    import numpy as np
+
+    from repro_torch.models.layers import rglru
+
+    branch = x @ p["w_in"]
+    xc = rglru._causal_conv(branch, p["conv"])
+    a, b = rglru._gates(p, xc, cfg.recurrent.c_exponent)
+    a, b = a[:1, :, :SCAN_CHANNELS], b[:1, :, :SCAN_CHANNELS]
+    s = a.shape[1]
+    h = rglru.linear_scan(a, b)
+    bf16 = rglru.linear_scan(a.bfloat16().float(), b.bfloat16().float())
+    left = scan_left_a(torch, a, b)
+    a64, b64 = a[0].double().cpu().numpy(), b[0].double().cpu().numpy()
+    h64 = np.empty_like(b64)
+    hh = np.zeros(b64.shape[1])
+    for i in range(s):
+        hh = a64[i] * hh + b64[i]
+        h64[i] = hh
+    top = float(np.abs(h64).max())
+
+    def rel(hc):
+        return float(np.abs(hc[0].double().cpu().numpy() - h64).max()) / top
+
+    sound, f_left, f_bf16 = rel(h), rel(left), rel(bf16)
+    log(f"[hybrid] scan: layer 0's (a, b) at S {s}, {SCAN_CHANNELS} "
+        f"channels (a in [{float(a.min()):.4f}, {float(a.max()):.4f}]): "
+        f"max|h - h64|/max|h64| = {sound:.4e} (gate {SCAN_GATE}); planted "
+        f"faults: the left a in the combine {f_left:.4e}, a and b in bf16 "
+        f"{f_bf16:.4e}")
+    need(sound <= SCAN_GATE, "the scan disagrees with the float64 "
+         "recurrence")
+    need(min(f_left, f_bf16) > SCAN_GATE, "the scan gate does not see a "
+         "planted fault")
+    return {"sound": sound, "left_a": f_left, "bf16": f_bf16}
+
+
+def phase_hybrid_consistency(torch, model, params):
+    """Prefill S − 1 tokens (ring caches and RG-LRU states), decode token
+    S − 1, against the last logits of prefilling all S: in f32 on the
+    served weights cast to f32, within HYBRID_CONSIST_TOL, three planted
+    faults above it; the same in bf16, logged."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    cfg = model.cfg
+    s = HYBRID_CONSIST_S
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, s), generator=gen,
+                        device="cuda", dtype=torch.int32)
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v) for v in tree]
+        return tree.float()
+
+    def readings(m, p, faults):
+        want, _ = m.prefill(p, {"tokens": tok})
+        _, cache = m.prefill(p, {"tokens": tok[:, :-1]})
+
+        def decode(pos, fault=None):
+            layers = [type(lc)(*(t.clone() for t in lc))
+                      for lc in cache["layers"]]
+            for i, lc in enumerate(layers):
+                if fault == "h" and m.kind(i) == "rglru":
+                    lc.h.zero_()
+                if fault == "slots" and m.kind(i) != "rglru":
+                    lc.k[:, HYBRID_FAULT_SLOTS[0]:HYBRID_FAULT_SLOTS[1]] = 0
+                    lc.v[:, HYBRID_FAULT_SLOTS[0]:HYBRID_FAULT_SLOTS[1]] = 0
+            out, _ = m.decode_step(p, {"layers": layers}, tok[:, -1:],
+                                   torch.full((2,), pos, dtype=torch.int32,
+                                              device="cuda"))
+            return float((out.float() - want.float()).abs().max())
+
+        found = {}
+        if faults:
+            found = {"position S-2": decode(s - 2),
+                     "rglru h zeroed": decode(s - 1, "h"),
+                     f"ring slots {HYBRID_FAULT_SLOTS[0]}:"
+                     f"{HYBRID_FAULT_SLOTS[1]} zeroed": decode(s - 1,
+                                                               "slots")}
+        ring = [lc for i, lc in enumerate(cache["layers"])
+                if m.kind(i) != "rglru"][0].k.shape[1]
+        return decode(s - 1), found, ring, float(want.float().abs().max())
+
+    err16, _, _, _ = readings(model, params, False)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    err, faults, ring, top = readings(build_model(cfg32), cast(params), True)
+    torch.cuda.empty_cache()
+    log(f"[hybrid consistency] S={s}, ring caches of {ring} slots, batch "
+        f"2, f32 (the served weights cast): max|decode - prefill| = "
+        f"{err:.4e} (tolerance {HYBRID_CONSIST_TOL}), logits max "
+        f"{top:.3f}; planted faults: "
+        + ", ".join(f"{k} {v:.4e}" for k, v in faults.items())
+        + f"; bf16, as served: {err16:.4e}")
+    need(ring < s - 1, "the consistency check did not reach a ring cache")
+    need(err <= HYBRID_CONSIST_TOL, "hybrid decode disagrees with prefill")
+    need(min(faults.values()) > HYBRID_CONSIST_TOL,
+         "the hybrid consistency gate does not see a planted fault")
+    return err, faults, err16
+
+
+def served_profile_runs(tag, res):
+    """One prefill of a served run's prompt and 4 greedy decode steps
+    from its cache (made before the profiled window), for
+    ``phase_profile``."""
+    model, params, prompt = res["model"], res["params"], res["prompt"]
+    _, cache = model.prefill(params, {"tokens": prompt})
+    tok = res["tokens"][:, :1].contiguous()
+
+    def decode4():
+        for i in range(4):
+            model.decode_step(params, cache, tok, cache["step_offset"] + i)
+
+    return {f"{tag} prefill": lambda: model.prefill(params,
+                                                   {"tokens": prompt}),
+            f"{tag} decode x4": decode4}
+
+
+def phase_hybrid(torch):
+    """recurrentgemma-2b whole at published width through serve_lm: 8
+    flash launches per prefill (kernel 8 at head_dim 256), greedy and
+    top-k checks, prefill → decode consistency, the scan against float64."""
+    from repro_torch.models import transformer
+
+    seen = []
+    real = transformer.rglru_apply
+
+    def spy(p, x, cfg, state=None):
+        if not seen:              # layer 0's input in the first prefill
+            seen.append(x)
+        return real(p, x, cfg, state)
+
+    transformer.rglru_apply = spy
+    run = {k: v for k, v in HYBRID.items() if k != "arch"}
+    try:
+        runs, launches, peak, held = serve_runs(torch, "[hybrid]",
+                                                HYBRID["arch"], run)
+    finally:
+        transformer.rglru_apply = real
+    res = runs["top-k"]
+    cfg, model, params = res["cfg"], res["model"], res["params"]
+    kinds = [model.kind(i) for i in range(cfg.n_layers)]
+    log(f"[hybrid] {cfg.name} published width, whole: {cfg.n_layers} "
+        f"layers ({kinds.count('rglru')} rglru of width "
+        f"{cfg.recurrent.width}, {kinds.count('local_attn')} local_attn: "
+        f"{cfg.attn.n_heads} query / {cfg.attn.n_kv_heads} KV heads of "
+        f"{cfg.attn.head_dim}, window {cfg.attn.window}), d_model "
+        f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (tied), "
+        f"{cfg.dtype}; random weights (seed 0); batch {HYBRID['batch']}, "
+        f"prompt {HYBRID['prompt_len']}, {HYBRID['new_tokens']} new tokens")
+    log(f"[hybrid] max_memory_allocated={peak} bytes, {peak - held} above "
+        f"the {held} that earlier phases hold; flash_attention "
+        f"launches={launches} ({launches / 2:g} per prefill)")
+    need(launches == 2 * HYBRID_FLASH_PER_PREFILL,
+         f"flash_attention launched {launches} times in two prefills, not "
+         f"{HYBRID_FLASH_PER_PREFILL} each")
+    check_first_tokens(torch, "[hybrid]", runs, HYBRID["new_tokens"])
+    err, faults, err16 = phase_hybrid_consistency(torch, model, params)
+    scan = phase_hybrid_scan(torch, params["layers"][0]["rglru"], seen[0],
+                             cfg)
+    phase_profile(torch, served_profile_runs("hybrid", res))
+    out = {"prefill_s": res["prefill_s"],
+           "decode_s_per_token": res["decode_s_per_token"], "peak": peak,
+           "launches": launches, "consistency": err,
+           "consistency_bf16": err16, "faults": faults,
+           "scan": scan}
+    del runs, res, model, params, seen
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3295,6 +3810,86 @@ def phase_sharded_timing(torch):
     return out
 
 
+def phase_serve_timing(torch, per):
+    """Kernels 1, 3, 4 and 5 at the shapes ``[serve]``'s 8-lane DASH
+    buckets give them (the default ServePolicy's m = 4; d1 at the main
+    D1, b = 10; the design at the design main, b = 8), f32: kernel, plain
+    version and a cuBLAS yardstick (CUDA events) beside the bound, with
+    the launches ``[serve]`` counted (``per``, by tenant)."""
+    from repro_torch.kernels.aopt_gains import aopt_gains, aopt_gains_ref
+    from repro_torch.kernels.filter_gains import (
+        aopt_filter_gains,
+        aopt_filter_gains_lattice_ref,
+        filter_gains,
+        filter_gains_lattice_ref,
+    )
+    from repro_torch.kernels.marginal_gains import (
+        regression_gains,
+        regression_gains_ref,
+    )
+    from repro_torch.serve import ServePolicy
+
+    out = {}
+    G, m = SERVE_ADMISSION["max_batch"], ServePolicy().n_samples
+
+    def row(name, tenant, shape, t, p, bd_by, lib, lib_what):
+        bd, by = bd_by[:2]
+        launches = per.get(tenant, {}).get(name, 0)
+        out[name] = {"shape": shape, "launches": launches, "ms": t,
+                     "plain_ms": p, "bound_ms": bd, "bound_by": by,
+                     "library_ms": lib}
+        lib_s = "n/a" if lib is None else f"{lib:.4f} ({lib_what})"
+        log(f"[timing] {name:17s} f32 serve shape {shape}: kernel_ms="
+            f"{t:.4f} plain_ms={p:.4f} bound_ms={bd:.4f} ({by}) "
+            f"library_ms={lib_s} bound/kernel={bd / t:.3f}; launches in "
+            f"[serve] ({tenant}) {launches}")
+
+    d, n, k, b = MAIN["d"], MAIN["n"], MAIN["k"], MAIN_BLOCK
+    X, Q, D, R, csq = make_operands(torch, d, n, k, b, m, G, seed=29)
+    rG = R[:, 0].contiguous()
+    qt = Q.permute(0, 2, 1).reshape(-1, d).contiguous()
+    row("regression_gains", "d1", f"d={d} n={n} G={G} k={k}",
+        time_ms(torch, lambda: regression_gains(X, Q, rG, csq)),
+        time_ms(torch, lambda: regression_gains_ref(X, Q, rG, csq)),
+        bound(2.0 * d * n * (k + 1) * G,
+              4 * (d * n + G * d * k + G * d + n + G * n)),
+        time_ms(torch, lambda: qt @ X), "cuBLAS f32 Q^T X of the G lanes")
+    stacked = torch.cat([qt, D.permute(0, 1, 3, 2).reshape(-1, d),
+                         R.reshape(-1, d)]).contiguous()
+    row("filter_gains", "d1", f"d={d} n={n} G={G} m={m} b={b}",
+        time_ms(torch, lambda: filter_gains(X, Q, D, R, csq)),
+        time_ms(torch, lambda: filter_gains_lattice_ref(X, Q, D, R, csq)),
+        bound(2.0 * d * n * (G * k + G * m * (b + 1)),
+              4 * (d * n + G * d * k + G * m * d * b + G * m * d + n
+                   + G * m * n)),
+        time_ms(torch, lambda: stacked @ X),
+        "cuBLAS f32 stacked [Q;D;R]^T X")
+    del X, Q, D, R, csq, qt, stacked
+    d, n, b = DESIGN["d"], DESIGN["n"], DESIGN_BLOCK
+    X, W, E, F, isig2 = make_aopt_operands(torch, d, n, G, m, b, n_sel=64,
+                                           seed=31)
+    row("aopt_gains", "design", f"d={d} n={n} G={G}",
+        time_ms(torch, lambda: aopt_gains(X, W, isig2)),
+        time_ms(torch, lambda: aopt_gains_ref(X, W, isig2)),
+        bound(4.0 * d * n * G + 3.0 * G * n, 4 * (d * n * (1 + G) + G * n)),
+        None, "")
+    et = E.permute(0, 1, 3, 2).reshape(G, m * b, d)
+    et_all = et.reshape(G * m * b, d).contiguous()
+    et = et.contiguous()
+    row("aopt_filter_gains", "design", f"d={d} n={n} G={G} m={m} b={b}",
+        time_ms(torch, lambda: aopt_filter_gains(X, W, E, F, isig2)),
+        time_ms(torch, lambda: aopt_filter_gains_lattice_ref(X, W, E, F,
+                                                             isig2)),
+        bound(4.0 * d * n * G + G * m * n * (4.0 * d * b + 2.0 * b * b
+                                             + 6.0 * b + 6.0),
+              4 * (d * n * (1 + G) + G * m * (d * b + b * b + n))),
+        time_ms(torch, lambda: (et_all @ X, torch.bmm(et, W))),
+        "cuBLAS f32 E^T X and E_g^T W_g only")
+    del X, W, E, F, et, et_all
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_aopt_timing(torch, worst, launches):
     from repro_torch.kernels.aopt_gains import aopt_gains, aopt_gains_ref
     from repro_torch.kernels.common import quantize
@@ -3762,22 +4357,8 @@ def slice6_profile_runs(torch, design, lm):
     }
 
 
-def lm_profile_runs(torch, lm):
-    """One prefill of the lm main phase, and 4 greedy decode steps from
-    its cache (the cache is made before the profiled window)."""
-    model, params, prompt = lm["model"], lm["params"], lm["prompt"]
-    _, cache = model.prefill(params, {"tokens": prompt})
-    tok = lm["tokens"][:, :1].contiguous()
-
-    def decode4():
-        for i in range(4):
-            model.decode_step(params, cache, tok, cache["step_offset"] + i)
-
-    return {"lm prefill": lambda: model.prefill(params, {"tokens": prompt}),
-            "lm decode x4": decode4}
-
-
-# The kernels of csrc/*.cu by name, as the profiler lists them.
+# The kernels of csrc/*.cu by name, as the profiler lists them (kernel 8's
+# are flash_wgmma_kernel, flash_mma_kernel and flash_simt_kernel).
 OWN_KERNEL = re.compile(r"gains_|epilogue_kernel|aopt_filter|flash_")
 
 
@@ -3935,8 +4516,14 @@ def main() -> int:
     sharded_launches = phase_sharded(torch, out, design, cls)
     log(f"[sharded] done at {time.perf_counter() - t0:.1f} s; the phase "
         f"took {time.perf_counter() - t7:.1f} s")
-    phase_serve(torch, out, design)
+    serve_per = phase_serve(torch, out, design)
     log(f"[serve] done at {time.perf_counter() - t0:.1f} s")
+    t9 = time.perf_counter()
+    phase_moe(torch)
+    log(f"[moe] done at {time.perf_counter() - t0:.1f} s")
+    hybrid = phase_hybrid(torch)
+    log(f"[hybrid] done at {time.perf_counter() - t0:.1f} s; slice 9's "
+        f"phases took {time.perf_counter() - t9:.1f} s")
     t_timing = time.perf_counter()
     rows = phase_timing(torch, worst, launches)
     rows += phase_aopt_timing(torch, worst, launches)
@@ -3945,7 +4532,13 @@ def main() -> int:
     sharded_rows = phase_sharded_timing(torch)
     fast_rows = phase_fast_timing(torch, out["objective"], fast_launches)
     coreset_rows = phase_coreset_timing(torch, coreset["launches"])
+    serve_rows = phase_serve_timing(torch, serve_per)
+    hybrid_row = phase_hybrid_flash_timing(torch, hybrid["launches"])
     for row in rows:
+        if row["name"] in serve_rows:
+            row["serve_shape"] = serve_rows[row["name"]]
+        if row["name"] == "flash_attention":
+            row["hybrid_d256_shape"] = hybrid_row
         if row["name"] in fast_rows:
             row["fast_prefix_shape"] = fast_rows[row["name"]]
         if row["name"] in coreset_rows:
@@ -3958,7 +4551,7 @@ def main() -> int:
     runs = profile_runs(out, design, cls,
                         float(registry["rows"]["fast"]["result"].raw.opt))
     runs.update(slice6_profile_runs(torch, design, lm))
-    runs.update(lm_profile_runs(torch, lm))
+    runs.update(served_profile_runs("lm", lm))
     phase_profile(torch, runs)
     log(f"[profile] done at {time.perf_counter() - t0:.1f} s")
     log(f"[smoke] total {time.perf_counter() - t0:.1f} s")

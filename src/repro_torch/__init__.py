@@ -8,7 +8,8 @@ selection for sparse regression on one device
 design (``repro_torch.experimental_design``); slice 3 feature selection
 for logistic classification (``repro_torch.classification``); slice 4
 LM serving, prefill and decode of the dense attention-only archs
-(``repro_torch.serve_lm``); slice 5 the ``select`` registry and the
+(``repro_torch.serve_lm``), joined in slice 9 by the MoE archs (grok-1,
+llama4-maverick) and the RG-LRU hybrid (recurrentgemma); slice 5 the ``select`` registry and the
 paper's §5 roster — lazy and stochastic greedy, FAST, adaptive
 sequencing, LASSO — with the §5 comparison
 (``repro_torch.bench_selection``); slice 6 the other objectives (R²,
@@ -41,11 +42,11 @@ Layers:
                          simulator, elastic meshes and resharding
   repro_torch.data     — the paper's synthetic D1–D4 and D1 design data
                          (numpy only)
-  repro_torch.configs  — the dense LM configs (copies of the JAX
-                         package's) and their registry
-  repro_torch.models   — the dense decoder LM: norms, RoPE, MLP,
-                         attention with KV and ring caches, prefill and
-                         decode
+  repro_torch.configs  — the LM configs (copies of the JAX package's:
+                         dense, MoE, hybrid) and their registry
+  repro_torch.models   — the decoder LM: norms, RoPE, MLP, MoE,
+                         attention with KV and ring caches, RG-LRU with
+                         its state, prefill and decode
   repro_torch.lm_serve — prefill/decode steps, sampling, ``generate``
   repro_torch.convert  — numpy state in, port state out (parity tests)
 

@@ -11,8 +11,9 @@ a G-lane state.
 
 ``model_params_from_numpy`` carries an LM's parameters across: the
 reference's pytree (``embed``, ``lm_head``, ``final_norm``, and
-``blocks`` stacked over layers) as numpy arrays becomes the port's dict
-with one entry per layer in ``layers``.
+``blocks``, one subtree per pattern position stacked over super-blocks)
+as numpy arrays becomes the port's dict with one entry per layer in
+``layers``.
 """
 
 from __future__ import annotations
@@ -126,9 +127,10 @@ def classification_state_from_numpy(sel_idx, sel_k, w, eta, sel_mask, value,
 
 def model_params_from_numpy(cfg, params_np, device=None) -> dict:
     """The port's LM parameters from the reference's pytree of numpy
-    arrays: the stacked ``blocks`` (one pattern position, leaves with a
-    leading layer axis) are split into ``layers``, one dict per layer;
-    every leaf goes to ``device`` in ``cfg.param_dtype``."""
+    arrays: ``blocks[j]`` holds pattern position j, each leaf with a
+    leading super-block axis; layer i is ``blocks[i % period]`` at
+    super-block ``i // period``.  Every leaf goes to ``device`` in
+    ``cfg.param_dtype``."""
     check_supported(cfg)
     dev = resolve_device(device)
     pdt = dtype_of(cfg.param_dtype)
@@ -141,7 +143,12 @@ def model_params_from_numpy(cfg, params_np, device=None) -> dict:
         return torch.from_numpy(np.array(a, copy=True)).to(dtype=pdt,
                                                             device=dev)
 
-    (blocks,) = params_np["blocks"]
+    blocks = params_np["blocks"]
+    period = cfg.pattern_period
+    if len(blocks) != period:
+        raise ValueError(f"{cfg.name}: {len(blocks)} pattern positions in "
+                         f"blocks, the config's pattern has {period}")
     out = {k: tree(v) for k, v in params_np.items() if k != "blocks"}
-    out["layers"] = [tree(blocks, i) for i in range(cfg.n_layers)]
+    out["layers"] = [tree(blocks[i % period], i // period)
+                     for i in range(cfg.n_layers)]
     return out

@@ -314,3 +314,12 @@ class RegressionObjective:
                           self.span_tol)
         return filter_gains(X_local, ds.Q, D, R, ds.col_sq,
                             precision=self.precision) / self.ysq
+
+    # -- exact reference (tests) ------------------------------------------
+    def brute_value(self, sel_idx):
+        """f(S) for the index list ``sel_idx`` by a full least-squares
+        solve: the oracle of the property tests."""
+        Xs = self.X[:, torch.as_tensor(sel_idx, device=self.device).long()]
+        w = torch.linalg.lstsq(Xs, self.y[:, None]).solution[:, 0]
+        resid = self.y - Xs @ w
+        return (self.ysq - torch.sum(resid * resid)) / self.ysq

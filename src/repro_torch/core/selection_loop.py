@@ -336,10 +336,13 @@ class RoundCheckpointer:
         self.manager = CheckpointManager(cfg.ckpt_dir, every=1,
                                          keep=cfg.keep_last)
 
-    def save(self, rounds_done: int, carry, *, extra: dict | None = None):
+    def save(self, rounds_done: int, carry, *, extra: dict | None = None,
+             blocking: bool = False):
+        """``blocking=True`` writes before returning even when the config
+        saves asynchronously."""
         self.manager.maybe_save(
             rounds_done, carry_snapshot(carry),
-            blocking=not self.cfg.async_save,
+            blocking=blocking or not self.cfg.async_save,
             extra={**(extra or {}), "round": int(rounds_done)})
 
     def wait(self, *, raise_errors: bool = True):

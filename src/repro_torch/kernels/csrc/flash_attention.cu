@@ -29,7 +29,7 @@
 // that no exp(−inf + inf) makes a NaN.
 //
 // Three kernels, chosen by dtype and head_dim:
-//   * bf16, D ∈ {64, 80, 128} — the serving path: flash_wgmma_kernel.
+//   * bf16, D ∈ {64, 80, 128, 256} — the serving path: flash_wgmma_kernel.
 //     - One K/V tile per GQA group.  A CTA owns (b, KV head, a run of
 //       positions) and stacks the n_rep query heads of the group into the
 //       rows of its 192-row tile: row r is (position q0 + r / n_rep, head
@@ -50,6 +50,11 @@
 //       descriptors, O += P·V is m64nDk16 with P as register A operand and
 //       V read MN-major (imm-trans-b) straight from the ring, so nothing
 //       is transposed.
+//     - D 256 (recurrentgemma's local attention): the same kernel with two
+//       consumer warpgroups at 232 registers (the 64 × 256 f32 output
+//       tile alone takes 128 a thread), 64-key blocks in a 2-stage ring
+//       (192 KB of shared memory with the 128-row Q tile), S = QKᵀ as
+//       m64n64k16 and O += P·V as two m64n128k16 halves.
 //     - Only KV blocks on the edge of the band (the diagonal, the window
 //       edge, the ragged end) test each (q, k) pair; blocks wholly inside
 //       it skip the mask.  exp2 is one FFMA and one MUFU.EX2 per score.
@@ -58,7 +63,8 @@
 //   * f32: CUDA cores (the tensor cores' f32 input is TF32, about three
 //     decimal digits, which cannot meet the reference's 2e-5): a 64 × 64
 //     score tile per CTA, each of 128 threads 4 rows × 8 keys, P through
-//     shared memory.
+//     shared memory (at D 256, 213,760 bytes of it, one CTA an SM; each
+//     thread holds 4 rows × 32 output columns).
 //
 // What bounds it on the H100: the tensor cores, with the special-function
 // units close behind.  The valid (q, k) pairs of one (b, h) cost 4·D
@@ -348,24 +354,33 @@ flash_mma_kernel(Params p) {
 // bf16, D ∈ {64, 80, 128}: wgmma over an asynchronous K/V ring
 // ---------------------------------------------------------------------------
 
-constexpr int NWG = 3;  // consumer warpgroups per CTA, 64 rows each
-// ... plus one producer warpgroup that only loads K and V.
-constexpr int WG_THREADS = 128 * (NWG + 1);
 constexpr int LOADERS = 128;  // the producer warpgroup's threads
-constexpr int BM = 64 * NWG;  // (position, head) rows per CTA
 // Registers per thread after setmaxnreg: the producer gives up its share
 // to the consumers (128·(PRODUCER_REGS + NWG·CONSUMER_REGS) ≤ 65536).
 // 40 rather than 56, which gives the consumers the same 152, measured
 // faster on the card.
 constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = (65536 / 128 - PRODUCER_REGS) / NWG / 8 * 8;
+
+// The CTA's warpgroups: NWG consumers of 64 rows each plus one producer
+// that only loads K and V.  Up to D 128 three consumers at 152 registers;
+// at D 256 a 64 × 256 f32 accumulator takes 128 registers a thread beside
+// the 64-key score tile's 32 and its bf16 copy's 16, so two consumers at
+// 232.
+template <int D>
+struct WgCfg {
+  static constexpr int NWG = D <= 128 ? 3 : 2;
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int BM = 64 * NWG;  // (position, head) rows per CTA
+  static constexpr int CONSUMER_REGS =
+      (65536 / 128 - PRODUCER_REGS) / NWG / 8 * 8;
+};
 
 template <int D>
 struct WgSmem {
   static constexpr int BK = D <= 80 ? 128 : 64;   // keys per K/V block
   static constexpr int STAGES = D <= 80 ? 3 : 2;  // K/V ring depth
   static constexpr int TILE = BK * D * 2;  // one K or V tile, bytes
-  static constexpr int Q = BM * D * 2;
+  static constexpr int Q = WgCfg<D>::BM * D * 2;
   static constexpr int BARS = 2 * STAGES * 8;  // full and empty mbarriers
   static constexpr int BYTES = Q + STAGES * 2 * TILE + BARS;
 };
@@ -517,6 +532,19 @@ struct Wgmma<128> {
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  // D[64 x 256] += A[64 x 16] · B[16 x 256] as two m64n128k16 products:
+  // columns 128–255 of B start 16 core matrices (2048 bytes, 128
+  // descriptor units) after columns 0–127 in the MN-major layout.
+  static __device__ __forceinline__ void rs(float (&d)[32][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    Wgmma<128>::rs(*reinterpret_cast<float(*)[16][4]>(&d[0]), a, db);
+    Wgmma<128>::rs(*reinterpret_cast<float(*)[16][4]>(&d[16]), a, db + 128);
   }
 };
 
@@ -747,9 +775,13 @@ __device__ __forceinline__ void pv(float (&acc)[D / 8][4],
 }
 
 template <int D>
-__global__ void __launch_bounds__(WG_THREADS, 1)
+__global__ void __launch_bounds__(WgCfg<D>::THREADS, 1)
 flash_wgmma_kernel(Params p) {
-  static_assert(D % 16 == 0 && D <= 128, "head_dim: a multiple of 16, ≤ 128");
+  static_assert(D % 16 == 0 && (D <= 128 || D == 256),
+                "head_dim: a multiple of 16, ≤ 128, or 256");
+  constexpr int NWG = WgCfg<D>::NWG;
+  constexpr int BM = WgCfg<D>::BM;
+  constexpr int WG_THREADS = WgCfg<D>::THREADS;
   constexpr int WBK = WgSmem<D>::BK;  // keys per K/V block
   constexpr int KT = D / 16;    // k-steps of QKᵀ
   constexpr int NT = WBK / 8;   // n8 column tiles of the score tile
@@ -840,7 +872,7 @@ flash_wgmma_kernel(Params p) {
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-      CONSUMER_REGS));
+      WgCfg<D>::CONSUMER_REGS));
 
   // This thread's two rows: r0 and r0 + 8 of its warpgroup's 64.
   const int r0 = wg * 64 + warp * 16 + g;
@@ -1132,8 +1164,9 @@ cudaError_t launch(K kernel, int bytes, int threads, dim3 grid,
   return cudaGetLastError();
 }
 
-// Query heads stacked into one wgmma CTA: the whole GQA group when it fits.
-int wgmma_group(int n_rep) { return min(n_rep, BM); }
+// Query heads stacked into one wgmma CTA of bm rows: the whole GQA group
+// when it fits.
+int wgmma_group(int n_rep, int bm) { return min(n_rep, bm); }
 
 template <int D>
 cudaError_t launch_d(int bf16, int B, Params p, cudaStream_t s) {
@@ -1143,12 +1176,13 @@ cudaError_t launch_d(int bf16, int B, Params p, cudaStream_t s) {
                   p, s);
   }
   if constexpr (D >= 64) {
-    p.group = wgmma_group(p.n_rep);
+    constexpr int BM = WgCfg<D>::BM;
+    p.group = wgmma_group(p.n_rep, BM);
     const int chunks = (p.n_rep + p.group - 1) / p.group;
     const int P = BM / p.group;
     const dim3 grid((p.Sq + P - 1) / P, (p.H / p.n_rep) * chunks, B);
-    return launch(flash_wgmma_kernel<D>, WgSmem<D>::BYTES, WG_THREADS, grid,
-                  p, s);
+    return launch(flash_wgmma_kernel<D>, WgSmem<D>::BYTES, WgCfg<D>::THREADS,
+                  grid, p, s);
   } else {
     const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
     return launch(flash_mma_kernel<D>, MmaSmem<D>::BYTES, THREADS, grid, p,
@@ -1184,8 +1218,8 @@ cudaError_t describe_d(int bf16, int* out) {
     return describe(flash_simt_kernel<D>, SimtSmem<D>::BYTES, THREADS, BQ, BK,
                     out);
   if constexpr (D >= 64) {
-    return describe(flash_wgmma_kernel<D>, WgSmem<D>::BYTES, WG_THREADS, BM,
-                    WgSmem<D>::BK, out);
+    return describe(flash_wgmma_kernel<D>, WgSmem<D>::BYTES,
+                    WgCfg<D>::THREADS, WgCfg<D>::BM, WgSmem<D>::BK, out);
   } else {
     return describe(flash_mma_kernel<D>, MmaSmem<D>::BYTES, THREADS, BQ, BK,
                     out);
@@ -1196,7 +1230,7 @@ cudaError_t describe_d(int bf16, int* out) {
 
 // q: (B, Sq, H, D), k and v: (B, Skv, Hkv, D), o: (B, Sq, H, D); all f32
 // (bf16 == 0) or all bf16, contiguous, 16-byte aligned, on the card.
-// H % Hkv == 0; D ∈ {16, 32, 64, 80, 128}.  Returns cudaGetLastError()
+// H % Hkv == 0; D ∈ {16, 32, 64, 80, 128, 256}.  Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for a head_dim it has no
 // kernel for.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -1215,6 +1249,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 64: err = launch_d<64>(bf16, B, p, s); break;
     case 80: err = launch_d<80>(bf16, B, p, s); break;
     case 128: err = launch_d<128>(bf16, B, p, s); break;
+    case 256: err = launch_d<256>(bf16, B, p, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -1230,6 +1265,7 @@ extern "C" int flash_attention_kernel_info(int bf16, int D, int* out) {
     case 64: err = describe_d<64>(bf16, out); break;
     case 80: err = describe_d<80>(bf16, out); break;
     case 128: err = describe_d<128>(bf16, out); break;
+    case 256: err = describe_d<256>(bf16, out); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -2,8 +2,8 @@
 
 On a CUDA tensor ``flash_attention`` launches the hand-written kernel of
 ``csrc/flash_attention.cu``: for bf16 the tensor cores (wgmma over a K/V
-ring that each GQA group shares at head_dim 64, 80 and 128; mma.sync at
-16 and 32), for f32 the CUDA cores.  It raises on what the kernel cannot
+ring that each GQA group shares at head_dim 64, 80, 128 and 256;
+mma.sync at 16 and 32), for f32 the CUDA cores.  It raises on what the kernel cannot
 take — another dtype, mixed dtypes,
 a non-contiguous or unaligned tensor, H % Hkv ≠ 0, a head_dim outside
 ``KERNEL_HEAD_DIMS`` — and on a failed launch.  On a CPU tensor it runs
@@ -25,7 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import use_kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-KERNEL_HEAD_DIMS = (16, 32, 64, 80, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_YZ = 65535   # gridDim.y (heads) and gridDim.z (batch)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -1,4 +1,4 @@
-"""The port's LM substrate: the dense decoder ``Model`` and its layers."""
+"""The port's LM substrate: the decoder ``Model`` and its layers."""
 
 from repro_torch.models.registry import build_model
 

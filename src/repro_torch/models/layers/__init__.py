@@ -1,4 +1,5 @@
-"""Layers of the port's dense decoder LM (norms, rotary, MLP, attention)."""
+"""Layers of the port's decoder LM (norms, rotary, MLP, MoE, attention,
+RG-LRU)."""
 
 import torch
 

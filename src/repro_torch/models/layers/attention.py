@@ -203,17 +203,20 @@ def attention_output(params, attn_out):
     return attn_out.reshape(b, s, h * d) @ params["wo"]
 
 
-def attention_block(params, x, cfg, *, impl: str, positions):
+def attention_block(params, x, cfg, *, impl: str, positions,
+                    window_override=None):
     """Prefill attention block: projection, RoPE, mixing, output.
+    ``window_override`` replaces the config's window (``local_attn``).
 
     Returns (y, k, v) with k roped: the prefill writes them to the cache,
     so q/k/v are computed once (the JAX package projects twice; the
     function is the same)."""
     a = cfg.attn
+    window = a.window if window_override is None else window_override
     q, k, v = qkv_project(params, x, cfg)
     q = apply_rope(q, positions, a.rope_theta, cfg.rope_scaling)
     k = apply_rope(k, positions, a.rope_theta, cfg.rope_scaling)
-    kwargs = dict(causal=a.causal, window=a.window, softcap=a.softcap)
+    kwargs = dict(causal=a.causal, window=window, softcap=a.softcap)
     if impl == "chunked":
         o = chunked_attention(q, k, v, **kwargs)
     elif impl == "kernel":

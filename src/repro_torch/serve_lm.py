@@ -2,11 +2,14 @@
 through the KV-cache runtime (ring caches for windowed archs).
 
 A port of ``examples/serve_lm.py`` with its flags, plus ``--device``
-(default ``cuda``; raises without a card) and ``--full``.  By default the
-arch runs at its reduced (smoke) width, the only size meant for the CPU;
-``--full`` (``main(full=True)``) builds it at its published width, in
-its own dtype.  Weights and prompt are random, from seed 0, and sampling
-is top-k 40, as the example's.
+(default ``cuda``; raises without a card), ``--full`` and
+``--n-layers``.  By default the arch runs at its reduced (smoke) width,
+the only size meant for the CPU; ``--full`` (``main(full=True)``) builds
+it at its published width, in its own dtype.  ``--n-layers`` cuts the
+depth (a multiple of the block pattern's period) and keeps every width:
+the MoE archs at published width hold a few layers on one card.  Weights
+and prompt are random, from seed 0, and sampling is top-k 40, as the
+example's.
 
 On the card the run is timed with a clock that synchronises the device:
 ``generate`` reads it before the prefill and before every decode step
@@ -14,11 +17,15 @@ On the card the run is timed with a clock that synchronises the device:
 wall time into prefill (with the first sample) and decode per token.
 
     PYTHONPATH=src python -m repro_torch.serve_lm --device cpu
+    PYTHONPATH=src python -m repro_torch.serve_lm --arch grok-1-314b \
+        --device cpu
+    python -m repro_torch.serve_lm --arch grok-1-314b --full --n-layers 4
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import time
 
@@ -50,14 +57,21 @@ SEED = 0
 
 def main(arch: str = "h2o-danube-1.8b", batch: int = 4, prompt_len: int = 32,
          new_tokens: int = 24, temperature: float = 0.8, *,
-         full: bool = False, device=None, verbose: bool = True) -> dict:
-    """Build the arch, draw weights and a prompt of ``batch`` ×
-    ``prompt_len`` tokens, generate ``new_tokens`` tokens (greedy at
-    temperature 0); returns the tokens, timings, the prompt and the model
-    and parameters."""
+         full: bool = False, n_layers: int | None = None, device=None,
+         verbose: bool = True) -> dict:
+    """Build the arch (``n_layers`` deep when given), draw weights and a
+    prompt of ``batch`` × ``prompt_len`` tokens, generate ``new_tokens``
+    tokens (greedy at temperature 0); returns the tokens, timings, the
+    prompt and the model and parameters."""
     dev = resolve_device(device)
     set_full_f32_matmul()
     cfg = get_config(arch) if full else get_reduced_config(arch)
+    if n_layers is not None:
+        if n_layers < 1 or n_layers % cfg.pattern_period:
+            raise ValueError(f"n_layers={n_layers}: expected a positive "
+                             f"multiple of {cfg.name}'s pattern period "
+                             f"{cfg.pattern_period}")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build_model(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -79,7 +93,8 @@ def main(arch: str = "h2o-danube-1.8b", batch: int = 4, prompt_len: int = 32,
            "decode_s_per_token": decode_s,
            "tok_s": batch * new_tokens / seconds, "device": str(dev)}
     if verbose:
-        print(f"arch={cfg.name} batch={batch} prompt={prompt_len} "
+        print(f"arch={cfg.name} layers={cfg.n_layers} batch={batch} "
+              f"prompt={prompt_len} "
               f"new={new_tokens} device={dev} "
               f"{'full width' if full else 'reduced'}")
         print(f"generated ids[0]: {out[0].tolist()}")
@@ -98,10 +113,12 @@ def _cli():
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--full", action="store_true",
                     help="the arch at its published width (card only)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth (a multiple of the pattern period)")
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args()
     main(a.arch, a.batch, a.prompt_len, a.new_tokens, a.temperature,
-         full=a.full, device=a.device)
+         full=a.full, n_layers=a.n_layers, device=a.device)
 
 
 if __name__ == "__main__":

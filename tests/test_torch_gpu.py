@@ -1290,6 +1290,114 @@ def test_flash_attention_danube_heads_past_the_window(cuda):
     assert rel(0.9 * got) > FLASH_BF16_REL
 
 
+# head_dim 256 (recurrentgemma's local attention: H 10, Hkv 1, window
+# 2048): the bf16 kernel stacks the 10 query heads into a 128-row tile
+# (12 positions a CTA) and walks K/V in blocks of 64 keys.  Lengths one
+# short of and one past a tile and a block, ragged Sq and Skv with a
+# q_offset, and a prompt past the window.
+FLASH_256_CASES = [  # b, sq, skv, h, hkv, causal, window, softcap, q_offset
+    (2, 11, 63, 10, 1, True, 0, 0.0, 52), (2, 13, 65, 10, 1, True, 0, 0.0, 52),
+    (2, 100, 157, 10, 1, True, 48, 0.0, 57),
+    (2, 129, 129, 10, 1, False, 0, 30.0, 0),
+    (1, 2200, 2200, 10, 1, True, 2048, 0.0, 0),
+    (2, 70, 90, 4, 2, True, 0, 0.0, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,hkv,causal,window,cap,q_offset",
+                         FLASH_256_CASES)
+def test_flash_attention_head_dim_256(cuda, dtype, b, sq, skv, h, hkv,
+                                      causal, window, cap, q_offset):
+    """Kernel 8 at head_dim 256 against its plain version; in bf16 also
+    every row against its own scale in float64 (FLASH_BF16_REL), which
+    the output scaled by 0.9 must miss."""
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
+    q, k, v = _flash_inputs(cuda, b, sq, skv, h, hkv, 256, dtype,
+                            seed=sq + skv)
+    got = _check_flash(q, k, v, **kw)
+    if dtype == torch.bfloat16:
+        want = flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+        rms = want.pow(2).mean(-1).sqrt()
+
+        def rel(o):
+            return float(((o.double() - want).abs().amax(-1) / rms).max())
+
+        assert rel(got) <= FLASH_BF16_REL
+        assert rel(0.9 * got.double()) > FLASH_BF16_REL
+
+
+# ---------------------------------------------------------------------------
+# the MoE and RG-LRU layers (no kernel of their own): the card against the
+# CPU in f32, tolerance LAYER_TOL (another summation order in every
+# product over d_model 64)
+# ---------------------------------------------------------------------------
+
+LAYER_TOL = 1e-4
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("skew", [False, True])
+def test_moe_layer_card_matches_cpu(cuda, arch, skew):
+    """The reduced MoE layer on the card against the CPU: the dispatch
+    (counts, kept) equal, output and aux within LAYER_TOL; ``skew``
+    routes every token to expert 0 first, which overflows."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models.layers import moe
+
+    cfg = get_reduced_config(arch)
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg,
+                          torch.float32)
+    x = torch.randn((4, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    if skew:
+        params["router"] = torch.zeros_like(params["router"])
+        params["router"][:, 0] = 10.0
+        x = x.abs()
+    gp = {k: v.to(cuda) for k, v in params.items()}
+    want, waux = moe.moe_apply(params, x, cfg)
+    got, gaux = moe.moe_apply(gp, x.to(cuda), cfg)
+    for a, b in zip(moe.dispatch_counts(params, x, cfg)[:2],
+                    moe.dispatch_counts(gp, x.to(cuda), cfg)[:2]):
+        assert torch.equal(a, b.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=LAYER_TOL,
+                               atol=LAYER_TOL)
+    torch.testing.assert_close(gaux.cpu(), waux, rtol=LAYER_TOL,
+                               atol=LAYER_TOL)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rglru_layer_card_matches_cpu(cuda, with_state):
+    """The reduced RG-LRU layer's prefill (S 700: ten scan steps) and
+    three decode steps on the card against the CPU."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models.layers import rglru
+
+    cfg = get_reduced_config("recurrentgemma-2b")
+    gen = torch.Generator().manual_seed(2)
+    params = rglru.init_rglru(gen, cfg, torch.float32)
+    x = torch.randn((2, 703, cfg.d_model), generator=gen)
+    st = None
+    if with_state:
+        st = rglru.RGLRUState(
+            torch.randn((2, cfg.recurrent.width), generator=gen),
+            torch.randn((2, cfg.recurrent.conv_width - 1,
+                         cfg.recurrent.width), generator=gen))
+    gp = {k: v.to(cuda) for k, v in params.items()}
+    gst = None if st is None else rglru.RGLRUState(*(t.to(cuda) for t in st))
+    outs = {}
+    for dev, p, s0 in (("cpu", params, st), ("cuda", gp, gst)):
+        y, s1 = rglru.rglru_apply(p, x[:, :700].to(dev), cfg, state=s0)
+        steps = [y]
+        for i in range(3):
+            yi, s1 = rglru.rglru_decode_step(p, x[:, 700 + i:701 + i]
+                                             .to(dev), cfg, s1)
+            steps.append(yi)
+        outs[dev] = [t.cpu() for t in (*steps, *s1)]
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        torch.testing.assert_close(b, a, rtol=LAYER_TOL, atol=LAYER_TOL)
+
+
 def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):
     q, k, v = _flash_inputs(cuda, 1, 64, 64, 4, 2, 32, torch.float32)
     before = flash_attention.launches

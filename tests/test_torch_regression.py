@@ -111,6 +111,18 @@ def test_add_set(sel, add):
     _close(got.value[0], want.value)
 
 
+@pytest.mark.parametrize("sel", [[3], [3, 7, 11], [0, 1, 2, 5, 8, 13, 21, 34]])
+def test_brute_value_matches_reference(sel):
+    """The lstsq oracle f(S) equals the reference's within 1e-5, and the
+    MGS state's value of the same set."""
+    jobj, tobj = _pair()
+    want = float(jobj.brute_value(np.asarray(sel)))
+    got = float(tobj.brute_value(sel))
+    assert abs(got - want) <= 1e-5
+    _, tst = _state_pair(jobj, sel)
+    assert abs(float(tst.value[0]) - got) <= 1e-5
+
+
 def _mgs_inputs(seed=9, d=24, k=6, count=3, m=5):
     rng = np.random.default_rng(seed)
     Q = np.zeros((d, k), np.float32)

@@ -584,3 +584,40 @@ def test_failed_round_write_raises(tmp_path, async_save):
         with pytest.raises(OSError):
             ckpt.save(1, carry)
     ckpt.wait()                     # reported once
+
+
+def test_blocking_save_on_an_async_config_is_on_disk_at_return(
+        tmp_path, monkeypatch):
+    """``RoundCheckpointer.save(blocking=True)`` on an ``async_save``
+    config has written its snapshot when it returns, as the reference's
+    does; a save without it has not (the writer is slowed down)."""
+    import time as _time
+
+    import repro.ckpt.checkpoint as jckpt
+    import repro_torch.ckpt.checkpoint as tckpt
+
+    def slow(real):
+        def save(*a, **kw):
+            _time.sleep(0.3)
+            return real(*a, **kw)
+        return save
+
+    monkeypatch.setattr(jckpt, "save_checkpoint", slow(jckpt.save_checkpoint))
+    monkeypatch.setattr(tckpt, "save_checkpoint", slow(tckpt.save_checkpoint))
+    obj, cfg, _, _, _ = _problem()
+    jdir, tdir = str(tmp_path / "ref"), str(tmp_path / "port")
+    jck = jloop.RoundCheckpointer(jloop.ResilienceConfig(
+        ckpt_dir=jdir, async_save=True))
+    jck.save(1, {"x": jnp.arange(4)}, blocking=True)
+    assert jckpt.latest_complete_step(jdir) == 1
+    ck = tloop.RoundCheckpointer(ResilienceConfig(ckpt_dir=tdir,
+                                                  async_save=True))
+    carry = tloop.initial_carry(cfg.resolve(obj.n), [SeedKey(1)],
+                                obj.init(1), torch.ones((1, obj.n),
+                                                        dtype=torch.bool))
+    ck.save(1, carry, blocking=True)
+    assert latest_complete_step(tdir) == 1
+    ck.save(2, carry)
+    assert latest_complete_step(tdir) == 1
+    ck.wait()
+    assert latest_complete_step(tdir) == 2
