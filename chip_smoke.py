@@ -74,7 +74,10 @@ exits nonzero, with no result line) when a check fails:
                the JAX test's sweep, ragged S, softcap 30 without the
                causal mask, q_offset, D 16/32/64/80/128, and D 256 at
                recurrentgemma's heads (S 8192, window 2048; ragged Sq and
-               Skv with a q_offset; softcap); an f32 case that
+               Skv with a q_offset; softcap), whisper's encoder and
+               cross-attention (non-causal; Sq 1500, 384 and 1 against
+               1500 frames) and internvl2's prefill (GQA 16/8, D 128,
+               S 7936); an f32 case that
                misses against the f32 plain version is gated against the
                plain version in float64, both errors printed (run with
                the kernel phases, before the main phase)
@@ -172,6 +175,25 @@ exits nonzero, with no result line) when a check fails:
                prefill S (HYBRID_CONSIST_TOL, three planted faults), the
                log-depth scan against a float64 recurrence (SCAN_GATE,
                one planted fault)
+ slice 10 — after hybrid, one model at a time, at published width, bf16,
+     random weights (seed 0), through serve_lm (greedy then top-k 40,
+     batch 4, 32 new tokens; the greedy and top-k checks on the whole
+     batch; prefill S − 1 then one decode step against prefill S in f32
+     on the served weights cast, gated between the sound reading and
+     planted faults (SLICE10_CONSIST, SLICE10_FAULTS), the bf16 reading
+     logged; the reduced arch in f32 on the card against the CPU; one
+     prefill and 4 decode steps profiled):
+     xlstm   — xlstm-125m whole (9 mlstm, 3 slstm layers), prompt 2048
+               (the sLSTM's host loop over time makes 8192 too slow):
+               no kernel 8 launch; the host seconds of one layer's mLSTM
+               chunk loop and sLSTM time loop; the profile on the first
+               256 tokens
+     whisper — whisper-base whole (6 encoder, 6 decoder layers), 1500
+               frames, decoder prompt 384: kernel 8 exactly 18 times a
+               prefill (6 encoder, 6 causal self, 6 cross; read by a spy
+               on the wrapper's callers) and 6 times a decode step
+     vlm     — internvl2-2b whole (24 layers), 256 image tokens + prompt
+               7680: kernel 8 exactly 24 times a prefill, at S 7936
  14. timing  — CUDA-event times per call of each kernel, its plain
                version and a library call, beside the kernel's bound
                from its shapes and the H100 SXM peaks (kernel 8 at the lm
@@ -185,7 +207,9 @@ exits nonzero, with no result line) when a check fails:
                ([sharded]: n_local = n / 2 of each main lattice; kernels
                1, 3 and 5 beside their cuBLAS products); kernels 1, 3, 4
                and 5 at [serve]'s 8-lane bucket shapes; kernel 8 at
-               head_dim 256 at [hybrid]'s prefill shape
+               head_dim 256 at [hybrid]'s prefill shape, and at whisper's
+               encoder, cross-attention (prefill and decode) and
+               internvl2's prefill shapes
  15. profile — greedy and DASH of the main phase, DASH of the design
                main phase, greedy and DASH of the classification main
                phase, 8 rounds of the registry main's FAST, one lm prefill and four
@@ -301,8 +325,8 @@ BF16_TC_FLOPS = 989e12
 # Kernel 8's checks: (B, Sq, Skv, H, Hkv, D, causal, window, softcap,
 # q_offset) — danube's prefill heads at S 8192, the JAX test's sweep
 # (tests/test_kernels.py), ragged S, softcap 30 without the causal mask,
-# decode-shaped q_offset, D 64/80/128, the reduced configs' D 16 and
-# recurrentgemma's D 256.
+# decode-shaped q_offset, D 64/80/128, the reduced configs' D 16,
+# recurrentgemma's D 256, and slice 10's whisper and internvl2 shapes.
 LM_FLASH_CASES = (
     [(1, 8192, 8192, 32, 8, 80, True, 4096, 0.0, 0)]
     + [(2, sq, skv, h, hkv, d, c, w, cap, 0)
@@ -324,6 +348,14 @@ LM_FLASH_CASES = (
        (2, 1000, 1537, 10, 1, 256, True, 300, 0.0, 537),
        (2, 1000, 1537, 10, 1, 256, True, 0, 0.0, 537),
        (2, 513, 700, 4, 2, 256, False, 0, 30.0, 0)]
+    # slice 10: whisper's encoder (non-causal, S 1500), its cross-attention
+    # in the prefill (Sq 384) and at a decode step (Sq 1) against the 1500
+    # encoder frames; internvl2's prefill (GQA 16/8, D 128, 256 image + 7680
+    # text tokens)
+    + [(4, 1500, 1500, 8, 8, 64, False, 0, 0.0, 0),
+       (4, 384, 1500, 8, 8, 64, False, 0, 0.0, 0),
+       (4, 1, 1500, 8, 8, 64, False, 0, 0.0, 0),
+       (1, 7936, 7936, 16, 8, 128, True, 0, 0.0, 0)]
 )
 
 # [r2 main]: DASH's R² value against Def. 14 of its set solved in
@@ -1484,20 +1516,19 @@ def serve_runs(torch, tag, arch, run, n_layers=None):
 
 def check_first_tokens(torch, tag, runs, n_new):
     """Tokens of the runs in range; then a fresh prefill and one decode
-    step of the same weights and prompt: greedy's first two tokens are
-    their argmax, top-k's first token lies within the 40 largest
-    logits."""
+    step of the same weights and batch (the prompt with its image
+    embeddings or encoder frames): greedy's first two tokens are their
+    argmax, top-k's first token lies within the 40 largest logits."""
     res = runs["top-k"]
     cfg, model, params = res["cfg"], res["model"], res["params"]
-    prompt = res["prompt"]
-    b = prompt.shape[0]
+    b = res["prompt"].shape[0]
     for name, r in runs.items():
         tok = r["tokens"]
         need(tuple(tok.shape) == (b, n_new) and tok.dtype == torch.int32,
              f"{name}: tokens of shape {tuple(tok.shape)}")
         need(int(tok.min()) >= 0 and int(tok.max()) < cfg.padded_vocab,
              f"{name}: a token outside the padded vocab")
-    logits, cache = model.prefill(params, {"tokens": prompt})
+    logits, cache = model.prefill(params, res["batch"])
     need(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     need(tuple(logits.shape) == (b, cfg.padded_vocab), "prefill logits "
          f"of shape {tuple(logits.shape)}")
@@ -1596,44 +1627,60 @@ def phase_lm_consistency(torch, model, params):
          "decode and prefill pick another token beyond a near-tie")
 
 
-def phase_lm_parity(torch):
-    """The reduced danube (f32) on the card against the CPU plain path, on
-    the same weights: identical greedy tokens, prefill and decode logits
-    within LM_PARITY_TOL.  Prompt 48 > window 32: ring caches."""
+def reduced_batch(torch, cfg, b, s, gen):
+    """A prompt of b × s tokens on the CPU, with the image embeddings or
+    encoder frames the reduced arch takes."""
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                     dtype=torch.int32)}
+    if cfg.vision is not None:
+        batch["img_embeds"] = torch.randn(
+            (b, cfg.vision.n_img_tokens, cfg.vision.embed_dim), generator=gen)
+    if cfg.is_encdec:
+        batch["enc_frames"] = torch.randn(
+            (b, cfg.encoder.src_len, cfg.d_model), generator=gen)
+    return batch
+
+
+def phase_lm_parity(torch, arch=None, tag="[lm parity]", tol=LM_PARITY_TOL):
+    """The reduced arch (f32; default danube) on the card against the CPU
+    plain path, on the same weights and batch: identical greedy tokens,
+    prefill and decode logits within ``tol``.  Prompt 48 > danube's
+    window 32: ring caches."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.core.random import SeedKey
     from repro_torch.lm_serve import generate
     from repro_torch.models import build_model
     from repro_torch.models.transformer import params_to
 
-    cfg = get_reduced_config(LM["arch"])
+    cfg = get_reduced_config(arch or LM["arch"])
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(0)
     params = {"cpu": model.init(gen)}
     params["cuda"] = params_to(params["cpu"], "cuda")
-    tok = torch.randint(0, cfg.vocab_size, (2, 48), generator=gen,
-                        dtype=torch.int32)
+    batch = reduced_batch(torch, cfg, 2, 48, gen)
     out, logits = {}, {}
     for dev in ("cpu", "cuda"):
-        p, t = params[dev], tok.to(dev)
-        out[dev] = [generate(model, p, {"tokens": t}, 24, SeedKey(0, True),
+        p = params[dev]
+        t = {k: v.to(dev) for k, v in batch.items()}
+        out[dev] = [generate(model, p, t, 24, SeedKey(0, True),
                              temperature=temp, top_k=top_k,
                              device=dev).cpu()
                     for temp, top_k in ((0.0, 0), (0.8, 40))]
-        lg, cache = model.prefill(p, {"tokens": t})
-        lg2, _ = model.decode_step(p, cache, t[:, :1], cache["step_offset"])
+        lg, cache = model.prefill(p, t)
+        lg2, _ = model.decode_step(p, cache, t["tokens"][:, :1],
+                                   cache["step_offset"])
         logits[dev] = (lg.cpu(), lg2.cpu())
     errs = [float((a - b).abs().max())
             for a, b in zip(logits["cpu"], logits["cuda"])]
     same = [bool(torch.equal(a, b)) for a, b in zip(out["cpu"], out["cuda"])]
-    log(f"[lm parity] reduced {cfg.name} f32 (d_model {cfg.d_model}, "
+    log(f"{tag} reduced {cfg.name} f32 (d_model {cfg.d_model}, "
         f"{cfg.n_layers} layers, window {cfg.attn.window}), prompt 48, 24 "
         f"tokens: greedy identical={same[0]}, top-k (noise on the CPU) "
         f"identical={same[1]}; max|logit diff| prefill {errs[0]:.3e}, "
-        f"decode {errs[1]:.3e} (tolerance {LM_PARITY_TOL})")
+        f"decode {errs[1]:.3e} (tolerance {tol})")
     need(same[0], "greedy tokens differ between the card and the CPU")
-    need(max(errs) <= LM_PARITY_TOL, "logits differ between the card and "
-         "the CPU")
+    need(max(errs) <= tol, "logits differ between the card and the CPU")
+    return errs
 
 
 def count_valid_pairs(sq, skv, causal, window, q_offset=0):
@@ -1647,19 +1694,19 @@ def count_valid_pairs(sq, skv, causal, window, q_offset=0):
     return total
 
 
-def flash_staging_bytes(info, b, s, h, hkv, d, causal, window):
-    """Bytes one self-attention call of the bf16 kernel stages from L2
-    into shared memory, reckoned from its tile sizes (``kernel_info``):
-    each CTA's query tile once and each K/V block of its band once.  A
+def flash_staging_bytes(info, b, sq, skv, h, hkv, d, causal, window):
+    """Bytes one call of the bf16 kernel stages from L2 into shared
+    memory, reckoned from its tile sizes (``kernel_info``): each CTA's
+    query tile once and each K/V block of its band once (q_offset 0).  A
     CTA's rows are (position, head) pairs of one GQA group, so it spans
     rows / n_rep positions.  Returns (total, K and V only)."""
     rows, bk, n_rep = info["rows"], info["block_kv"], h // hkv
     g = min(n_rep, rows)
     span = rows // g
     tiles = blocks = 0
-    for q0 in range(0, s, span):
-        qhi = min(q0 + span, s) - 1
-        end = min(s, qhi + 1) if causal else s
+    for q0 in range(0, sq, span):
+        qhi = min(q0 + span, sq) - 1
+        end = min(skv, qhi + 1) if causal else skv
         begin = max(0, q0 - window + 1) if window else 0
         kb0 = begin // bk
         blocks += ((end + bk - 1) // bk if end > begin else kb0) - kb0
@@ -1688,10 +1735,11 @@ def time_flash(torch, q, k, v, kw, iters=10):
                    iters=iters, warmup=1)
 
 
-def time_flash_shape(torch, heads, run):
-    """Kernel 8 at a causal prefill shape: CUDA-event ms, f32 and bf16,
-    beside its bound, its plain version (B 1: the (B, H, S, S) scores of
-    B 4 do not fit) and SDPA with the same mask as a yardstick.  The bf16
+def time_flash_shape(torch, b, sq, skv, h, hkv, d, causal=True, window=0):
+    """Kernel 8 at one shape (q_offset 0; self-attention when Sq = Skv):
+    CUDA-event ms, f32 and bf16, beside its bound, its plain version (B
+    1: the (B, H, Sq, Skv) scores of B 4 do not fit at S 8192) and SDPA
+    with the same mask as a yardstick.  The bf16
     bound is the largest of three: the tensor cores' flops, the SFUs' one
     exp2 per valid pair, the bytes of Q, K, V and O once; beside it the
     L2 → shared-memory bytes the kernel stages per call and its registers
@@ -1706,16 +1754,16 @@ def time_flash_shape(torch, heads, run):
     )
     from repro_torch.kernels.flash_attention.ref import attention_mask
 
-    b, s = run["batch"], run["prompt_len"]
-    h, hkv, d, w = (heads[x] for x in ("h", "hkv", "d", "window"))
-    pairs = count_valid_pairs(s, s, True, w)
+    w = window
+    pairs = count_valid_pairs(sq, skv, causal, w)
     flops = 4.0 * d * pairs * b * h
     exps = float(pairs * b * h)
     torch.cuda.empty_cache()
     out = {}
     for prec, dt, peak in (("bf16", torch.bfloat16, BF16_TC_FLOPS),
                            ("f32", torch.float32, F32_PEAK_FLOPS)):
-        (q, k, v), kw = lm_flash_case(torch, dt, heads=heads, run=run)
+        q, k, v = flash_inputs(torch, b, sq, skv, h, hkv, d, dt, seed=3)
+        kw = dict(causal=causal, window=w, softcap=0.0)
         nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
         parts = {"operations": flops / peak * 1e3,
                  "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
@@ -1732,15 +1780,15 @@ def time_flash_shape(torch, heads, run):
         lib = info = staged = staged_kv = None
         if prec == "bf16":
             info = kernel_info(dt, d)
-            staged, staged_kv = flash_staging_bytes(info, b, s, h, hkv, d,
-                                                    True, w)
+            staged, staged_kv = flash_staging_bytes(info, b, sq, skv, h, hkv,
+                                                    d, causal, w)
             # SDPA on (B, H, S, D) with the KV heads repeated and the same
             # boolean mask: a yardstick only, never called by the port.
             qt = q.transpose(1, 2)
             kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
             vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
-            mask = attention_mask(s, s, causal=True, window=w, q_offset=0,
-                                  device=q.device)
+            mask = attention_mask(sq, skv, causal=causal, window=w,
+                                  q_offset=0, device=q.device)
             lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask))
             diff = float((F.scaled_dot_product_attention(
@@ -1751,8 +1799,9 @@ def time_flash_shape(torch, heads, run):
                          library_ms=lib, info=info)
         sfu = (f", {exps:.4g} exp2 at {SFU_OPS_PER_S / 1e12:.3f} T/s "
                f"{parts['sfu']:.4f} ms" if "sfu" in parts else "")
-        log(f"[timing] flash_attention {prec:4s} B={b} S={s} H={h} "
-            f"Hkv={hkv} D={d} window={w} causal: kernel_ms={t:.4f} "
+        log(f"[timing] flash_attention {prec:4s} B={b} Sq={sq} Skv={skv} "
+            f"H={h} Hkv={hkv} D={d} window={w} causal={causal}: "
+            f"kernel_ms={t:.4f} "
             f"plain_ms={p:.4f} (at B=1) bound_ms={bd:.4f} (largest of: "
             f"{flops / 1e12:.3f} TFLOP at {peak / 1e12:g} TFLOP/s "
             f"{parts['operations']:.4f} ms{sfu}, {nbytes / 1e6:.1f} MB at "
@@ -1782,7 +1831,7 @@ def time_flash_shape(torch, heads, run):
         del q, k, v, q1, k1, v1
         torch.cuda.empty_cache()
     log(f"[timing] flash_attention valid (q, k) pairs per (b, h) at D={d}: "
-        f"{pairs} of {s * s}")
+        f"{pairs} of {sq * skv}")
     return out
 
 
@@ -1790,8 +1839,8 @@ def phase_lm_timing(torch, worst, launches):
     """Kernel 8 at the lm-main prefill shape (``time_flash_shape``): the
     kernels line's row."""
     b, s = LM["batch"], LM["prompt_len"]
-    h, hkv, d = (LM_HEADS[x] for x in ("h", "hkv", "d"))
-    out = time_flash_shape(torch, LM_HEADS, LM)
+    h, hkv, d, w = (LM_HEADS[x] for x in ("h", "hkv", "d", "window"))
+    out = time_flash_shape(torch, b, s, s, h, hkv, d, True, w)
     log(f"[timing] flash_attention launches per lm main run "
         f"{launches['flash_attention']} ({LM_LAYERS} per prefill)")
     r, info = out["bf16"], out["bf16"]["info"]
@@ -1820,7 +1869,7 @@ def phase_hybrid_flash_timing(torch, launches):
     kernels line's flash_attention row."""
     b, s = HYBRID["batch"], HYBRID["prompt_len"]
     h, hkv, d, w = (HYBRID_HEADS[x] for x in ("h", "hkv", "d", "window"))
-    out = time_flash_shape(torch, HYBRID_HEADS, HYBRID)
+    out = time_flash_shape(torch, b, s, s, h, hkv, d, True, w)
     log(f"[timing] flash_attention D=256 launches per hybrid run "
         f"{launches} ({HYBRID_FLASH_PER_PREFILL} per prefill)")
     r, info = out["bf16"], out["bf16"]["info"]
@@ -2137,13 +2186,6 @@ def phase_hybrid_consistency(torch, model, params):
     tok = torch.randint(0, cfg.vocab_size, (2, s), generator=gen,
                         device="cuda", dtype=torch.int32)
 
-    def cast(tree):
-        if isinstance(tree, dict):
-            return {k: cast(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [cast(v) for v in tree]
-        return tree.float()
-
     def readings(m, p, faults):
         want, _ = m.prefill(p, {"tokens": tok})
         _, cache = m.prefill(p, {"tokens": tok[:, :-1]})
@@ -2175,7 +2217,8 @@ def phase_hybrid_consistency(torch, model, params):
 
     err16, _, _, _ = readings(model, params, False)
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    err, faults, ring, top = readings(build_model(cfg32), cast(params), True)
+    err, faults, ring, top = readings(build_model(cfg32), cast_f32(params),
+                                    True)
     torch.cuda.empty_cache()
     log(f"[hybrid consistency] S={s}, ring caches of {ring} slots, batch "
         f"2, f32 (the served weights cast): max|decode - prefill| = "
@@ -2191,19 +2234,18 @@ def phase_hybrid_consistency(torch, model, params):
 
 
 def served_profile_runs(tag, res):
-    """One prefill of a served run's prompt and 4 greedy decode steps
+    """One prefill of a served run's batch and 4 greedy decode steps
     from its cache (made before the profiled window), for
     ``phase_profile``."""
-    model, params, prompt = res["model"], res["params"], res["prompt"]
-    _, cache = model.prefill(params, {"tokens": prompt})
+    model, params, batch = res["model"], res["params"], res["batch"]
+    _, cache = model.prefill(params, batch)
     tok = res["tokens"][:, :1].contiguous()
 
     def decode4():
         for i in range(4):
             model.decode_step(params, cache, tok, cache["step_offset"] + i)
 
-    return {f"{tag} prefill": lambda: model.prefill(params,
-                                                   {"tokens": prompt}),
+    return {f"{tag} prefill": lambda: model.prefill(params, batch),
             f"{tag} decode x4": decode4}
 
 
@@ -2258,6 +2300,431 @@ def phase_hybrid(torch):
     del runs, res, model, params, seen
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# slice 10: xLSTM, the encoder-decoder and the image-token prefix
+# ---------------------------------------------------------------------------
+
+# [xlstm]: xlstm-125m whole (12 layers: 9 mlstm, 3 slstm; d_model 768, 4
+# heads of 192, chunk 256, vocab 50304 tied) at published width, bf16;
+# batch 4, prompt 2048, 32 new tokens.  No attention: kernel 8 never
+# launches.  The prompt is cut from the other phases' 8192: the sLSTM's
+# host loop over time (ROADMAP fault 3.8) took 1.9–3.0 s a layer at
+# 8192, 5.7–11.7 s a prefill, and the phase 390 s at 8192 on the H100
+# (PERF.md).  Its profile replays a prefill of the first
+# XLSTM_PROFILE_TOKENS tokens: the profiler's bookkeeping of the loop's
+# small launches (about 600,000 at 8192) took most of those 390 s.
+XLSTM = dict(arch="xlstm-125m", batch=4, prompt_len=2048, new_tokens=32)
+XLSTM_PROFILE_TOKENS = 256
+# [whisper]: whisper-base whole (6 encoder and 6 decoder layers, d_model
+# 512, 8 heads of 64, d_ff 2048, vocab 51865) at published width, bf16;
+# batch 4, 1500 encoder frames, decoder prompt 384, 32 new tokens.
+# Kernel 8 per prefill: 6 encoder calls (non-causal, 1500 × 1500), 6
+# causal self-attention calls (384 × 384) and 6 cross-attention calls
+# (non-causal, 384 × 1500); per decode step 6 cross-attention calls (1 ×
+# 1500), the self-attention decoding from its KV cache.
+WHISPER = dict(arch="whisper-base", batch=4, prompt_len=384, new_tokens=32)
+WHISPER_HEADS = dict(h=8, hkv=8, d=64)
+WHISPER_FLASH = {"encoder": 6, "self": 6, "cross": 6}   # per prefill
+WHISPER_FLASH_PER_DECODE = 6
+# [vlm]: internvl2-2b whole (24 layers, d_model 2048, 16 query / 8 KV
+# heads of 128, d_ff 8192, vocab 92553) at published width, bf16; batch 4,
+# 256 image tokens + prompt 7680 (7936 + 64 of headroom ≤ max_seq 8192),
+# 32 new tokens; kernel 8 once per layer and prefill, at S 7936.
+VLM = dict(arch="internvl2-2b", batch=4, prompt_len=7680, new_tokens=32)
+VLM_HEADS = dict(h=16, hkv=8, d=128)
+VLM_FLASH_PER_PREFILL = 24
+# Prefill S − 1 text tokens, decode one, against prefilling all S, as
+# [hybrid consistency]: gated in f32 on the served weights cast (served,
+# the xLSTM state passes through bf16 between prefill and decode: the
+# bf16 reading is logged).  S per arch (xlstm's 5999 pads its last chunk
+# of 256 with 145 state-neutral steps: the carried state must come out
+# exact) and the planted faults, each decoded from a copy of the same
+# cache (SLICE10_FAULTS).  Readings in f32 on the H100 80GB HBM3 at 700
+# W: xlstm sound 8.731e-04, faults 6.752 (token S − 2 decoded), 5.468
+# (every mLSTM C zeroed), 2.446 (every sLSTM c zeroed); whisper sound
+# 3.576e-06, faults 6.223e-02 (position S − 2), 3.183 (enc_out zeroed),
+# 5.250e-01 (every layer's KV slots 0:64 zeroed); internvl2 sound
+# 2.396e-05, faults 2.179 (position S − 2), 2.511 (the image prefix's
+# K/V zeroed in every layer).  Each gate is about the geometric mean of
+# the sound reading and the weakest fault's (xlstm's a factor 57 and 49
+# from them; whisper's 140 and 124; internvl2's 290 and 310).  The
+# xLSTM's sound reading is the largest: 12 layers of mLSTM divide by
+# max(|nᵀq|, e^{−m}) after 6000 steps summed in two orders (chunks of
+# 256 against the one-step recurrence).
+SLICE10_CONSIST = {
+    "xlstm-125m": dict(s=6000, tol=0.05),
+    "whisper-base": dict(s=WHISPER["prompt_len"], tol=5e-4),
+    "internvl2-2b": dict(s=2048, tol=7e-3),
+}
+# The reduced archs on the card against the CPU ([... parity]): the lm
+# main's tolerance, but 5e-4 for xlstm-125m.  Its 8 reduced layers pass
+# rounding on 2–3× amplified (the mLSTM's division), so on the CPU the
+# reference's own logits move by up to 4.5e-4 when its weights get half
+# an ulp of seeded noise (tests/test_torch_encdec_vlm.py); card against
+# CPU read 1.695e-04 (prefill) and 2.821e-04 (decode) on the H100 80GB
+# HBM3 at 700 W, with identical greedy and top-k tokens.
+SLICE10_PARITY_TOL = {"xlstm-125m": 5e-4}
+# Kernel 8's launches of a whisper serve run, by what called it.
+WHISPER_CALLS = ("encoder", "self", "cross prefill", "cross decode")
+
+
+def flash_spy():
+    """Wrap kernel 8's wrapper where the model calls it (attention.py's
+    prefill self-attention, transformer.py's encoder and
+    cross-attention), recording each call's (Sq, Skv, causal); the launch
+    counter stays the wrapper's own.  Returns the record list and a
+    function that undoes the wrap."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import attention
+
+    calls = []
+
+    def spy(q, k, v, **kw):
+        calls.append((q.shape[1], k.shape[1], bool(kw.get("causal", True))))
+        return flash_attention(q, k, v, **kw)
+
+    attention.flash_attention = transformer.flash_attention = spy
+
+    def undo():
+        attention.flash_attention = flash_attention
+        transformer.flash_attention = flash_attention
+
+    return calls, undo
+
+
+def clone_cache(cache):
+    """A copy of a decode cache: every layer's tensors, the step offset
+    and the encoder's output."""
+    out = {"layers": [type(lc)(*(t.clone() for t in lc))
+                      for lc in cache["layers"]],
+           "step_offset": cache["step_offset"].clone()}
+    if "enc_out" in cache:
+        out["enc_out"] = cache["enc_out"].clone()
+    return out
+
+
+def _fault_zero_state(kind, field):
+    def edit(model, c, tok, pos, batch):
+        for i, lc in enumerate(c["layers"]):
+            if model.kind(i) == kind:
+                getattr(lc, field).zero_()
+        return tok, pos
+    return edit
+
+
+def _fault_zero_kv(lo, hi):
+    def edit(model, c, tok, pos, batch):
+        for lc in c["layers"]:
+            lc.k[:, lo:hi] = 0
+            lc.v[:, lo:hi] = 0
+        return tok, pos
+    return edit
+
+
+def _fault_position(model, c, tok, pos, batch):
+    return tok, pos - 1
+
+
+def _fault_token(model, c, tok, pos, batch):
+    return batch["tokens"][:, -2:-1], pos
+
+
+def _fault_enc_out(model, c, tok, pos, batch):
+    c["enc_out"].zero_()
+    return tok, pos
+
+
+SLICE10_FAULTS = {
+    "xlstm-125m": {"token S-2 decoded": _fault_token,
+                   "mLSTM C zeroed": _fault_zero_state("mlstm", "C"),
+                   "sLSTM c zeroed": _fault_zero_state("slstm", "c")},
+    "whisper-base": {"position S-2": _fault_position,
+                     "enc_out zeroed": _fault_enc_out,
+                     "KV slots 0:64 zeroed": _fault_zero_kv(0, 64)},
+    "internvl2-2b": {"position S-2": _fault_position,
+                     "image prefix K/V zeroed": _fault_zero_kv(0, 256)},
+}
+
+
+def cast_f32(tree):
+    """A parameter tree with every tensor cast to f32."""
+    if isinstance(tree, dict):
+        return {k: cast_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_f32(v) for v in tree]
+    return tree.float()
+
+
+def slice10_consistency(torch, tag, model, params):
+    """Prefill S − 1 text tokens (behind the image prefix, beside the
+    encoder frames), decode token S − 1, against the last logits of
+    prefilling all S: in f32 on the served weights cast, within the
+    arch's gate, each planted fault above it; the same in bf16,
+    logged."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    cfg = model.cfg
+    spec, faults = SLICE10_CONSIST[cfg.name], SLICE10_FAULTS[cfg.name]
+    s = spec["s"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, s), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    if cfg.vision is not None:
+        batch["img_embeds"] = torch.randn(
+            (2, cfg.vision.n_img_tokens, cfg.vision.embed_dim),
+            generator=gen, device="cuda")
+    if cfg.is_encdec:
+        batch["enc_frames"] = torch.randn(
+            (2, cfg.encoder.src_len, cfg.d_model), generator=gen,
+            device="cuda")
+
+    def readings(m, p, with_faults):
+        want, _ = m.prefill(p, batch)
+        _, cache = m.prefill(p, dict(batch, tokens=batch["tokens"][:, :-1]))
+
+        def decode(edit=None):
+            c = clone_cache(cache)
+            tok, pos = batch["tokens"][:, -1:], cache["step_offset"]
+            if edit is not None:
+                tok, pos = edit(m, c, tok, pos, batch)
+            out, _ = m.decode_step(p, c, tok, pos)
+            return float((out.float() - want.float()).abs().max())
+
+        found = ({k: decode(f) for k, f in faults.items()} if with_faults
+                 else {})
+        return decode(), found, float(want.float().abs().max())
+
+    err16, _, _ = readings(model, params, False)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    p32 = cast_f32(params)
+    err, found, top = readings(build_model(cfg32), p32, True)
+    del p32
+    torch.cuda.empty_cache()
+    tol = spec["tol"]
+    log(f"{tag} consistency: S={s} text tokens"
+        + (f" behind {cfg.vision.n_img_tokens} image tokens"
+           if cfg.vision is not None else "")
+        + f", batch 2, f32 (the served weights cast): max|decode - "
+        f"prefill| = {err:.4e} (gate {tol}), logits max {top:.3f}; planted "
+        "faults: " + ", ".join(f"{k} {v:.4e}" for k, v in found.items())
+        + f"; bf16, as served: {err16:.4e}")
+    if tol is not None:
+        need(err <= tol, f"{cfg.name}: decode disagrees with prefill")
+        need(min(found.values()) > tol,
+             f"{cfg.name}: the consistency gate does not see a planted "
+             "fault")
+    return {"sound": err, "faults": found, "bf16": err16, "gate": tol}
+
+
+def slice10_serve(torch, tag, run):
+    """serve_lm at full width through ``serve_runs`` with kernel 8's calls
+    recorded; logs the model and the launches."""
+    calls, undo = flash_spy()
+    try:
+        runs, launches, peak, held = serve_runs(
+            torch, tag, run["arch"],
+            {k: v for k, v in run.items() if k != "arch"})
+    finally:
+        undo()
+    res = runs["top-k"]
+    cfg, model = res["cfg"], res["model"]
+    kinds = [model.kind(i) for i in range(cfg.n_layers)]
+    shape = ", ".join(f"{kinds.count(k)} {k}" for k in sorted(set(kinds)))
+    extra = ""
+    if cfg.is_encdec:
+        extra = (f", encoder {cfg.encoder.n_layers} layers over "
+                 f"{cfg.encoder.src_len} frames")
+    if cfg.vision is not None:
+        extra = (f", {cfg.vision.n_img_tokens} image tokens of "
+                 f"{cfg.vision.embed_dim} projected in front")
+    heads = (f"{cfg.attn.n_heads} query / {cfg.attn.n_kv_heads} KV heads of "
+             f"{cfg.attn.head_dim}")
+    if cfg.xlstm is not None:
+        heads = (f"{cfg.xlstm.n_heads} heads of {cfg.xlstm.head_dim}, chunk "
+                 f"{cfg.xlstm.chunk_size}")
+    log(f"{tag} {cfg.name} published width, whole: {cfg.n_layers} layers "
+        f"({shape}){extra}, d_model {cfg.d_model}, {heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; random "
+        f"weights (seed 0); batch {run['batch']}, prompt "
+        f"{run['prompt_len']}, {run['new_tokens']} new tokens")
+    log(f"{tag} max_memory_allocated={peak} bytes, {peak - held} above the "
+        f"{held} that earlier phases hold; flash_attention "
+        f"launches={launches}")
+    need(len(calls) == launches, f"{tag}: {len(calls)} calls of kernel 8's "
+         f"wrapper, {launches} launches")
+    return runs, res, launches, calls, peak
+
+
+def slice10_finish(torch, tag, runs, res, launches, peak, extra=None,
+                   profile_tokens=None):
+    """The checks every slice-10 phase shares: first tokens, the
+    consistency gate, the reduced arch on the card against the CPU, the
+    profile (of a prefill of the first ``profile_tokens`` prompt tokens
+    when given).  Returns the phase's record."""
+    cfg = res["cfg"]
+    check_first_tokens(torch, tag, runs, res["tokens"].shape[1])
+    consist = slice10_consistency(torch, tag, res["model"], res["params"])
+    parity = phase_lm_parity(torch, cfg.name, f"{tag} parity",
+                             SLICE10_PARITY_TOL.get(cfg.name, LM_PARITY_TOL))
+    name, prof = cfg.name, res
+    if profile_tokens is not None:
+        name = f"{cfg.name} (first {profile_tokens} tokens)"
+        prof = dict(res, batch={k: v[:, :profile_tokens]
+                                for k, v in res["batch"].items()})
+    phase_profile(torch, served_profile_runs(name, prof))
+    out = {"prefill_s": res["prefill_s"],
+           "decode_s_per_token": res["decode_s_per_token"],
+           "tok_s": res["tok_s"], "peak": peak, "launches": launches,
+           "consistency": consist, "parity": parity, **(extra or {})}
+    return out
+
+
+def xlstm_host_loops(torch, res):
+    """Host seconds of one mLSTM layer's chunk loop and one sLSTM layer's
+    time loop at the served batch and prompt (the served dtype, the first
+    layer of each kind's weights, unit inputs), each once after a warm-up
+    at 256 steps."""
+    from repro_torch.models.layers import xlstm
+
+    cfg, params = res["cfg"], res["params"]
+    b, s = res["prompt"].shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    dt = params["embed"].dtype
+    a = torch.randn((b, s, cfg.d_model), generator=gen,
+                    device="cuda").to(dt)
+    kinds = [res["model"].kind(j) for j in range(cfg.n_layers)]
+    out = {}
+    for kind, fn in (("mlstm", xlstm.mlstm_chunkwise),
+                     ("slstm", xlstm.slstm_scan)):
+        p = params["layers"][kinds.index(kind)]["xlstm"]
+        st = xlstm.init_xlstm_state(kind, b, cfg, dt, "cuda")
+        fn(p, a[:, :256], cfg.xlstm, st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(p, a, cfg.xlstm, st)
+        torch.cuda.synchronize()
+        out[kind] = time.perf_counter() - t0
+    total = sum(out[k] * kinds.count(k) for k in out)
+    log(f"[xlstm] host loops at B={b} S={s}: mlstm_chunkwise "
+        f"{out['mlstm']:.4f} s a layer ({s // cfg.xlstm.chunk_size} chunks), "
+        f"slstm_scan {out['slstm']:.4f} s a layer ({s} steps); "
+        f"{kinds.count('mlstm')} + {kinds.count('slstm')} layers = "
+        f"{total:.4f} s of the {res['prefill_s']:.4f} s prefill")
+    return out
+
+
+def phase_xlstm(torch):
+    """xlstm-125m whole at published width through serve_lm: no kernel 8
+    launch, the greedy and top-k checks, the consistency gate, the
+    reduced arch card against CPU, the host loops' seconds, the
+    profile."""
+    runs, res, launches, calls, peak = slice10_serve(torch, "[xlstm]", XLSTM)
+    need(launches == 0, f"[xlstm]: kernel 8 launched {launches} times")
+    loops = xlstm_host_loops(torch, res)
+    out = slice10_finish(torch, "[xlstm]", runs, res, launches, peak,
+                         {"host_loops_s": loops}, XLSTM_PROFILE_TOKENS)
+    del runs, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_whisper(torch):
+    """whisper-base whole at published width through serve_lm: kernel 8
+    exactly 18 times a prefill (6 encoder, 6 causal self, 6 cross) and 6
+    times a decode step, then the shared checks."""
+    runs, res, launches, calls, peak = slice10_serve(torch, "[whisper]",
+                                                     WHISPER)
+    src, s = res["cfg"].encoder.src_len, WHISPER["prompt_len"]
+    kind_of = {(src, src, False): "encoder", (s, s, True): "self",
+               (s, src, False): "cross prefill", (1, src, False):
+               "cross decode"}
+    by = {k: 0 for k in WHISPER_CALLS}
+    for c in calls:
+        by[kind_of.get(c, "other")] = by.get(kind_of.get(c, "other"), 0) + 1
+    prefills, steps = 2, 2 * (WHISPER["new_tokens"] - 1)
+    want = {"encoder": prefills * WHISPER_FLASH["encoder"],
+            "self": prefills * WHISPER_FLASH["self"],
+            "cross prefill": prefills * WHISPER_FLASH["cross"],
+            "cross decode": steps * WHISPER_FLASH_PER_DECODE}
+    log(f"[whisper] kernel 8 launches by call: "
+        + ", ".join(f"{k} {v}" for k, v in by.items())
+        + f" (want {want}: {sum(WHISPER_FLASH.values())} per prefill + "
+        f"{WHISPER_FLASH_PER_DECODE} per decode step, {prefills} prefills "
+        f"and {steps} decode steps)")
+    need(by == want and launches == sum(want.values()),
+         f"[whisper]: kernel 8 launches {by}, not {want}")
+    out = slice10_finish(torch, "[whisper]", runs, res, launches, peak,
+                         {"launches_by": by, "src_len": src})
+    del runs, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_vlm(torch):
+    """internvl2-2b whole at published width through serve_lm: kernel 8
+    exactly 24 times a prefill, at S = 256 image + 7680 text tokens, then
+    the shared checks."""
+    runs, res, launches, calls, peak = slice10_serve(torch, "[vlm]", VLM)
+    n = res["cfg"].vision.n_img_tokens + VLM["prompt_len"]
+    log(f"[vlm] kernel 8 launches={launches} ({launches / 2:g} per prefill"
+        f"), every one at Sq = Skv = {n}: "
+        f"{all(c == (n, n, True) for c in calls)}")
+    need(launches == 2 * VLM_FLASH_PER_PREFILL
+         and all(c == (n, n, True) for c in calls),
+         f"[vlm]: kernel 8 launched {launches} times, not "
+         f"{VLM_FLASH_PER_PREFILL} a prefill at S {n}")
+    out = slice10_finish(torch, "[vlm]", runs, res, launches, peak,
+                         {"seq": n})
+    del runs, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_slice10_flash_timing(torch, whisper, vlm):
+    """Kernel 8 at the whisper encoder's, cross-attention's (prefill and
+    decode) and internvl2's prefill shapes (``time_flash_shape``): shape
+    records for the kernels line's flash_attention row, each with its
+    launches in the phase's two serve runs."""
+    b = WHISPER["batch"]
+    h, hkv, d = (WHISPER_HEADS[x] for x in ("h", "hkv", "d"))
+    src, s, n = whisper["src_len"], WHISPER["prompt_len"], vlm["seq"]
+    by = whisper["launches_by"]
+    shapes = {
+        "whisper_encoder_shape": ((b, src, src, h, hkv, d, False, 0),
+                                  by["encoder"]),
+        "whisper_cross_shape": ((b, s, src, h, hkv, d, False, 0),
+                                by["cross prefill"]),
+        "whisper_cross_decode_shape": ((b, 1, src, h, hkv, d, False, 0),
+                                       by["cross decode"]),
+        "internvl2_prefill_shape": (
+            (VLM["batch"], n, n, VLM_HEADS["h"], VLM_HEADS["hkv"],
+             VLM_HEADS["d"], True, 0), vlm["launches"]),
+    }
+    recs = {}
+    for name, (shp, launches) in shapes.items():
+        out = time_flash_shape(torch, *shp)
+        r, info = out["bf16"], out["bf16"]["info"]
+        bb, sq, skv, hh, hk, dd, causal, _ = shp
+        log(f"[timing] flash_attention {name}: launches in the phase's "
+            f"two serve runs {launches}")
+        recs[name] = {
+            "shape": f"B={bb} Sq={sq} Skv={skv} H={hh} Hkv={hk} D={dd} "
+                     f"{'causal' if causal else 'non-causal'}",
+            "launches": launches, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "plain_shape": f"B=1 Sq={sq} Skv={skv} H={hh} Hkv={hk} D={dd}",
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "registers": info["registers"],
+            "smem_bytes_per_cta": info["smem_bytes"],
+            "ms_f32": out["f32"]["ms"],
+            "plain_ms_f32": out["f32"]["plain_ms"],
+            "bound_ms_f32": out["f32"]["bound_ms"]}
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -4524,6 +4991,14 @@ def main() -> int:
     hybrid = phase_hybrid(torch)
     log(f"[hybrid] done at {time.perf_counter() - t0:.1f} s; slice 9's "
         f"phases took {time.perf_counter() - t9:.1f} s")
+    t10 = time.perf_counter()
+    phase_xlstm(torch)
+    log(f"[xlstm] done at {time.perf_counter() - t0:.1f} s")
+    whisper = phase_whisper(torch)
+    log(f"[whisper] done at {time.perf_counter() - t0:.1f} s")
+    vlm = phase_vlm(torch)
+    log(f"[vlm] done at {time.perf_counter() - t0:.1f} s; slice 10's "
+        f"phases took {time.perf_counter() - t10:.1f} s")
     t_timing = time.perf_counter()
     rows = phase_timing(torch, worst, launches)
     rows += phase_aopt_timing(torch, worst, launches)
@@ -4534,11 +5009,13 @@ def main() -> int:
     coreset_rows = phase_coreset_timing(torch, coreset["launches"])
     serve_rows = phase_serve_timing(torch, serve_per)
     hybrid_row = phase_hybrid_flash_timing(torch, hybrid["launches"])
+    slice10_rows = phase_slice10_flash_timing(torch, whisper, vlm)
     for row in rows:
         if row["name"] in serve_rows:
             row["serve_shape"] = serve_rows[row["name"]]
         if row["name"] == "flash_attention":
             row["hybrid_d256_shape"] = hybrid_row
+            row.update(slice10_rows)
         if row["name"] in fast_rows:
             row["fast_prefix_shape"] = fast_rows[row["name"]]
         if row["name"] in coreset_rows:

@@ -10,10 +10,11 @@ sel_k, w (G, kcap), eta (G, d), sel_mask (G, n), value (G,)) it becomes
 a G-lane state.
 
 ``model_params_from_numpy`` carries an LM's parameters across: the
-reference's pytree (``embed``, ``lm_head``, ``final_norm``, and
-``blocks``, one subtree per pattern position stacked over super-blocks)
-as numpy arrays becomes the port's dict with one entry per layer in
-``layers``.
+reference's pytree (``embed``, ``lm_head``, ``final_norm``, ``blocks``,
+one subtree per pattern position stacked over super-blocks, and where
+the arch has them ``img_proj``, ``enc_blocks`` stacked over encoder
+layers and ``enc_final_norm``) as numpy arrays becomes the port's dict
+with one entry per layer in ``layers`` (and in ``enc_layers``).
 """
 
 from __future__ import annotations
@@ -129,7 +130,10 @@ def model_params_from_numpy(cfg, params_np, device=None) -> dict:
     """The port's LM parameters from the reference's pytree of numpy
     arrays: ``blocks[j]`` holds pattern position j, each leaf with a
     leading super-block axis; layer i is ``blocks[i % period]`` at
-    super-block ``i // period``.  Every leaf goes to ``device`` in
+    super-block ``i // period``.  The encoder's ``enc_blocks`` (one tree
+    stacked over its layers) becomes the list ``enc_layers``; every other
+    leaf (``embed``, ``lm_head``, the final norms, ``img_proj``) is
+    carried over as it is.  Every leaf goes to ``device`` in
     ``cfg.param_dtype``."""
     check_supported(cfg)
     dev = resolve_device(device)
@@ -148,7 +152,11 @@ def model_params_from_numpy(cfg, params_np, device=None) -> dict:
     if len(blocks) != period:
         raise ValueError(f"{cfg.name}: {len(blocks)} pattern positions in "
                          f"blocks, the config's pattern has {period}")
-    out = {k: tree(v) for k, v in params_np.items() if k != "blocks"}
+    out = {k: tree(v) for k, v in params_np.items()
+           if k not in ("blocks", "enc_blocks")}
     out["layers"] = [tree(blocks[i % period], i // period)
                      for i in range(cfg.n_layers)]
+    if "enc_blocks" in params_np:
+        out["enc_layers"] = [tree(params_np["enc_blocks"], i)
+                             for i in range(cfg.encoder.n_layers)]
     return out

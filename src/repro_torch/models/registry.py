@@ -7,9 +7,9 @@ from repro_torch.models.transformer import Model, check_supported
 
 
 def build_model(cfg) -> Model:
-    """The port's Model for a config or an arch id.  Raises
-    ``NotImplementedError`` for an arch whose block kinds are not ported
-    yet (MoE, RG-LRU, xLSTM, encoder-decoder, vision: ROADMAP item 14)."""
+    """The port's Model for a config or an arch id (every arch of the
+    registry).  Raises ``ValueError`` for a block kind that no arch
+    uses."""
     if isinstance(cfg, str):
         from repro_torch.configs.registry import get_config
 

@@ -1,31 +1,41 @@
-"""The port's decoder LM.
+"""The port's LM: decoder, encoder-decoder and image-prefix models.
 
 A port of ``repro/models/transformer.py`` for any ``block_pattern`` over
 the temporal-mixing kinds ``attn``, ``local_attn`` (a sliding window of
-``attn.window``, 2048 when that is 0) and ``rglru``, each followed by a
-dense MLP or, with ``cfg.moe``, a Mixture-of-Experts block: the dense
-archs (h2o-danube, smollm, olmo, qwen2.5), the MoE archs (grok-1,
-llama4-maverick) and the hybrid recurrentgemma.  The other kinds (xLSTM,
-encoder-decoder, vision) are not ported yet and ``build_model`` refuses
-them (ROADMAP item 14).
+``attn.window``, 2048 when that is 0), ``rglru``, ``mlstm`` and
+``slstm``, each followed by a dense MLP or, with ``cfg.moe``, a
+Mixture-of-Experts block (no MLP when ``d_ff`` is 0, as xLSTM's): the
+dense archs (h2o-danube, smollm, olmo, qwen2.5), the MoE archs (grok-1,
+llama4-maverick), the hybrid recurrentgemma and xlstm-125m.  With
+``cfg.encoder`` (whisper) an encoder stack turns the batch's
+``enc_frames`` into ``enc_out``, and every decoder block adds a
+cross-attention over it; with ``cfg.vision`` (internvl2) the batch's
+``img_embeds`` are projected by ``img_proj`` and prepended to the text
+embeddings.  Both frontends are stubs in the JAX package too: the batch
+carries precomputed frame or patch embeddings.
 
 Parameters are a plain dict: ``embed``, ``lm_head`` (untied only),
-``final_norm`` and ``layers``, a list with one dict per layer (the JAX
-package stacks each pattern position over super-blocks in ``blocks`` for
+``final_norm``, ``img_proj`` (vision), ``enc_layers`` and
+``enc_final_norm`` (encoder) and ``layers``, a list with one dict per
+layer (the JAX package stacks each pattern position over super-blocks
+in ``blocks`` and the encoder's layers in ``enc_blocks`` for
 ``lax.scan``; layer i is position i % period of super-block i // period,
-and ``repro_torch.convert.model_params_from_numpy`` splits them).  The
+and ``repro_torch.convert.model_params_from_numpy`` splits both).  The
 forward pass is a Python loop over layers; single device, no training,
 so the JAX package's sharding constraints and remat have no counterpart.
 
-Prefill attention: on the card every prompt goes through the
-hand-written flash-attention kernel (``impl="kernel"``, the counterpart
-of the JAX package's ``"pallas"``, which the JAX prefill reaches only
-when asked for).  On the CPU the port keeps the JAX package's rule:
-``full`` up to 1024 tokens, which is the kernel wrapper's plain version
-on a CPU tensor, and ``chunked`` above, whose memory is O(chunk²).  The
-kernel computes the same online-softmax function as ``chunked``; the
-port makes the same choice as in its earlier slices, where the kernels
-are the default whenever the work lives on the card.
+Attention: on the card every prefill self-attention, the encoder's
+bidirectional attention and every cross-attention (prefill and decode)
+go through the hand-written flash-attention kernel (``impl="kernel"``,
+the counterpart of the JAX package's ``"pallas"``, which the JAX prefill
+reaches only when asked for).  On the CPU the port keeps the JAX
+package's rule: ``full`` up to 1024 positions (the image prefix counts),
+which is the kernel wrapper's plain version on a CPU tensor, and
+``chunked`` above, whose memory is O(chunk²); the encoder and the
+cross-attention are ``full`` there, as the reference's.  The kernel
+computes the same online-softmax function as ``chunked``; the port
+makes the same choice as in its earlier slices, where the kernels are
+the default whenever the work lives on the card.
 
 Entry points
 ------------
@@ -34,8 +44,9 @@ Entry points
   decode_step(params, cache, tok, pos)   → (logits, cache), in place
   init_cache(batch, capacity, device)    → decode cache: per layer a KV
                                            cache (a ring of the window for
-                                           windowed attention) or an
-                                           RG-LRU state
+                                           windowed attention), an RG-LRU
+                                           or an xLSTM state; ``enc_out``
+                                           for an encoder-decoder
 """
 
 from __future__ import annotations
@@ -45,7 +56,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs.registry import not_ported
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import normal
 from repro_torch.models.layers.attention import (
     KVCache,
@@ -67,9 +78,14 @@ from repro_torch.models.layers.rglru import (
     rglru_decode_step,
 )
 from repro_torch.models.layers.rotary import apply_rope
+from repro_torch.models.layers.xlstm import (
+    init_xlstm_block,
+    init_xlstm_state,
+    xlstm_block_apply,
+)
 
 # The temporal-mixing kinds of ``block_pattern`` the port runs.
-MIXERS = ("attn", "local_attn", "rglru")
+MIXERS = ("attn", "local_attn", "rglru", "mlstm", "slstm")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -92,15 +108,20 @@ def params_to(params, device):
 # per-block init / apply
 # ---------------------------------------------------------------------------
 
-def _init_block(gen, kind: str, cfg, pdt):
+def _init_block(gen, kind: str, cfg, pdt, *, cross_attn: bool):
     dev = gen.device
     p: dict = {"norm1": init_norm(cfg.norm, cfg.d_model, pdt, dev)}
     if kind in ("attn", "local_attn"):
         p["attn"] = init_attention(gen, cfg, pdt)
     elif kind == "rglru":
         p["rglru"] = init_rglru(gen, cfg, pdt)
+    elif kind in ("mlstm", "slstm"):
+        p["xlstm"] = init_xlstm_block(gen, kind, cfg, pdt)
     else:
         raise ValueError(kind)
+    if cross_attn:
+        p["norm_x"] = init_norm(cfg.norm, cfg.d_model, pdt, dev)
+        p["xattn"] = init_attention(gen, cfg, pdt)
     if cfg.d_ff > 0:
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, pdt, dev)
         if cfg.moe is not None:
@@ -145,6 +166,12 @@ def _apply_mixer(kind, p, x, cfg, *, impl, positions, cache, pos, decode):
             return rglru_decode_step(p["rglru"], x, cfg, cache)
         y, st = rglru_apply(p["rglru"], x, cfg)
         return y, (st if cache is not None else cache)
+    if kind in ("mlstm", "slstm"):
+        state = cache if cache is not None else init_xlstm_state(
+            kind, x.shape[0], cfg, x.dtype, x.device)
+        y, st = xlstm_block_apply(kind, p["xlstm"], x, cfg, state,
+                                  decode=decode)
+        return y, (st if cache is not None else cache)
     window = _window(kind, a)
     if not decode:
         y, k, v = attention_block(p["attn"], x, cfg, impl=impl,
@@ -163,14 +190,33 @@ def _apply_mixer(kind, p, x, cfg, *, impl, positions, cache, pos, decode):
     return attention_output(p["attn"], o), cache
 
 
-def _apply_block(kind, p, x, cfg, *, impl, positions, cache, pos, decode):
-    """One block: mixer and MLP or MoE, each on a residual.  Returns (x,
-    new cache entry, the MoE's aux loss or 0)."""
+def _apply_cross_attn(p, x, enc_out, cfg):
+    """Decoder cross-attention (whisper): no RoPE, non-causal, K and V
+    projected from ``enc_out`` at every call (decode steps too, as the
+    reference); kernel 8 on the card, its plain version on the CPU."""
+    b, s, _ = x.shape
+    a = cfg.attn
+    se = enc_out.shape[1]
+    q = (x @ p["xattn"]["wq"]).reshape(b, s, a.n_heads, a.head_dim)
+    k = (enc_out @ p["xattn"]["wk"]).reshape(b, se, a.n_kv_heads, a.head_dim)
+    v = (enc_out @ p["xattn"]["wv"]).reshape(b, se, a.n_kv_heads, a.head_dim)
+    o = flash_attention(q, k, v, causal=False, window=0, softcap=0.0)
+    return attention_output(p["xattn"], o)
+
+
+def _apply_block(kind, p, x, cfg, *, impl, positions, cache, pos, decode,
+                 enc_out=None):
+    """One block: mixer, cross-attention (given ``enc_out`` and a block
+    that has one) and MLP or MoE, each on a residual.  Returns (x, new
+    cache entry, the MoE's aux loss or 0)."""
     y, new_cache = _apply_mixer(
         kind, p, apply_norm(cfg.norm, p.get("norm1"), x), cfg, impl=impl,
         positions=positions, cache=cache, pos=pos, decode=decode)
     x = x + y
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if enc_out is not None and "xattn" in p:
+        x = x + _apply_cross_attn(
+            p, apply_norm(cfg.norm, p.get("norm_x"), x), enc_out, cfg)
     if cfg.d_ff > 0:
         h = apply_norm(cfg.norm, p.get("norm2"), x)
         if cfg.moe is not None:
@@ -182,15 +228,11 @@ def _apply_block(kind, p, x, cfg, *, impl, positions, cache, pos, decode):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run."""
-    kinds = {"xLSTM": cfg.xlstm, "encoder-decoder": cfg.encoder,
-             "vision": cfg.vision}
-    for kind, part in kinds.items():
-        if part is not None:
-            raise not_ported(f"{cfg.name}: the {kind} block")
+    """Raise ``ValueError`` for a block kind that no arch uses."""
     for kind in cfg.block_pattern:
         if kind not in MIXERS:
-            raise not_ported(f"{cfg.name}: the {kind!r} block kind")
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r}; "
+                             f"expected one of {MIXERS}")
 
 
 # ---------------------------------------------------------------------------
@@ -214,14 +256,48 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = normal(generator, (d, vp), d ** -0.5, pdt)
         params["final_norm"] = init_norm(cfg.norm, d, pdt, dev)
-        params["layers"] = [_init_block(generator, self.kind(i), cfg, pdt)
-                            for i in range(cfg.n_layers)]
+        if cfg.vision is not None:
+            e = cfg.vision.embed_dim
+            params["img_proj"] = normal(generator, (e, d), e ** -0.5, pdt)
+        params["layers"] = [
+            _init_block(generator, self.kind(i), cfg, pdt,
+                        cross_attn=cfg.is_encdec)
+            for i in range(cfg.n_layers)]
+        if cfg.is_encdec:
+            params["enc_layers"] = [{
+                "norm1": init_norm(cfg.norm, d, pdt, dev),
+                "enc_attn": init_attention(generator, cfg, pdt),
+                "norm2": init_norm(cfg.norm, d, pdt, dev),
+                "mlp": init_mlp(generator, cfg, pdt),
+            } for _ in range(cfg.encoder.n_layers)]
+            params["enc_final_norm"] = init_norm(cfg.norm, d, pdt, dev)
         return params
 
     def kind(self, i: int) -> str:
         """Layer i's temporal-mixing kind."""
         pattern = self.cfg.block_pattern
         return pattern[i % len(pattern)]
+
+    # ---- encoder (whisper) ------------------------------------------------
+    def _encode(self, params, frames):
+        """frames: (B, src_len, D) → enc_out (B, src_len, D): per layer
+        RoPE'd bidirectional self-attention (kernel 8 at ``causal=False``
+        on the card) and an MLP, each on a residual, then
+        ``enc_final_norm``."""
+        cfg = self.cfg
+        a = cfg.attn
+        x = frames.to(dtype_of(cfg.dtype))
+        positions = torch.arange(x.shape[1], device=x.device)
+        for p in params["enc_layers"]:
+            h = apply_norm(cfg.norm, p.get("norm1"), x)
+            q, k, v = qkv_project(p["enc_attn"], h, cfg)
+            q = apply_rope(q, positions, a.rope_theta, cfg.rope_scaling)
+            k = apply_rope(k, positions, a.rope_theta, cfg.rope_scaling)
+            o = flash_attention(q, k, v, causal=False, window=0, softcap=0.0)
+            x = x + attention_output(p["enc_attn"], o)
+            h = apply_norm(cfg.norm, p.get("norm2"), x)
+            x = x + mlp_apply(p["mlp"], h, cfg)
+        return apply_norm(cfg.norm, params.get("enc_final_norm"), x)
 
     # ---- embedding / unembedding ------------------------------------------
     def _embed_tokens(self, params, tokens):
@@ -236,8 +312,22 @@ class Model:
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return x @ head.to(x.dtype)
 
+    def _inputs(self, params, batch):
+        """The prefill's input embeddings, with the projected image
+        prefix in front (vision), and the encoder's output
+        (encoder-decoder, else None)."""
+        cfg = self.cfg
+        x = self._embed_tokens(params, batch["tokens"])
+        if cfg.vision is not None:
+            img = batch["img_embeds"].to(device=x.device, dtype=x.dtype)
+            x = torch.cat([img @ params["img_proj"].to(x.dtype), x], dim=1)
+        enc_out = None
+        if cfg.is_encdec:
+            enc_out = self._encode(params, batch["enc_frames"].to(x.device))
+        return x, enc_out
+
     # ---- forward (prefill) ------------------------------------------------
-    def _backbone(self, params, x, *, impl, cache=None):
+    def _backbone(self, params, x, *, impl, cache=None, enc_out=None):
         """x: (B, S, D).  Runs every layer; returns (x, caches, aux)."""
         cfg = self.cfg
         positions = torch.arange(x.shape[1], device=x.device)
@@ -247,7 +337,7 @@ class Model:
             x, nc, a = _apply_block(
                 self.kind(i), p, x, cfg, impl=impl, positions=positions,
                 cache=cache[i] if cache is not None else None, pos=None,
-                decode=False)
+                decode=False, enc_out=enc_out)
             caches.append(nc)
             aux = aux + a
         x = apply_norm(cfg.norm, params.get("final_norm"), x)
@@ -256,56 +346,70 @@ class Model:
     # ---- serving ------------------------------------------------------------
     def init_cache(self, batch: int, capacity: int, device=None):
         """Decode cache: per layer a KV cache (a ring of ``window`` slots
-        for windowed attention, else ``capacity`` slots) or, for an
-        ``rglru`` layer, a zero RG-LRU state."""
-        a = self.cfg.attn
-        adt = dtype_of(self.cfg.dtype)
+        for windowed attention, else ``capacity`` slots), a zero RG-LRU
+        state or a zero xLSTM state; a zero ``enc_out`` for an
+        encoder-decoder."""
+        cfg = self.cfg
+        a = cfg.attn
+        adt = dtype_of(cfg.dtype)
 
         def one(kind):
             if kind == "rglru":
-                return init_rglru_state(batch, self.cfg, adt, device)
+                return init_rglru_state(batch, cfg, adt, device)
+            if kind in ("mlstm", "slstm"):
+                return init_xlstm_state(kind, batch, cfg, adt, device)
             window = _window(kind, a)
             cap = min(capacity, window) if window else capacity
             return init_kv_cache(batch, cap, a.n_kv_heads, a.head_dim, adt,
                                  device)
 
-        layers = [one(self.kind(i)) for i in range(self.cfg.n_layers)]
-        return {"layers": layers,
-                "step_offset": torch.zeros((batch,), dtype=torch.int32,
-                                           device=device)}
+        cache = {"layers": [one(self.kind(i)) for i in range(cfg.n_layers)],
+                 "step_offset": torch.zeros((batch,), dtype=torch.int32,
+                                            device=device)}
+        if cfg.is_encdec:
+            cache["enc_out"] = torch.zeros(
+                (batch, cfg.encoder.src_len, cfg.d_model), dtype=adt,
+                device=device)
+        return cache
 
     def prefill(self, params, batch, *, max_new_tokens: int = 64):
-        """Run the prompt, build the decode cache (with ``max_new_tokens``
-        of headroom for linear caches), return the last logits.
+        """Run the prompt (behind the image prefix, with the encoder's
+        output), build the decode cache (with ``max_new_tokens`` of
+        headroom for linear caches), return the last logits.
 
         The attention path follows the tensors: the flash-attention
         kernel on the card at every length; on the CPU the kernel's
-        plain version (the JAX package's ``full``) up to 1024 tokens and
-        ``chunked`` above, as the JAX package."""
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = self._embed_tokens(params, tokens)
-        cache0 = self.init_cache(b, s + max_new_tokens, device=x.device)
-        impl = "chunked" if not x.is_cuda and s > 1024 else "kernel"
+        plain version (the JAX package's ``full``) up to 1024 positions
+        and ``chunked`` above, as the JAX package."""
+        b, s = batch["tokens"].shape
+        x, enc_out = self._inputs(params, batch)
+        n = x.shape[1]                                   # prefix + prompt
+        cache0 = self.init_cache(b, n + max_new_tokens, device=x.device)
+        impl = "chunked" if not x.is_cuda and n > 1024 else "kernel"
         x, caches, _ = self._backbone(params, x, impl=impl,
-                                      cache=cache0["layers"])
+                                      cache=cache0["layers"],
+                                      enc_out=enc_out)
         logits = self._logits(params, x[:, -1:])
         cache = {"layers": caches,
-                 "step_offset": torch.full((b,), s, dtype=torch.int32,
+                 "step_offset": torch.full((b,), n, dtype=torch.int32,
                                            device=x.device)}
+        if enc_out is not None:
+            cache["enc_out"] = enc_out
         return logits[:, 0], cache
 
     def decode_step(self, params, cache, tokens, pos):
         """tokens: (B, 1) int; pos: (B,) absolute positions.  Returns
         (logits (B, V), cache); the cache is updated in place (a KV
-        cache's tensors, an RG-LRU layer's entry of ``cache["layers"]``)."""
+        cache's tensors, a recurrent layer's entry of
+        ``cache["layers"]``)."""
         cfg = self.cfg
         x = self._embed_tokens(params, tokens)
         layers = cache["layers"]
+        enc_out = cache.get("enc_out")
         for i, p in enumerate(params["layers"]):
             x, layers[i], _ = _apply_block(self.kind(i), p, x, cfg,
                                            impl=None, positions=None,
                                            cache=layers[i], pos=pos,
-                                           decode=True)
+                                           decode=True, enc_out=enc_out)
         x = apply_norm(cfg.norm, params.get("final_norm"), x)
         return self._logits(params, x)[:, 0], cache

@@ -8,8 +8,9 @@ the only size meant for the CPU; ``--full`` (``main(full=True)``) builds
 it at its published width, in its own dtype.  ``--n-layers`` cuts the
 depth (a multiple of the block pattern's period) and keeps every width:
 the MoE archs at published width hold a few layers on one card.  Weights
-and prompt are random, from seed 0, and sampling is top-k 40, as the
-example's.
+and prompt (and the image embeddings of a VLM, the encoder frames of an
+encoder-decoder) are random, from seed 0, and sampling is top-k 40, as
+the example's.
 
 On the card the run is timed with a clock that synchronises the device:
 ``generate`` reads it before the prefill and before every decode step
@@ -20,6 +21,7 @@ wall time into prefill (with the first sample) and decode per token.
     PYTHONPATH=src python -m repro_torch.serve_lm --arch grok-1-314b \
         --device cpu
     python -m repro_torch.serve_lm --arch grok-1-314b --full --n-layers 4
+    python -m repro_torch.serve_lm --arch whisper-base --full
 """
 
 from __future__ import annotations
@@ -60,9 +62,11 @@ def main(arch: str = "h2o-danube-1.8b", batch: int = 4, prompt_len: int = 32,
          full: bool = False, n_layers: int | None = None, device=None,
          verbose: bool = True) -> dict:
     """Build the arch (``n_layers`` deep when given), draw weights and a
-    prompt of ``batch`` × ``prompt_len`` tokens, generate ``new_tokens``
-    tokens (greedy at temperature 0); returns the tokens, timings, the
-    prompt and the model and parameters."""
+    prompt of ``batch`` × ``prompt_len`` tokens (behind the arch's
+    image embeddings, or beside its encoder frames, drawn N(0, 1) as the
+    JAX example's), generate ``new_tokens`` tokens (greedy at
+    temperature 0); returns the tokens, timings, the prompt, the whole
+    batch and the model and parameters."""
     dev = resolve_device(device)
     set_full_f32_matmul()
     cfg = get_config(arch) if full else get_reduced_config(arch)
@@ -78,9 +82,18 @@ def main(arch: str = "h2o-danube-1.8b", batch: int = 4, prompt_len: int = 32,
     params = model.init(gen)
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, device=dev, dtype=torch.int32)
+    inputs = {"tokens": tokens}
+    if cfg.vision is not None:
+        inputs["img_embeds"] = torch.randn(
+            (batch, cfg.vision.n_img_tokens, cfg.vision.embed_dim),
+            generator=gen, device=dev)
+    if cfg.is_encdec:
+        inputs["enc_frames"] = torch.randn(
+            (batch, cfg.encoder.src_len, cfg.d_model), generator=gen,
+            device=dev)
 
     clock = _SyncClock(dev)
-    out = generate(model, params, {"tokens": tokens}, n_steps=new_tokens,
+    out = generate(model, params, inputs, n_steps=new_tokens,
                    key=SeedKey(SEED), temperature=temperature, top_k=TOP_K,
                    deadline_s=math.inf, clock=clock, device=dev)
     t_end = clock()
@@ -89,7 +102,7 @@ def main(arch: str = "h2o-danube-1.8b", batch: int = 4, prompt_len: int = 32,
     prefill_s = (t[1] if new_tokens > 1 else t_end) - t[0]
     decode_s = (t_end - t[1]) / (new_tokens - 1) if new_tokens > 1 else 0.0
     res = {"cfg": cfg, "model": model, "params": params, "prompt": tokens,
-           "tokens": out, "seconds": seconds, "prefill_s": prefill_s,
+           "batch": inputs, "tokens": out, "seconds": seconds, "prefill_s": prefill_s,
            "decode_s_per_token": decode_s,
            "tok_s": batch * new_tokens / seconds, "device": str(dev)}
     if verbose:

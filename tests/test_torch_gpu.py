@@ -1327,6 +1327,42 @@ def test_flash_attention_head_dim_256(cuda, dtype, b, sq, skv, h, hkv,
         assert rel(0.9 * got.double()) > FLASH_BF16_REL
 
 
+# Slice 10's shapes: whisper's encoder (non-causal, S 1500 frames), its
+# cross-attention against the frames in the prefill (Sq 384) and at a
+# decode step (Sq 1), and internvl2's prefill (GQA 16/8, D 128, 256 image
+# + 7680 text tokens).
+FLASH_SLICE10_CASES = [  # b, sq, skv, h, hkv, d, causal
+    (4, 1500, 1500, 8, 8, 64, False), (4, 384, 1500, 8, 8, 64, False),
+    (4, 1, 1500, 8, 8, 64, False), (1, 7936, 7936, 16, 8, 128, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal", FLASH_SLICE10_CASES)
+def test_flash_attention_encdec_and_vlm_shapes(cuda, dtype, b, sq, skv, h,
+                                               hkv, d, causal):
+    """Kernel 8 at slice 10's shapes against its plain version; in bf16
+    also every row against its own scale in float64 (FLASH_BF16_REL, one
+    KV group at a time), which the output scaled by 0.9 must miss."""
+    q, k, v = _flash_inputs(cuda, b, sq, skv, h, hkv, d, dtype,
+                            seed=sq + skv + d)
+    got = _check_flash(q, k, v, causal=causal)
+    if dtype == torch.bfloat16:
+        r = h // hkv
+        q, k, v = q.double(), k.double(), v.double()
+        want = torch.cat([
+            flash_attention_ref(q[:, :, g * r:(g + 1) * r], k[:, :, g:g + 1],
+                                v[:, :, g:g + 1], causal=causal)
+            for g in range(hkv)], dim=2)
+        rms = want.pow(2).mean(-1).sqrt()
+
+        def rel(o):
+            return float(((o.double() - want).abs().amax(-1) / rms).max())
+
+        assert rel(got) <= FLASH_BF16_REL
+        assert rel(0.9 * got.double()) > FLASH_BF16_REL
+
+
 # ---------------------------------------------------------------------------
 # the MoE and RG-LRU layers (no kernel of their own): the card against the
 # CPU in f32, tolerance LAYER_TOL (another summation order in every
@@ -1334,6 +1370,12 @@ def test_flash_attention_head_dim_256(cuda, dtype, b, sq, skv, h, hkv,
 # ---------------------------------------------------------------------------
 
 LAYER_TOL = 1e-4
+# The reduced xlstm-125m's logits: its 8 layers pass rounding on 2–3×
+# amplified (the mLSTM divides by max(|nᵀq|, e^{−m})), so on the CPU the
+# JAX reference's own logits move by up to 4.5e-4 when its weights get
+# half an ulp of noise (tests/test_torch_encdec_vlm.py's XLSTM_TOL); the
+# card read 2.821e-04 from the CPU (chip_smoke.py's [xlstm parity]).
+XLSTM_TOL = 5e-4
 
 
 @pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b"])
@@ -1396,6 +1438,54 @@ def test_rglru_layer_card_matches_cpu(cuda, with_state):
         outs[dev] = [t.cpu() for t in (*steps, *s1)]
     for a, b in zip(outs["cpu"], outs["cuda"]):
         torch.testing.assert_close(b, a, rtol=LAYER_TOL, atol=LAYER_TOL)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-base",
+                                  "internvl2-2b"])
+def test_slice10_archs_card_match_cpu(cuda, arch):
+    """The reduced xlstm-125m, whisper-base and internvl2-2b (f32) on the
+    card against the CPU on the same weights and batch (image embeddings,
+    encoder frames): prefill and decode logits within LAYER_TOL (xlstm
+    within XLSTM_TOL), greedy tokens identical; whisper's encoder and
+    cross-attention and internvl2's prefill launch kernel 8."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.lm_serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import params_to
+
+    cfg = get_reduced_config(arch)
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = {"cpu": model.init(gen)}
+    params[cuda] = params_to(params["cpu"], cuda)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                     generator=gen, dtype=torch.int32)}
+    if cfg.vision is not None:
+        batch["img_embeds"] = torch.randn(
+            (2, cfg.vision.n_img_tokens, cfg.vision.embed_dim), generator=gen)
+    if cfg.is_encdec:
+        batch["enc_frames"] = torch.randn(
+            (2, cfg.encoder.src_len, cfg.d_model), generator=gen)
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = params[dev]
+        t = {k: v.to(dev) for k, v in batch.items()}
+        before = flash_attention.launches
+        lg, cache = model.prefill(p, t)
+        lg2, _ = model.decode_step(p, cache, t["tokens"][:, :1],
+                                   cache["step_offset"])
+        launched = flash_attention.launches - before
+        toks = generate(model, p, t, 8, device=dev)
+        outs[dev] = [x.cpu() for x in (lg, lg2, toks)]
+        if dev is cuda:
+            want = {"xlstm-125m": 0, "internvl2-2b": cfg.n_layers}.get(arch)
+            if cfg.is_encdec:   # encoder, self and cross; cross in decode
+                want = cfg.encoder.n_layers + 3 * cfg.n_layers
+            assert launched == want
+    tol = XLSTM_TOL if arch == "xlstm-125m" else LAYER_TOL
+    for a, b in zip(outs["cpu"][:2], outs[cuda][:2]):
+        torch.testing.assert_close(b, a, rtol=tol, atol=tol)
+    assert torch.equal(outs["cpu"][2], outs[cuda][2])
 
 
 def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):

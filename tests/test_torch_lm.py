@@ -40,6 +40,7 @@ import numpy as np  # noqa: E402
 
 from repro.configs import get_reduced_config as jax_reduced_config  # noqa: E402
 from repro.configs.registry import get_config as jax_get_config  # noqa: E402
+from repro.configs.registry import list_archs as jax_list_archs  # noqa: E402
 from repro.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_pallas,
 )
@@ -56,8 +57,8 @@ from repro.models.layers.norms import apply_norm as jax_apply_norm  # noqa: E402
 from repro.models.layers.rotary import apply_rope as jax_apply_rope  # noqa: E402
 from repro.train.serve import generate as jax_generate  # noqa: E402
 from repro_torch import serve_lm  # noqa: E402
-from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
+from repro_torch.configs import list_archs  # noqa: E402
 from repro_torch.convert import model_params_from_numpy  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
@@ -82,6 +83,9 @@ CONSIST_TOL = 2e-2
 SHALLOW = {"recurrentgemma-2b": 13}
 ARCHS = ["h2o-danube-1.8b", "smollm-135m", "olmo-1b", "qwen2.5-14b",
          "grok-1-314b", "llama4-maverick-400b-a17b", "recurrentgemma-2b"]
+# The xLSTM, encoder-decoder and VLM archs: their model checks live in
+# tests/test_torch_xlstm.py and tests/test_torch_encdec_vlm.py.
+SLICE10_ARCHS = ["xlstm-125m", "whisper-base", "internvl2-2b"]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 _split = jax.jit(jax.random.split, static_argnums=1)
@@ -347,7 +351,7 @@ def test_ring_cache_update_matches_jax_and_linear():
 # configs and the model
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SLICE10_ARCHS)
 def test_configs_equal_the_reference(arch):
     assert (dataclasses.asdict(get_config(arch))
             == dataclasses.asdict(jax_get_config(arch)))
@@ -355,20 +359,24 @@ def test_configs_equal_the_reference(arch):
             == dataclasses.asdict(jax_reduced_config(arch)))
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-base",
-                                  "internvl2-2b"])
-def test_other_archs_are_refused(arch):
-    jax_get_config(arch)   # the reference has it
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        build_model(arch)
+@pytest.mark.parametrize("arch", jax_list_archs())
+def test_every_reference_arch_builds(arch):
+    """Every arch of the reference's registry builds, at published and
+    reduced width, with the reference's block kinds."""
+    for cfg in (get_config(arch), get_reduced_config(arch)):
+        model = build_model(cfg)
+        assert model.cfg == cfg
+        assert [model.kind(i) for i in range(cfg.n_layers)] == [
+            cfg.block_pattern[i % cfg.pattern_period]
+            for i in range(cfg.n_layers)]
+    assert sorted(list_archs()) == sorted(jax_list_archs())
 
 
-def test_unported_block_kinds_are_refused():
+def test_unknown_block_kinds_are_refused():
     cfg = get_reduced_config("smollm-135m")
-    for bad in (dict(xlstm=tbase.XLSTMConfig(2, 16)),
-                dict(block_pattern=("attn", "mlstm"), n_layers=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-            build_model(dataclasses.replace(cfg, **bad))
+    with pytest.raises(ValueError, match="unknown block kind"):
+        build_model(dataclasses.replace(cfg, block_pattern=("attn", "mamba"),
+                                        n_layers=2))
 
 
 def _perturb(params_np, seed):
