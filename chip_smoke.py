@@ -194,6 +194,25 @@ exits nonzero, with no result line) when a check fails:
                on the wrapper's callers) and 6 times a decode step
      vlm     — internvl2-2b whole (24 layers), 256 image tokens + prompt
                7680: kernel 8 exactly 24 times a prefill, at S 7936
+ slice 11 — after vlm:
+     train   — smollm-135m at published width and all 30 layers, bf16
+               parameters with an f32 master, remat on, trained through
+               train_loop with the reference CLI's selection defaults
+               (DASH on grad features, embed_dim_cap 32, 4 samples,
+               selection every 2 steps from pools 4 x the period's
+               examples; batch 8 x 2048 tokens of make_lm_tokens; 8
+               steps, warmup 2), then again killed at step 5 (inside a
+               period) and resumed from checkpoints under build/: losses
+               finite and falling, kernel 8 once per layer per feature
+               chunk, kernel 4 launched, the resumed run's losses and
+               selections equal the uninterrupted run's bit for bit;
+               step seconds, tokens/s, peak memory, selection seconds,
+               kernel 5's launches, one profiled step's busy share
+     train parity — one f32 step of smollm-135m at full width, 2 layers,
+               batch 2 x 512, card against the CPU port from the same
+               state: loss, grad norm, the largest parameter change and
+               m, each gated between its sound reading and a planted
+               fault's (TRAIN_PARITY_TOL)
  14. timing  — CUDA-event times per call of each kernel, its plain
                version and a library call, beside the kernel's bound
                from its shapes and the H100 SXM peaks (kernel 8 at the lm
@@ -209,7 +228,9 @@ exits nonzero, with no result line) when a check fails:
                and 5 at [serve]'s 8-lane bucket shapes; kernel 8 at
                head_dim 256 at [hybrid]'s prefill shape, and at whisper's
                encoder, cross-attention (prefill and decode) and
-               internvl2's prefill shapes
+               internvl2's prefill shapes; kernel 8 at the train
+               features' chunk (B 8, S 2048, smollm's heads) and kernel 4
+               at the train selection's shape (d 32, n 64)
  15. profile — greedy and DASH of the main phase, DASH of the design
                main phase, greedy and DASH of the classification main
                phase, 8 rounds of the registry main's FAST, one lm prefill and four
@@ -356,6 +377,9 @@ LM_FLASH_CASES = (
        (4, 384, 1500, 8, 8, 64, False, 0, 0.0, 0),
        (4, 1, 1500, 8, 8, 64, False, 0, 0.0, 0),
        (1, 7936, 7936, 16, 8, 128, True, 0, 0.0, 0)]
+    # slice 11: the train features' chunk (smollm's heads, 8 rows of
+    # 2048 tokens, causal)
+    + [(8, 2048, 2048, 9, 3, 64, True, 0, 0.0, 0)]
 )
 
 # [r2 main]: DASH's R² value against Def. 14 of its set solved in
@@ -2728,6 +2752,325 @@ def phase_slice10_flash_timing(torch, whisper, vlm):
 
 
 # ---------------------------------------------------------------------------
+# slice 11: training
+# ---------------------------------------------------------------------------
+
+# [train]: smollm-135m at its published width and depth (30 layers,
+# d_model 576, 9 heads / 3 KV heads of 64, vocab 49,152), bf16 parameters
+# with an f32 master, remat on, through repro_torch.train.loop.train_loop
+# with the reference CLI's selection defaults: DASH on grad features
+# (embed_dim_cap 32, 4 samples), selection every 2 steps from a pool 4 ×
+# the period's examples, batch 8 × 2048 tokens of make_lm_tokens, 8
+# steps, warmup 2; then the same run with a failure at step 5 (inside
+# period 2) and checkpoints every 2 steps under a temporary directory.
+# Reckoned: 134.5 M parameters, 0.27 GB in bf16, 2.2 GB of f32 master,
+# m, v and gradients; the (8, 2048, 49152) f32 logits 3.2 GB.
+TRAIN = dict(arch="smollm-135m", batch=8, seq=2048, steps=8, warmup=2,
+             lr=3e-3, selection_every=2, pool_factor=4, dim_cap=32,
+             n_samples=4, fail_at=5, checkpoint_every=2,
+             n_tokens=2_000_000)
+# [train parity]: one f32 step of smollm-135m at full width, 2 layers,
+# batch 2 × 512 (the loss's ``full`` attention), card against the CPU
+# port from the same state.  Each gate is relative: the loss, the grad
+# norm, the largest parameter change (≈ the learning rate: Adam's first
+# step is g/|g|) and m (the clipped gradient / 10) over its largest
+# entry.  Planted faults: one token of the batch changed (loss, grad
+# norm, m), the learning rate 1 % high (the parameter change).  Readings
+# on the H100 80GB HBM3 at 700 W: sound 8.426e-08, 0, 0 and 2.675e-06;
+# the faults 4.132e-04, 4.892e-03, 1.000e-02 and 0.795; each gate lies
+# a factor of 41 or more below its fault and 37 or more above its sound
+# reading.
+TRAIN_PARITY = dict(n_layers=2, batch=2, seq=512, lr=1e-3)
+TRAIN_PARITY_TOL = dict(loss=1e-5, grad_norm=1e-5, step=1e-5, m=1e-4)
+
+
+def profiled(torch, fn, cpu=True):
+    """(wall s, device busy s, device events ranked by device time) of
+    one call of ``fn`` under torch.profiler; busy is None when the
+    profiler saw no device activity.  ``cpu=False`` traces the device
+    alone: a train step makes some 60,000 launches, and reading the CPU
+    operators' events back takes tens of seconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Device-side entries only (kernels, copies): the CPU operators that
+    # launched them carry the same device time a second time.
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in events) / 1e6 if events else None
+    return wall, busy, sorted(events, key=_device_us, reverse=True)
+
+
+def train_run(torch, model, tcfg, tokens, ckpt=None, inject=None):
+    """One ``train_loop`` run of TRAIN's recipe on the card."""
+    from repro_torch.data import BatchSelector, TokenPipeline
+    from repro_torch.train import train_loop
+
+    c = TRAIN
+    with TokenPipeline(tokens, c["batch"], c["seq"]) as pipe:
+        sel = BatchSelector(c["batch"], algo="dash", feature_mode="grad",
+                            embed_dim_cap=c["dim_cap"],
+                            n_samples=c["n_samples"])
+        return train_loop(model, tcfg, pipe, device="cuda", ckpt_dir=ckpt,
+                          selector=sel,
+                          selection_every=c["selection_every"],
+                          selection_pool_factor=c["pool_factor"],
+                          failure_injector=inject, log_every=1000)
+
+
+def phase_train(torch):
+    """smollm-135m trained at published width and depth through
+    ``train_loop`` with DASH selection (TRAIN), uninterrupted and then
+    killed at step 5 and resumed from a checkpoint.  Gates: every loss
+    finite, the mean of the last 2 below that of the first 2; kernel 8
+    exactly once per layer per feature chunk and kernel 4 at least once
+    in each run; the resumed run's selections and losses equal the
+    uninterrupted run's bit for bit.  Logs step seconds, tokens/s, peak
+    memory, selection seconds, kernel 5's launches and one profiled
+    step's busy share and top device operations."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+    from repro_torch.runtime import FailureInjector
+    from repro_torch.train import make_train_step
+
+    c = TRAIN
+    cfg = get_config(c["arch"])
+    need(cfg.remat and cfg.param_dtype == "bfloat16", "smollm config")
+    model = build_model(cfg)
+    tokens = make_lm_tokens(0, c["n_tokens"], cfg.vocab_size)
+    tcfg = TrainConfig(total_steps=c["steps"], learning_rate=c["lr"],
+                       warmup_steps=c["warmup"],
+                       checkpoint_every=c["checkpoint_every"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    secs, clean, launches = synced(
+        torch, lambda: train_run(torch, model, tcfg, tokens))
+    peak = torch.cuda.max_memory_allocated()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build",
+                                     prefix="train_ckpt_") as tmp:
+        rsecs, resumed, rlaunches = synced(torch, lambda: train_run(
+            torch, model, tcfg, tokens, ckpt=tmp,
+            inject=FailureInjector(fail_at=(c["fail_at"],))))
+        saved = sorted(p.name for p in Path(tmp).iterdir())
+    n_params = sum(p.numel() for p in tree_leaves(clean.state.params))
+    tok_per_step = c["batch"] * c["seq"]
+    steady = clean.step_seconds[2:]
+    step_s = sum(steady) / len(steady)
+    periods = c["steps"] // c["selection_every"]
+    chunks = c["selection_every"] * c["pool_factor"]   # pool / k rows
+    want_flash = periods * chunks * cfg.n_layers
+    log(f"[train] {cfg.name} published width, {cfg.n_layers} layers, "
+        f"{n_params} parameters, bf16 params + f32 master, remat on; "
+        f"batch {c['batch']} x {c['seq']} tokens, {c['steps']} steps, "
+        f"warmup {c['warmup']}, lr {c['lr']:g}; DASH on grad features "
+        f"(cap {c['dim_cap']}, {c['n_samples']} samples), selection every "
+        f"{c['selection_every']} steps from pools of "
+        f"{c['batch'] * c['selection_every'] * c['pool_factor']}")
+    log(f"[train] losses {[round(x, 6) for x in clean.losses]}")
+    log(f"[train] step seconds {[round(x, 4) for x in clean.step_seconds]}"
+        f"; steady mean (steps 2-{c['steps'] - 1}) {step_s:.4f} s = "
+        f"{tok_per_step / step_s:.1f} tokens/s; run {secs:.3f} s; peak "
+        f"{peak - held} bytes above the {held} held")
+    log(f"[train] selection seconds "
+        f"{[round(x, 4) for x in clean.selection_seconds]} (total "
+        f"{clean.selection_time_s:.3f} s: grad features of the pool in "
+        f"chunks of {c['batch']} rows, then BatchSelector.select); "
+        f"launches={launches} (kernel 8 want {want_flash} = {periods} "
+        f"selections x {chunks} chunks x {cfg.n_layers} layers; kernel 5 "
+        f"{launches.get('aopt_filter_gains', 0)}: filters only when a "
+        f"DASH round does)")
+    log(f"[train] killed at step {c['fail_at']} and resumed: restarts="
+        f"{resumed.restarts}, checkpoints {saved}; run {rsecs:.3f} s, "
+        f"launches={rlaunches}; losses equal "
+        f"{resumed.losses == clean.losses}, max |diff| "
+        + (f"{max(abs(a - b) for a, b in zip(resumed.losses, clean.losses)):.3e}"
+           if len(resumed.losses) == len(clean.losses) else "n/a")
+        + f"; selections equal "
+        f"{all(np.array_equal(resumed.selections.get(p), v) for p, v in clean.selections.items())}")
+    # one more step from the trained (warm) state, profiled
+    step = make_train_step(model, tcfg)
+    row = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"]),
+                        device="cuda", dtype=torch.int32)
+    t_prof = time.perf_counter()
+    wall, busy, events = profiled(
+        torch, lambda: step(clean.state, {"tokens": row}), cpu=False)
+    t_prof = time.perf_counter() - t_prof
+    if busy is None:
+        log(f"[train] profiled step: wall_s={wall:.4f}; device time not "
+            f"measured (the profiler saw no device activity)")
+    else:
+        log(f"[train] profiled step: wall_s={wall:.4f} device_busy_s="
+            f"{busy:.4f} busy_share={busy / wall:.4f} (under the profiler,"
+            f" device trace only; {t_prof:.1f} s with the trace's reading)")
+        for e in events[:10]:
+            log(f"[train]   {_device_us(e) / 1e3:10.3f} ms  {e.count:6d} "
+                f"calls  {e.key[:90]}")
+    losses = clean.losses
+    need(all(math.isfinite(x) for x in losses + resumed.losses),
+         "[train]: a loss is not finite")
+    need(sum(losses[-2:]) < sum(losses[:2]),
+         f"[train]: the loss did not fall: {losses}")
+    need(launches.get("flash_attention", 0) == want_flash
+         and rlaunches.get("flash_attention", 0) == want_flash,
+         f"[train]: kernel 8 launched {launches}, {rlaunches}")
+    need(launches.get("aopt_gains", 0) > 0
+         and rlaunches.get("aopt_gains", 0) > 0,
+         "[train]: kernel 4 never launched")
+    need(resumed.restarts == 1 and resumed.losses == clean.losses,
+         "[train]: the resumed run's losses differ")
+    need(sorted(resumed.selections) == sorted(clean.selections)
+         and all(np.array_equal(resumed.selections[p], v)
+                 for p, v in clean.selections.items()),
+         "[train]: the resumed run's selections differ")
+    out = {"launches": launches, "resumed_launches": rlaunches,
+           "step_s": step_s, "tokens_per_s": tok_per_step / step_s,
+           "peak": peak - held, "selection_s": clean.selection_time_s,
+           "busy_share": None if busy is None else busy / wall,
+           "n_layers": cfg.n_layers,
+           "pool": c["batch"] * c["selection_every"] * c["pool_factor"],
+           "k_sel": c["batch"] * c["selection_every"]}
+    del clean, resumed, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def parity_step(torch, model, state, tokens, tcfg):
+    """(loss, grad_norm, largest parameter change, new state) of one
+    train step."""
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train import make_train_step
+
+    new, met = make_train_step(model, tcfg)(state, {"tokens": tokens})
+    change = max(float((a.float() - b.float()).abs().max()) for a, b in
+                 zip(tree_leaves(new.params), tree_leaves(state.params)))
+    return float(met["loss"]), float(met["grad_norm"]), change, new
+
+
+def phase_train_parity(torch):
+    """One f32 train step of smollm-135m at full width, 2 layers, batch
+    2 × 512, on the card and on the CPU from the same state; gated
+    between the sound reading and a planted fault's (TRAIN_PARITY_TOL)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import params_to
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train import init_train_state
+
+    c = TRAIN_PARITY
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=c["n_layers"], dtype="float32",
+                              param_dtype="float32")
+    model = build_model(cfg)
+    tcfg = TrainConfig(total_steps=10, learning_rate=c["lr"],
+                       warmup_steps=0)
+    gen = torch.Generator().manual_seed(0)
+    state = init_train_state(model, gen, tcfg)
+    tokens = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"]),
+                           generator=gen, dtype=torch.int32)
+    moved = tokens.clone()
+    moved[0, 7] = (moved[0, 7] + 1) % cfg.vocab_size
+    t0 = time.perf_counter()
+    card = parity_step(torch, model, params_to(state, "cuda"),
+                       tokens.cuda(), tcfg)
+    cpu = parity_step(torch, model, state, tokens, tcfg)
+    fault_tok = parity_step(torch, model, state, moved, tcfg)
+    fault_lr = parity_step(torch, model, state, tokens, dataclasses.replace(
+        tcfg, learning_rate=c["lr"] * 1.01))
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def m_err(a, b):
+        ma, mb = tree_leaves(a.opt.m), tree_leaves(b.opt.m)
+        scale = max(float(x.abs().max()) for x in mb)
+        return max(float((x.cpu() - y).abs().max())
+                   for x, y in zip(ma, mb)) / scale
+
+    readings = {
+        "loss": (rel(card[0], cpu[0]), rel(fault_tok[0], cpu[0])),
+        "grad_norm": (rel(card[1], cpu[1]), rel(fault_tok[1], cpu[1])),
+        "step": (rel(card[2], cpu[2]), rel(fault_lr[2], cpu[2])),
+        "m": (m_err(card[3], cpu[3]), m_err(fault_tok[3], cpu[3])),
+    }
+    log(f"[train parity] {cfg.name} full width, {cfg.n_layers} layers, f32,"
+        f" batch {c['batch']} x {c['seq']}, lr {c['lr']:g}: card loss "
+        f"{card[0]:.7f} grad_norm {card[1]:.7f} largest change "
+        f"{card[2]:.7e}; CPU {cpu[0]:.7f} {cpu[1]:.7f} {cpu[2]:.7e}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, (sound, fault) in readings.items():
+        tol = TRAIN_PARITY_TOL[name]
+        log(f"[train parity] {name}: reading sound={sound:.3e} planted "
+            f"fault={fault:.3e} (gate {tol:g}; fault: "
+            f"{'learning rate +1 %' if name == 'step' else 'one token changed'})")
+        need(sound <= tol, f"[train parity]: {name} reads {sound:.3e}")
+        need(fault > tol, f"[train parity]: the {name} gate does not see "
+             f"its planted fault ({fault:.3e})")
+    return readings
+
+
+def phase_train_timing(torch, train):
+    """Kernel 8 at the train features' shape (B = one chunk of selector.k
+    rows, S 2048, smollm's heads, causal) and kernel 4 at the train
+    selection's (d = embed_dim_cap, n = the pool, one lane): shape
+    records for the kernels line, each with its launches in [train]."""
+    from repro_torch.kernels.aopt_gains import aopt_gains, aopt_gains_ref
+
+    out = time_flash_shape(torch, TRAIN["batch"], TRAIN["seq"],
+                           TRAIN["seq"], 9, 3, 64, True, 0)
+    r, info = out["bf16"], out["bf16"]["info"]
+    launches = train["launches"]
+    flash = {"shape": f"B={TRAIN['batch']} S={TRAIN['seq']} H=9 Hkv=3 "
+                      f"D=64 causal",
+             "launches": launches.get("flash_attention", 0),
+             "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "plain_shape": f"B=1 S={TRAIN['seq']} H=9 Hkv=3 D=64",
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": r["library_ms"], "registers": info["registers"],
+             "smem_bytes_per_cta": info["smem_bytes"],
+             "ms_f32": out["f32"]["ms"],
+             "plain_ms_f32": out["f32"]["plain_ms"],
+             "bound_ms_f32": out["f32"]["bound_ms"]}
+    log(f"[timing] flash_attention train features shape: launches in "
+        f"[train] {flash['launches']}")
+    d, n, g = TRAIN["dim_cap"], train["pool"], 1
+    X, W, _, _, isig2 = make_aopt_operands(torch, d, n, g, 1, 1, n_sel=8,
+                                           seed=5)
+    b4, by4 = bound(4.0 * d * n * g + 3.0 * g * n,
+                    4 * d * n * (1 + g) + 4 * g * n)
+    t4 = time_ms(torch, lambda: aopt_gains(X, W, isig2))
+    p4 = time_ms(torch, lambda: aopt_gains_ref(X, W, isig2))
+    aopt = {"d": d, "n": n, "G": g, "ms": t4, "plain_ms": p4,
+            "bound_ms": b4, "bound_by": by4, "library_ms": None,
+            "launches": launches.get("aopt_gains", 0)}
+    log(f"[timing] aopt_gains        f32  train selection shape d={d} "
+        f"n={n} G={g}: kernel_ms={t4:.4f} plain_ms={p4:.4f} bound_ms="
+        f"{b4:.3e} ({by4}) library_ms=n/a bound/kernel={b4 / t4:.3e} "
+        f"launches in [train]={aopt['launches']}")
+    return {"flash_attention": flash, "aopt_gains": aopt}
+
+
+# ---------------------------------------------------------------------------
 # slice 6: R², the per-sample path, diversity, coreset, resilience
 # ---------------------------------------------------------------------------
 
@@ -4830,30 +5173,15 @@ OWN_KERNEL = re.compile(r"gains_|epilogue_kernel|aopt_filter|flash_")
 
 
 def phase_profile(torch, runs):
-    """Replay each run under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Replay each run under torch.profiler (``profiled``)."""
     for algo, fn in runs.items():
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # Device-side entries only (kernels, copies): the CPU operators
-        # that launched them carry the same device time a second time.
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-        busy = sum(_device_us(e) for e in events) / 1e6
-        if not events:
+        wall, busy, ranked = profiled(torch, fn)
+        if busy is None:
             log(f"[profile] {algo}: wall_s={wall:.4f}; device time not "
                 f"measured (the profiler saw no device activity)")
             continue
         log(f"[profile] {algo}: wall_s={wall:.4f} device_busy_s={busy:.4f} "
             f"busy_share={busy / wall:.4f} (under the profiler)")
-        ranked = sorted(events, key=_device_us, reverse=True)
         # The 8 largest, then the port's own kernels further down.
         for e in ranked[:8] + [e for e in ranked[8:]
                                if OWN_KERNEL.search(e.key)]:
@@ -4914,6 +5242,9 @@ def main() -> int:
         # b = 22 (k = 256 over 12 rounds)
         (CORESET["dim_cap"], CORESET["pool"], 1, CORESET["n_samples"],
          CORESET_BLOCK, 128, 1.0),
+        # [train]'s selection: embed_dim_cap 32, a pool of 64, one lane,
+        # m = 4, b = 3 (k = 16 over 6 rounds)
+        (TRAIN["dim_cap"], 64, 1, TRAIN["n_samples"], 3, 8, 1.0),
     ]))
     cd, cn, cg, cm = CLASS["d"], CLASS["n"], CLASS["n_guesses"], \
         CLASS["n_samples"]
@@ -4999,6 +5330,12 @@ def main() -> int:
     vlm = phase_vlm(torch)
     log(f"[vlm] done at {time.perf_counter() - t0:.1f} s; slice 10's "
         f"phases took {time.perf_counter() - t10:.1f} s")
+    t11 = time.perf_counter()
+    train = phase_train(torch)
+    log(f"[train] done at {time.perf_counter() - t0:.1f} s")
+    phase_train_parity(torch)
+    log(f"[train parity] done at {time.perf_counter() - t0:.1f} s; slice "
+        f"11's phases took {time.perf_counter() - t11:.1f} s")
     t_timing = time.perf_counter()
     rows = phase_timing(torch, worst, launches)
     rows += phase_aopt_timing(torch, worst, launches)
@@ -5010,7 +5347,10 @@ def main() -> int:
     serve_rows = phase_serve_timing(torch, serve_per)
     hybrid_row = phase_hybrid_flash_timing(torch, hybrid["launches"])
     slice10_rows = phase_slice10_flash_timing(torch, whisper, vlm)
+    train_rows = phase_train_timing(torch, train)
     for row in rows:
+        if row["name"] in train_rows:
+            row["train_shape"] = train_rows[row["name"]]
         if row["name"] in serve_rows:
             row["serve_shape"] = serve_rows[row["name"]]
         if row["name"] == "flash_attention":

@@ -19,7 +19,11 @@ from an LM's features) and the single-device resilience layer
 the sharded runtime on ``torch.distributed`` (``launch/mesh.py``,
 ``core/distributed.py``: sharded DASH and its guess lattice, the sharded
 baselines and FAST behind ``select(..., mesh=)``, round snapshots and
-elastic resumes).
+elastic resumes); slice 8 the selection service (``serve/``); slice 10
+the xLSTM, encoder-decoder and VLM archs; slice 11 single-device
+training with selection in the loop (``Model.loss``, ``optim``,
+``train``, the token pipeline and ``BatchSelector``;
+``repro_torch.train_lm_with_selection``, ``repro_torch.launch.train``).
 
 Layers:
   repro_torch.kernels  — hand-written CUDA C++ kernels for sm_90a (the
@@ -41,7 +45,13 @@ Layers:
   repro_torch.runtime  — restarts, hedged resumes, the straggler
                          simulator, elastic meshes and resharding
   repro_torch.data     — the paper's synthetic D1–D4 and D1 design data
-                         (numpy only)
+                         and the LM token stream (numpy only), the
+                         token pipeline and training-batch selection
+  repro_torch.optim    — AdamW with an f32 master, the cosine schedule,
+                         gradient compression with error feedback
+  repro_torch.train    — the train step and the training loop with
+                         checkpoint/restart and selection in the loop
+  repro_torch.tree     — nested dict/list/tuple trees of tensors
   repro_torch.configs  — the LM configs (copies of the JAX package's:
                          dense, MoE, hybrid) and their registry
   repro_torch.models   — the decoder LM: norms, RoPE, MLP, MoE,

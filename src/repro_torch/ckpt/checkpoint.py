@@ -22,6 +22,9 @@ Format: one ``arrays.npz`` per checkpoint plus ``manifest.json``; keys
 are ``/``-joined tree paths (dict keys in sorted order, NamedTuple field
 names, sequence indices).  A tree is nested dicts, lists, tuples and
 NamedTuples whose leaves are tensors, numpy arrays or Python scalars.
+numpy has no bfloat16: a bf16 tensor is stored as its bits, a uint16
+array (the manifest says uint16), and a bf16 leaf of ``like`` gets them
+back bit for bit.
 ``restore_checkpoint`` places the leaves on ``device=``, or, given a
 ``mesh=`` and ``specs=``, gives each rank its block of every leaf
 (``runtime/elastic.py::reshard_tree``): the elastic restore.
@@ -88,8 +91,18 @@ def _unflatten(like, flat: dict):
 
 def _np_dtype(leaf) -> np.dtype:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return np.dtype(np.uint16)
         return torch.empty((), dtype=leaf.dtype).numpy().dtype
     return np.asarray(leaf).dtype
+
+
+def _tensor_to_numpy(v: torch.Tensor) -> np.ndarray:
+    v = v.detach().cpu()
+    if v.dtype == torch.bfloat16:
+        v = v.view(torch.int16)
+        return v.numpy().view(np.uint16).copy()
+    return v.numpy().copy()
 
 
 def _shape(leaf) -> list:
@@ -105,7 +118,7 @@ def _host_leaves(flat: dict) -> dict:
 
     def host(v):
         if isinstance(v, torch.Tensor):
-            return v.detach().cpu().numpy().copy()
+            return _tensor_to_numpy(v)
         return np.array(v, copy=True)
 
     return {k: host(v) for k, v in flat.items()}
@@ -273,7 +286,11 @@ def restore_checkpoint(directory: str, like: Any, *, step: int | None = None,
     def rebuild(key, ref):
         if isinstance(ref, torch.Tensor):
             dev = ref.device if device is None else torch.device(device)
-            return torch.from_numpy(arrays[key]).to(dev)
+            a = arrays[key]
+            if ref.dtype == torch.bfloat16:
+                return torch.from_numpy(a.view(np.int16)).view(
+                    torch.bfloat16).to(dev)
+            return torch.from_numpy(a).to(dev)
         return arrays[key]
 
     restored = _unflatten(like, {k: rebuild(k, v)

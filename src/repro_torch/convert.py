@@ -15,6 +15,9 @@ one subtree per pattern position stacked over super-blocks, and where
 the arch has them ``img_proj``, ``enc_blocks`` stacked over encoder
 layers and ``enc_final_norm``) as numpy arrays becomes the port's dict
 with one entry per layer in ``layers`` (and in ``enc_layers``).
+``train_state_from_numpy`` does the same for the reference's whole
+``TrainState``: the parameters, AdamW's step, f32 master, m and v, and
+the compression's error feedback.
 """
 
 from __future__ import annotations
@@ -135,16 +138,21 @@ def model_params_from_numpy(cfg, params_np, device=None) -> dict:
     leaf (``embed``, ``lm_head``, the final norms, ``img_proj``) is
     carried over as it is.  Every leaf goes to ``device`` in
     ``cfg.param_dtype``."""
+    return _split_params(cfg, params_np, dtype_of(cfg.param_dtype),
+                         resolve_device(device))
+
+
+def _split_params(cfg, params_np, dtype, dev) -> dict:
+    """``model_params_from_numpy`` for a tree of the parameters'
+    structure, every leaf in ``dtype`` on ``dev``."""
     check_supported(cfg)
-    dev = resolve_device(device)
-    pdt = dtype_of(cfg.param_dtype)
 
     def tree(x, pick=None):
         if isinstance(x, dict):
             return {k: tree(v, pick) for k, v in x.items()}
         a = np.asarray(x).astype(np.float32)
         a = a[pick] if pick is not None else a
-        return torch.from_numpy(np.array(a, copy=True)).to(dtype=pdt,
+        return torch.from_numpy(np.array(a, copy=True)).to(dtype=dtype,
                                                             device=dev)
 
     blocks = params_np["blocks"]
@@ -160,3 +168,27 @@ def model_params_from_numpy(cfg, params_np, device=None) -> dict:
         out["enc_layers"] = [tree(params_np["enc_blocks"], i)
                              for i in range(cfg.encoder.n_layers)]
     return out
+
+
+def train_state_from_numpy(cfg, state_np, device=None):
+    """The port's ``TrainState`` from the reference's, as numpy arrays:
+    any object with ``params``, ``opt`` (``step``, ``master``, ``m``,
+    ``v``) and ``error_fb`` (an empty tuple, or a tree of the
+    parameters' structure).  The parameters come in ``cfg.param_dtype``,
+    everything else in f32 (the step in int32); every tree stacked over
+    super-blocks is split per layer, as ``model_params_from_numpy``
+    does."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.step import TrainState
+
+    dev = resolve_device(device)
+    f32 = lambda t: _split_params(cfg, t, torch.float32, dev)
+    opt = state_np.opt
+    ef = state_np.error_fb
+    return TrainState(
+        params=_split_params(cfg, state_np.params,
+                             dtype_of(cfg.param_dtype), dev),
+        opt=AdamWState(
+            step=torch.tensor(np.asarray(opt.step, np.int32)).to(dev),
+            master=f32(opt.master), m=f32(opt.m), v=f32(opt.v)),
+        error_fb=f32(ef) if isinstance(ef, dict) else ())

@@ -14,6 +14,10 @@ replays the reference's exact noise: it passes a key class that wraps
     gumbel(n, device) -> (n,) f32 tensor on ``device``, i.i.d. Gumbel
     normal(shape, device) -> f32 tensor of ``shape`` on ``device``, N(0, 1)
 
+A key that a checkpoint carries (the training loop's selection key) also
+has ``as_array() -> numpy array`` and a classmethod ``from_array(a)``
+that rebuilds it.
+
 :class:`SeedKey` is the default: children derive deterministically from
 an integer seed (splitmix64), and each draw seeds a fresh
 ``torch.Generator``.  CPU and CUDA generators give different streams for
@@ -26,6 +30,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Protocol
 
+import numpy as np
 import torch
 
 _MASK64 = (1 << 64) - 1
@@ -78,6 +83,15 @@ class SeedKey:
         base = _splitmix64((self.seed ^ _FOLD_SALT) & _MASK64)
         return SeedKey(_splitmix64(base ^ _splitmix64(int(i) & _MASK64)),
                        self.host)
+
+    def as_array(self) -> np.ndarray:
+        """(2,) uint64: the seed and the host flag (a checkpoint leaf)."""
+        return np.array([self.seed & _MASK64, int(self.host)], np.uint64)
+
+    @classmethod
+    def from_array(cls, a) -> "SeedKey":
+        a = np.asarray(a, np.uint64)
+        return cls(int(a[0]), bool(a[1]))
 
     def _generator(self, device):
         dev = torch.device("cpu" if self.host else device)

@@ -5,8 +5,8 @@ surrogate, D3 classification and D4 gene surrogate generators of
 ``repro/data/synthetic.py``: the same seed gives byte-identical arrays
 (the tests check it).  D2 and D4 are statistical surrogates of the
 paper's third-party datasets, with their dimensions and correlation
-structure; D4's label is binarized.  The LM token stream comes with the
-training slice.
+structure; D4's label is binarized.  ``make_lm_tokens`` is the LM
+substrate's Zipf token stream.
 """
 
 from __future__ import annotations
@@ -106,3 +106,12 @@ def make_d4_gene(seed: int = 3, n_samples: int = 2000,
     Xs = X - X.mean(axis=0, keepdims=True)
     Xs = Xs / np.maximum(Xs.std(axis=0, keepdims=True), 1e-6)
     return Xs.astype(np.float32), y, causal
+
+
+def make_lm_tokens(seed: int, n_tokens: int, vocab_size: int,
+                   zipf_a: float = 1.2):
+    """Zipf-distributed synthetic token stream (int32, ranks mod the
+    vocabulary) for the LM substrate."""
+    rng = np.random.default_rng(seed)
+    ranks = rng.zipf(zipf_a, size=n_tokens)
+    return (ranks % vocab_size).astype(np.int32)

@@ -1,0 +1,99 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> …``.
+
+A port of ``repro/launch/train.py`` with its flags, plus ``--device``
+(default the card; raises without one).  The reduced config of the arch
+runs unless ``--full-config`` asks for the published one (card only).
+``--selection`` picks each batch as a coreset through the ``select``
+registry (``--algo``), over ``--feature-mode`` features of a pool
+``--pool-factor`` times the period's examples.  ``--mesh`` (training on
+a mesh) is the port's sharded training, ROADMAP item 14.6, and raises.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+        --device cpu --steps 4
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from repro_torch.configs import get_config, get_reduced_config
+from repro_torch.configs.base import TrainConfig
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.data.selection import BatchSelector
+from repro_torch.data.synthetic import make_lm_tokens
+from repro_torch.kernels.common import resolve_device, set_full_f32_matmul
+from repro_torch.models import build_model
+from repro_torch.train.loop import SHARDED_TRAINING, train_loop
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--full-config", action="store_true",
+                    help="the published config instead of the reduced "
+                         "smoke config (card only)")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "topk", "int8"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--mesh", action="store_true",
+                    help="train on a mesh of the host's devices (not "
+                         "ported yet: raises)")
+    ap.add_argument("--selection", "--dash-selection", action="store_true",
+                    dest="selection",
+                    help="coreset batch selection through the select "
+                         "registry (--algo picks the algorithm)")
+    ap.add_argument("--algo", default="dash",
+                    help="any core.algorithms registry name")
+    ap.add_argument("--feature-mode", default="grad",
+                    choices=["embed", "hidden", "grad"])
+    ap.add_argument("--selection-every", type=int, default=2)
+    ap.add_argument("--pool-factor", type=int, default=4)
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError(SHARDED_TRAINING)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    dev = resolve_device(args.device)
+    set_full_f32_matmul()
+    cfg = (get_config(args.arch) if args.full_config
+           else get_reduced_config(args.arch))
+    model = build_model(cfg)
+    tokens = make_lm_tokens(0, max(2_000_000, 4 * args.batch * args.seq),
+                            cfg.vocab_size)
+    tcfg = TrainConfig(
+        total_steps=args.steps, learning_rate=args.lr, warmup_steps=20,
+        microbatches=args.microbatches,
+        grad_compression=args.grad_compression,
+        checkpoint_every=max(args.steps // 4, 1),
+    )
+    selector = None
+    if args.selection:
+        opts = {"n_samples": 4} if args.algo == "dash" else {}
+        selector = BatchSelector(k=args.batch, algo=args.algo,
+                                 feature_mode=args.feature_mode,
+                                 embed_dim_cap=32, **opts)
+    with TokenPipeline(tokens, args.batch, args.seq) as pipeline:
+        result = train_loop(model, tcfg, pipeline, device=dev,
+                            ckpt_dir=args.ckpt_dir, selector=selector,
+                            selection_every=args.selection_every,
+                            selection_pool_factor=args.pool_factor,
+                            log_every=max(args.steps // 20, 1))
+    print(f"done: {result.steps_run} steps, "
+          f"loss {result.losses[0]:.3f} → {result.losses[-1]:.3f}"
+          + (f", selection {result.selection_time_s:.1f}s"
+             if selector is not None else ""))
+    return result
+
+
+if __name__ == "__main__":
+    main()

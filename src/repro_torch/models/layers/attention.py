@@ -1,7 +1,7 @@
 """Attention: GQA + RoPE + sliding window + logit softcap.
 
-A port of ``repro/models/layers/attention.py``.  Two prefill paths,
-selected by ``impl``:
+A port of ``repro/models/layers/attention.py``.  Three prefill and
+training paths, selected by ``impl``:
 
   * ``kernel``  — the flash-attention wrapper
                   (``repro_torch.kernels.flash_attention``), the
@@ -10,6 +10,10 @@ selected by ``impl``:
                   version on a CPU tensor.  That plain version
                   materialises the (S, S) scores, so on a CPU tensor it
                   is also the JAX package's ``full`` (``full_attention``).
+  * ``full``    — ``full_attention``, the plain version above on any
+                  device: what ``Model.loss`` runs up to 1024 positions,
+                  as the JAX package's loss does (the kernel has no
+                  backward, and the reference's loss never reaches it).
   * ``chunked`` — the online-softmax recurrence over KV chunks as a host
                   loop (the JAX package's ``lax.map`` × ``lax.scan``);
                   O(chunk²) score memory.
@@ -219,6 +223,8 @@ def attention_block(params, x, cfg, *, impl: str, positions,
     kwargs = dict(causal=a.causal, window=window, softcap=a.softcap)
     if impl == "chunked":
         o = chunked_attention(q, k, v, **kwargs)
+    elif impl == "full":
+        o = full_attention(q, k, v, **kwargs)
     elif impl == "kernel":
         o = flash_attention(q, k, v, **kwargs)
     else:

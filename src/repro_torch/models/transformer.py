@@ -21,8 +21,11 @@ layer (the JAX package stacks each pattern position over super-blocks
 in ``blocks`` and the encoder's layers in ``enc_blocks`` for
 ``lax.scan``; layer i is position i % period of super-block i // period,
 and ``repro_torch.convert.model_params_from_numpy`` splits both).  The
-forward pass is a Python loop over layers; single device, no training,
-so the JAX package's sharding constraints and remat have no counterpart.
+forward pass is a Python loop over layers, on one device: the JAX
+package's sharding constraints wait for the port's sharded training.
+With ``cfg.remat`` the training loss checkpoints each layer
+(``torch.utils.checkpoint``), the counterpart of the reference's
+per-sub-layer ``jax.checkpoint``.
 
 Attention: on the card every prefill self-attention, the encoder's
 bidirectional attention and every cross-attention (prefill and decode)
@@ -37,9 +40,17 @@ computes the same online-softmax function as ``chunked``; the port
 makes the same choice as in its earlier slices, where the kernels are
 the default whenever the work lives on the card.
 
+Training: ``loss`` runs attention through the plain ``full`` path up to
+1024 positions (the image prefix counts) and ``chunked`` above, on the
+CPU and on the card alike, and the encoder and the cross-attention
+through ``full`` — the reference's loss never reaches its Pallas kernel,
+whose forward-only kernel has no gradient, and neither does the port's.
+
 Entry points
 ------------
   init(generator)                        → params
+  loss(params, batch)                    → (loss + aux, {lm_loss,
+                                           aux_loss}), differentiable
   prefill(params, batch)                 → (last_logits, cache)
   decode_step(params, cache, tok, pos)   → (logits, cache), in place
   init_cache(batch, capacity, device)    → decode cache: per layer a KV
@@ -47,6 +58,8 @@ Entry points
                                            windowed attention), an RG-LRU
                                            or an xLSTM state; ``enc_out``
                                            for an encoder-decoder
+  input_specs(shape)                     → the inputs of a ShapeConfig
+                                           cell as ``meta`` tensors
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -64,6 +78,7 @@ from repro_torch.models.layers.attention import (
     attention_output,
     cache_update,
     decode_attention,
+    full_attention,
     init_attention,
     init_kv_cache,
     qkv_project,
@@ -83,6 +98,7 @@ from repro_torch.models.layers.xlstm import (
     init_xlstm_state,
     xlstm_block_apply,
 )
+from repro_torch.tree import tree_map
 
 # The temporal-mixing kinds of ``block_pattern`` the port runs.
 MIXERS = ("attn", "local_attn", "rglru", "mlstm", "slstm")
@@ -96,12 +112,9 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def params_to(params, device):
-    """The parameter tree with every tensor moved to ``device``."""
-    if isinstance(params, dict):
-        return {k: params_to(v, device) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return type(params)(params_to(v, device) for v in params)
-    return params.to(device)
+    """The parameter tree (or any tree, a ``TrainState``) with every
+    tensor moved to ``device``."""
+    return tree_map(lambda t: t.to(device), params)
 
 
 # ---------------------------------------------------------------------------
@@ -190,17 +203,26 @@ def _apply_mixer(kind, p, x, cfg, *, impl, positions, cache, pos, decode):
     return attention_output(p["attn"], o), cache
 
 
-def _apply_cross_attn(p, x, enc_out, cfg):
+def _attend(impl):
+    """The encoder's and the cross-attention's attention for a
+    self-attention ``impl``: the plain ``full`` for the loss's paths
+    (``full``, ``chunked``), else the kernel wrapper (kernel 8 on the
+    card, the same plain version on the CPU), looked up at call time."""
+    return full_attention if impl in ("full", "chunked") else flash_attention
+
+
+def _apply_cross_attn(p, x, enc_out, cfg, impl="kernel"):
     """Decoder cross-attention (whisper): no RoPE, non-causal, K and V
     projected from ``enc_out`` at every call (decode steps too, as the
-    reference); kernel 8 on the card, its plain version on the CPU."""
+    reference); kernel 8's wrapper, or ``full_attention`` for the loss
+    (``_attend(impl)``)."""
     b, s, _ = x.shape
     a = cfg.attn
     se = enc_out.shape[1]
     q = (x @ p["xattn"]["wq"]).reshape(b, s, a.n_heads, a.head_dim)
     k = (enc_out @ p["xattn"]["wk"]).reshape(b, se, a.n_kv_heads, a.head_dim)
     v = (enc_out @ p["xattn"]["wv"]).reshape(b, se, a.n_kv_heads, a.head_dim)
-    o = flash_attention(q, k, v, causal=False, window=0, softcap=0.0)
+    o = _attend(impl)(q, k, v, causal=False, window=0, softcap=0.0)
     return attention_output(p["xattn"], o)
 
 
@@ -216,7 +238,7 @@ def _apply_block(kind, p, x, cfg, *, impl, positions, cache, pos, decode,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if enc_out is not None and "xattn" in p:
         x = x + _apply_cross_attn(
-            p, apply_norm(cfg.norm, p.get("norm_x"), x), enc_out, cfg)
+            p, apply_norm(cfg.norm, p.get("norm_x"), x), enc_out, cfg, impl)
     if cfg.d_ff > 0:
         h = apply_norm(cfg.norm, p.get("norm2"), x)
         if cfg.moe is not None:
@@ -279,11 +301,11 @@ class Model:
         return pattern[i % len(pattern)]
 
     # ---- encoder (whisper) ------------------------------------------------
-    def _encode(self, params, frames):
+    def _encode(self, params, frames, impl="kernel"):
         """frames: (B, src_len, D) → enc_out (B, src_len, D): per layer
-        RoPE'd bidirectional self-attention (kernel 8 at ``causal=False``
-        on the card) and an MLP, each on a residual, then
-        ``enc_final_norm``."""
+        RoPE'd bidirectional self-attention (``_attend(impl)``: kernel 8
+        at ``causal=False`` on the card, ``full_attention`` for the loss)
+        and an MLP, each on a residual, then ``enc_final_norm``."""
         cfg = self.cfg
         a = cfg.attn
         x = frames.to(dtype_of(cfg.dtype))
@@ -293,7 +315,8 @@ class Model:
             q, k, v = qkv_project(p["enc_attn"], h, cfg)
             q = apply_rope(q, positions, a.rope_theta, cfg.rope_scaling)
             k = apply_rope(k, positions, a.rope_theta, cfg.rope_scaling)
-            o = flash_attention(q, k, v, causal=False, window=0, softcap=0.0)
+            o = _attend(impl)(q, k, v, causal=False, window=0,
+                              softcap=0.0)
             x = x + attention_output(p["enc_attn"], o)
             h = apply_norm(cfg.norm, p.get("norm2"), x)
             x = x + mlp_apply(p["mlp"], h, cfg)
@@ -312,10 +335,10 @@ class Model:
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return x @ head.to(x.dtype)
 
-    def _inputs(self, params, batch):
-        """The prefill's input embeddings, with the projected image
-        prefix in front (vision), and the encoder's output
-        (encoder-decoder, else None)."""
+    def _inputs(self, params, batch, impl="kernel"):
+        """The input embeddings, with the projected image prefix in front
+        (vision), and the encoder's output (encoder-decoder, else None;
+        its attention is ``_attend(impl)``)."""
         cfg = self.cfg
         x = self._embed_tokens(params, batch["tokens"])
         if cfg.vision is not None:
@@ -323,25 +346,97 @@ class Model:
             x = torch.cat([img @ params["img_proj"].to(x.dtype), x], dim=1)
         enc_out = None
         if cfg.is_encdec:
-            enc_out = self._encode(params, batch["enc_frames"].to(x.device))
+            enc_out = self._encode(params, batch["enc_frames"].to(x.device),
+                                   impl)
         return x, enc_out
 
-    # ---- forward (prefill) ------------------------------------------------
-    def _backbone(self, params, x, *, impl, cache=None, enc_out=None):
-        """x: (B, S, D).  Runs every layer; returns (x, caches, aux)."""
+    # ---- forward (train / prefill shared) -----------------------------------
+    def _backbone(self, params, x, *, impl, cache=None, enc_out=None,
+                  remat=False):
+        """x: (B, S, D).  Runs every layer; returns (x, caches, aux).
+        ``remat`` recomputes each layer's activations in the backward
+        (training only: a layer that fills a cache is not checkpointed)."""
         cfg = self.cfg
         positions = torch.arange(x.shape[1], device=x.device)
         caches = []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, p in enumerate(params["layers"]):
-            x, nc, a = _apply_block(
-                self.kind(i), p, x, cfg, impl=impl, positions=positions,
-                cache=cache[i] if cache is not None else None, pos=None,
-                decode=False, enc_out=enc_out)
+            def block(x, p=p, kind=self.kind(i),
+                      c=cache[i] if cache is not None else None):
+                return _apply_block(kind, p, x, cfg, impl=impl,
+                                    positions=positions, cache=c, pos=None,
+                                    decode=False, enc_out=enc_out)
+
+            if remat and cache is None:
+                x, nc, a = checkpoint(block, x, use_reentrant=False)
+            else:
+                x, nc, a = block(x)
             caches.append(nc)
             aux = aux + a
         x = apply_norm(cfg.norm, params.get("final_norm"), x)
         return x, (caches if cache is not None else []), aux
+
+    # ---- training loss ------------------------------------------------------
+    def loss(self, params, batch):
+        """batch: dict(tokens (B, S) int [, img_embeds | enc_frames]) on
+        the parameters' device.  Causal LM loss; an encoder-decoder uses
+        teacher forcing on the decoder tokens.  Returns (loss + aux,
+        {"lm_loss", "aux_loss"}), f32 scalars.
+
+        Labels are the tokens shifted by one (the last position wraps and
+        is masked out); the cross-entropy is logsumexp − the gold logit
+        in f32 over the padded vocab, the gold logit taken by a gather
+        (the reference contracts with a one-hot, a sharding device)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        n_prefix = cfg.vision.n_img_tokens if cfg.vision is not None else 0
+        n = tokens.shape[1] + n_prefix
+        impl = "full" if n <= 1024 else "chunked"
+        x, enc_out = self._inputs(params, batch, impl)
+        x, _, aux = self._backbone(params, x, impl=impl, enc_out=enc_out,
+                                   remat=cfg.remat)
+        logits = self._logits(params, x[:, n_prefix:])
+        labels = torch.roll(tokens.long(), -1, dims=1)
+        lmask = torch.ones(labels.shape, dtype=torch.float32,
+                           device=labels.device)
+        lmask[:, -1] = 0.0
+        lf = logits.to(torch.float32)
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+        nll = lse - gold
+        loss = torch.sum(nll * lmask) / torch.clamp(torch.sum(lmask),
+                                                    min=1.0)
+        return loss + aux, {"lm_loss": loss, "aux_loss": aux}
+
+    # ---- input specs (launchers) ---------------------------------------------
+    def input_specs(self, shape):
+        """Stand-ins for every model input of a ``ShapeConfig`` cell, as
+        tensors on the ``meta`` device with the reference's shapes and
+        dtypes: train and prefill cells take tokens (B, S) int32 and the
+        arch's image embeddings or encoder frames (bf16); decode cells
+        one token (B, 1), its positions (B,) and a cache of S positions
+        (``init_cache``: per layer, where the reference stacks each
+        pattern position over super-blocks)."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        meta = torch.device("meta")
+
+        def spec(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device=meta)
+
+        if shape.kind in ("train", "prefill"):
+            batch = {"tokens": spec((b, s), torch.int32)}
+            if cfg.vision is not None:
+                batch["img_embeds"] = spec(
+                    (b, cfg.vision.n_img_tokens, cfg.vision.embed_dim),
+                    torch.bfloat16)
+            if cfg.is_encdec:
+                batch["enc_frames"] = spec(
+                    (b, cfg.encoder.src_len, cfg.d_model), torch.bfloat16)
+            return batch
+        return {"tokens": spec((b, 1), torch.int32),
+                "pos": spec((b,), torch.int32),
+                "cache": self.init_cache(b, s, device=meta)}
 
     # ---- serving ------------------------------------------------------------
     def init_cache(self, batch: int, capacity: int, device=None):

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.tree import tree_map
 
 
 def _pow2_floor(n: int) -> int:
@@ -48,25 +49,6 @@ def elastic_mesh(ranks=None, *, model_axis: int | None = None,
         model //= 2
     return make_mesh((n // model, model), axes, ranks=ranks[:n],
                      device=device)
-
-
-def _is_namedtuple(x) -> bool:
-    return isinstance(x, tuple) and hasattr(x, "_fields")
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts, lists, tuples and
-    NamedTuples (the trees of ``ckpt/checkpoint.py``), with ``rest``
-    trees of the same structure zipped in."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
-                for k in tree}
-    if _is_namedtuple(tree):
-        return type(tree)(*(tree_map(fn, *vals)
-                            for vals in zip(tree, *rest)))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, *vals) for vals in zip(tree, *rest))
-    return fn(tree, *rest)
 
 
 def _spec_dims(spec, ndim: int):

@@ -1700,3 +1700,101 @@ def test_serve_warm_update_rebuilds_objective_not_runners(cuda):
     fresh.register("d1", "regression", X2, y, kmax=40)
     for a, b in zip(warm, fresh.serve(reqs)):
         np.testing.assert_array_equal(a.sel_mask, b.sel_mask)
+
+
+# ---------------------------------------------------------------------------
+# slice 11: training
+# ---------------------------------------------------------------------------
+
+# One f32 train step on the card against the CPU from the same state:
+# the loss and the grad norm relative, m (the clipped gradient / 10)
+# over its largest entry, the largest parameter change relative
+# (chip_smoke.py's TRAIN_PARITY_TOL, at the reduced width).
+TRAIN_TOL = dict(loss=1e-5, grad_norm=1e-5, step=1e-5, m=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "grok-1-314b"])
+def test_train_step_card_matches_cpu(cuda, arch):
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import params_to
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_reduced_config(arch)
+    model = build_model(cfg)
+    tcfg = TrainConfig(total_steps=10, learning_rate=1e-3, warmup_steps=0)
+    gen = torch.Generator().manual_seed(0)
+    state = init_train_state(model, gen, tcfg)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                           dtype=torch.int32)
+    step = make_train_step(model, tcfg)
+    out = {}
+    for dev in ("cpu", cuda):
+        new, met = step(params_to(state, dev), {"tokens": tokens.to(dev)})
+        change = max(float((a.cpu() - b).abs().max()) for a, b in
+                     zip(tree_leaves(new.params), tree_leaves(state.params)))
+        out[dev] = (float(met["loss"]), float(met["grad_norm"]), change,
+                    [m.cpu() for m in tree_leaves(new.opt.m)])
+    cpu, card = out["cpu"], out[cuda]
+    for i, name in enumerate(("loss", "grad_norm", "step")):
+        assert abs(card[i] - cpu[i]) <= TRAIN_TOL[name] * abs(cpu[i]), name
+    scale = max(float(m.abs().max()) for m in cpu[3])
+    assert max(float((a - b).abs().max()) for a, b in
+               zip(card[3], cpu[3])) <= TRAIN_TOL["m"] * scale
+
+
+def test_train_full_width_bf16_steps_fall(cuda):
+    """smollm-135m at published width and depth, bf16 with an f32
+    master, remat on: four steps on a batch of 2 × 512 tokens of the Zipf
+    stream give finite losses whose last two average below the first
+    two."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.models import build_model
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_config("smollm-135m")
+    model = build_model(cfg)
+    tcfg = TrainConfig(total_steps=4, learning_rate=3e-3, warmup_steps=1)
+    state = init_train_state(model, torch.Generator(device=cuda)
+                             .manual_seed(0), tcfg)
+    toks = make_lm_tokens(0, 4 * 2 * 512, cfg.vocab_size).reshape(4, 2, 512)
+    step = make_train_step(model, tcfg)
+    losses = []
+    for i in range(4):
+        state, met = step(state, {"tokens": torch.from_numpy(toks[i]).to(
+            cuda)})
+        losses.append(float(met["loss"]))
+    assert all(np.isfinite(losses))
+    assert sum(losses[-2:]) < sum(losses[:2]), losses
+
+
+def test_train_loop_selection_launches_kernels(cuda):
+    """``train_loop`` with a DASH selector on reduced smollm on the card:
+    the grad features' backbone goes through kernel 8 (once per layer
+    per chunk of k rows) and the selection through kernel 4; the
+    selections are k distinct pool rows."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import BatchSelector, TokenPipeline, make_lm_tokens
+    from repro_torch.models import build_model
+    from repro_torch.train import train_loop
+
+    cfg = get_reduced_config("smollm-135m")
+    toks = make_lm_tokens(1, 60_000, cfg.vocab_size)
+    before = flash_attention.launches, aopt_gains.launches
+    with TokenPipeline(toks, batch=4, seq=32) as pipe:
+        res = train_loop(build_model(cfg), TrainConfig(total_steps=4),
+                         pipe, device=cuda,
+                         selector=BatchSelector(4, algo="dash",
+                                                embed_dim_cap=32,
+                                                n_samples=4),
+                         selection_every=2, selection_pool_factor=3)
+    flash = flash_attention.launches - before[0]
+    assert flash == 2 * (3 * 2) * cfg.n_layers   # periods x chunks x layers
+    assert aopt_gains.launches - before[1] > 0
+    for ids in res.selections.values():
+        assert len(set(ids.tolist())) == 8
