@@ -213,6 +213,27 @@ exits nonzero, with no result line) when a check fails:
                state: loss, grad norm, the largest parameter change and
                m, each gated between its sound reading and a planted
                fault's (TRAIN_PARITY_TOL)
+ slice 12 — after train parity:
+     train sharded — train's recipe for 4 steps through
+               train_loop(mesh=) on spawned ranks: world 2 (gloo, both
+               ranks on the card, mesh (data 2, model 1)) uninterrupted
+               and killed at step 3 with checkpoints under build/, then
+               world 1 (NCCL) uninterrupted and resuming world 2's
+               checkpoint for the last step; world 2's losses against
+               world 1's (SHARDED_LOSS_TOL, beside a planted fault's
+               reading), period 0's selected ids equal, the killed run
+               equal to the uninterrupted one bit for bit, kernel 8 once
+               per layer per feature chunk on each rank, kernel 4 on each
+               rank; per rank step seconds, tokens/s, all-reduce seconds,
+               selection seconds, peak memory
+     engine  — h2o-danube-1.8b whole (the lm main's weights) behind
+               ServeEngine(max_batch 4, max_seq 8192): 8 requests of
+               seed-0 prompt lengths in [512, 6000] (past the 4096
+               window: ring caches), 32 new tokens each; each request's
+               tokens against its solo greedy decode (a difference only
+               at a top-two margin below ENGINE_MARGIN_GATE), kernel 8
+               24 times per admitted request; requests/s, tokens/s,
+               decode seconds per engine step
  14. timing  — CUDA-event times per call of each kernel, its plain
                version and a library call, beside the kernel's bound
                from its shapes and the H100 SXM peaks (kernel 8 at the lm
@@ -230,13 +251,16 @@ exits nonzero, with no result line) when a check fails:
                encoder, cross-attention (prefill and decode) and
                internvl2's prefill shapes; kernel 8 at the train
                features' chunk (B 8, S 2048, smollm's heads) and kernel 4
-               at the train selection's shape (d 32, n 64)
+               at the train selection's shape (d 32, n 64); kernel 8 at
+               [engine]'s B 1 prefills (one per prompt length, SDPA
+               beside each)
  15. profile — greedy and DASH of the main phase, DASH of the design
                main phase, greedy and DASH of the classification main
                phase, 8 rounds of the registry main's FAST, one lm prefill and four
-               lm decode steps, once more under torch.profiler: device
-               busy time by kernel and the device's busy share of the
-               host wall time ([moe] and [hybrid] profile one prefill
+               lm decode steps, once more under torch.profiler tracing
+               the device alone: device busy time by kernel and the
+               device's busy share of the host wall time ([moe] and
+               [hybrid] profile one prefill
                and four decode steps of their own runs the same way,
                before they free their weights)
 
@@ -2005,8 +2029,9 @@ def moe_plain_f32(torch, p, x, cfg):
 
 def moe_reversed_dispatch(torch):
     """A planted fault: ``_dispatch_group`` whose capacity cut keeps each
-    expert's last assignments (sorted by expert, then token descending)."""
-    def dispatch(xt, flat_e, e, cap, topk):
+    expert's last assignments (sorted by expert, then token descending;
+    one device, so ``before`` is None)."""
+    def dispatch(xt, flat_e, e, cap, topk, before=None):
         d, tk = xt.shape[1], flat_e.shape[0]
         ar = torch.arange(tk, device=xt.device)
         sort_idx = torch.argsort(flat_e * tk + (tk - 1 - ar), stable=True)
@@ -3068,6 +3093,621 @@ def phase_train_timing(torch, train):
         f"{b4:.3e} ({by4}) library_ms=n/a bound/kernel={b4 / t4:.3e} "
         f"launches in [train]={aopt['launches']}")
     return {"flash_attention": flash, "aopt_gains": aopt}
+
+
+# ---------------------------------------------------------------------------
+# slice 12: sharded training and the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+# [train sharded]: TRAIN's recipe (smollm-135m whole, bf16 with an f32
+# master, remat, DASH on grad features every 2 steps from pools of 4 ×
+# the period's examples, batch 8 × 2048) for 4 steps through
+# ``train_loop(mesh=)`` on spawned ranks, one launch at a time: world 2
+# (gloo, both ranks on the card, mesh (data 2, model 1)), uninterrupted
+# and then killed at step 3 with checkpoints every 2 steps under build/;
+# world 1 (NCCL, mesh (1, 1)), uninterrupted, then resuming the world-2
+# checkpoint (step 2) for the last step.  Gates (readings and planted
+# faults logged beside them): world 2's step-0 loss against world 1's
+# within SHARDED_LOSS_TOL["step0"], relative (the same parameters; the
+# planted fault divides each rank's loss by its own token count), later
+# steps within SHARDED_LOSS_TOL["later"]; each step's grad_norm within
+# SHARDED_GRAD_NORM_TOL of world 1's, relative; world 2's step-0
+# grad_norm on the pipeline's batch equal to world 1's in two
+# microbatches.  The gradients are bf16 (the parameters' type): world 2
+# sums those of two 4-row halves in f32, world 1 takes those of all 8
+# rows, and the two part by that rounding alone: world 2 equals world 1
+# in two microbatches bit for bit and both read 7.3e-03 against the
+# whole batch.  Readings on the H100 80GB HBM3 at 700 W: losses
+# 8.371e-08, 0, 2.676e-04, 1.876e-03, the own-count fault 9.988e-01;
+# grad_norm 7.245e-03, 7.657e-03, 1.877e-03, 1.811e-04; a planted
+# all-reduce that leaves out rank 1's gradient reads 0.415-0.560 on the
+# grad norms and 1.590e-02, 1.579e-02 on the losses of steps 2-3 (the
+# loss gate must see it too); period 0's selected ids equal (the same
+# features: each rank's rows in the same chunks as one device's), later
+# periods equal unless their features differ; the killed world-2 run's
+# losses, selections and final parameters equal the uninterrupted run's
+# bit for bit; the world-1 resume's loss against world 2's at the same
+# step from the same state (SHARDED_LOSS_TOL["step0"]); kernel 8 once
+# per layer per feature chunk on each rank, kernel 4 launched on each
+# rank.
+TRAIN_SHARDED = dict(steps=4, fail_at=3, checkpoint_every=2, timeout=900)
+SHARDED_LOSS_TOL = {"step0": 1e-5, "later": 1e-2}
+SHARDED_GRAD_NORM_TOL = 3e-2
+
+# [engine]: h2o-danube-1.8b whole (the lm main's weights, bf16) behind
+# ServeEngine(max_batch 4, max_seq 8192, eos -1): 8 requests, prompts of
+# seed-0 lengths in [512, 6000] (past the 4096 window: ring caches), 32
+# new tokens each.  Gate: each request's tokens equal its solo greedy
+# decode (batch 1, the port's own prefill and decode steps), or the
+# first difference comes at a step whose solo top-two logit margin is
+# below ENGINE_MARGIN_GATE (the engine decodes 4 rows at once, the solo
+# run 1: bf16 products of another shape round otherwise).  Readings on
+# the H100 80GB HBM3 at 700 W: 4 of 8 requests identical, the others
+# parting at solo margins 0.0156, 0.0312, 0.0000 and 0.0156 (bf16
+# logits near 1 are spaced 0.0078); the gate is 8 such spacings.  And
+# each request's logits, up to the first token where it parts from its
+# solo run, within ENGINE_LOGIT_TOL of the solo run's largest (max abs
+# difference over max abs): readings there 0 to 1.582e-02; two planted
+# faults, served on the first 4 prompts for 4 tokens, read 0.261-0.290
+# (every slot decoded one position on) and 1.17-1.56 (each admitted
+# cache inserted into the next slot).
+ENGINE = dict(max_batch=4, max_seq=8192, n_requests=8, lo=512, hi=6000,
+              new_tokens=32, seed=0, fault_tokens=4)
+ENGINE_MARGIN_GATE = 0.0625
+ENGINE_LOGIT_TOL = 5e-2
+
+
+def train_sharded_rank(ckpt, resume):
+    """One rank of [train sharded]: the host mesh over the world, TRAIN's
+    recipe for TRAIN_SHARDED's steps; world 2 runs uninterrupted and
+    then killed at ``fail_at`` with checkpoints in ``ckpt``; world 1 runs
+    uninterrupted and then, with ``resume``, resumes ``ckpt``.  Each
+    run's counters are set to 0 just before and read just after."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import BatchSelector, TokenPipeline, make_lm_tokens
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime import FailureInjector
+    from repro_torch.train import loop as loop_mod
+    from repro_torch.train import step as step_mod
+    from repro_torch.train import train_loop
+
+    c, s = TRAIN, TRAIN_SHARDED
+    mesh = make_host_mesh()
+    world = len(mesh.ranks)
+    cfg = get_config(c["arch"])
+    model = build_model(cfg)
+    tokens = make_lm_tokens(0, c["n_tokens"], cfg.vocab_size)
+    tcfg = TrainConfig(total_steps=s["steps"], learning_rate=c["lr"],
+                       warmup_steps=c["warmup"],
+                       checkpoint_every=s["checkpoint_every"])
+
+    def run(ckpt_dir=None, inject=None, drop=False):
+        make, reduce = loop_mod.make_train_step, step_mod.all_reduce_buckets
+        norms = []
+
+        def recording(*a, **kw):
+            step = make(*a, **kw)
+
+            def stepped(state, batch):
+                new, met = step(state, batch)
+                norms.append(float(met["grad_norm"]))
+                return new, met
+
+            stepped.allreduce_seconds = step.allreduce_seconds
+            return stepped
+
+        loop_mod.make_train_step = recording
+        if drop:
+            # The planted fault: the all-reduce sums only the first data
+            # rank's gradient (the others' rows left out).
+            step_mod.all_reduce_buckets = lambda leaves, m, axes: reduce(
+                [g * float(m.index(axes) == 0) for g in leaves], m, axes)
+        try:
+            with TokenPipeline(tokens, c["batch"], c["seq"]) as pipe:
+                sel = BatchSelector(c["batch"], algo="dash",
+                                    feature_mode="grad",
+                                    embed_dim_cap=c["dim_cap"],
+                                    n_samples=c["n_samples"])
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                secs, res, launches = synced(torch, lambda: train_loop(
+                    model, tcfg, pipe, mesh=mesh, ckpt_dir=ckpt_dir,
+                    selector=sel, selection_every=c["selection_every"],
+                    selection_pool_factor=c["pool_factor"],
+                    failure_injector=inject, log_every=1000))
+                peak = torch.cuda.max_memory_allocated() - held
+        finally:
+            loop_mod.make_train_step = make
+            step_mod.all_reduce_buckets = reduce
+        digest = hashlib.sha256()
+        for t in res.state.params["layers"][-1].values():
+            if isinstance(t, torch.Tensor):
+                digest.update(t.float().cpu().numpy().tobytes())
+        return dict(secs=secs, losses=res.losses, grad_norms=norms,
+                    launches=launches,
+                    selections=res.selections, restarts=res.restarts,
+                    step_seconds=res.step_seconds,
+                    allreduce_seconds=res.allreduce_seconds,
+                    selection_seconds=res.selection_seconds, peak=peak,
+                    params_sha=digest.hexdigest())
+
+    out = {"world": world, "rank": mesh.rank, "device": str(mesh.device)}
+    out["clean"] = run()
+    if world > 1:
+        out["killed"] = run(ckpt, FailureInjector(fail_at=(s["fail_at"],)))
+        out["saved"] = sorted(p.name for p in Path(ckpt).iterdir()) \
+            if mesh.is_writer else None
+        # The planted faults: one step where each rank's loss is divided
+        # by its own token count instead of the global one; a run whose
+        # all-reduce leaves out the second rank's gradient.
+        out["fault_loss"], _ = step0_metrics(torch, model, tcfg, tokens,
+                                             mesh, own_count=True)
+        out["drop"] = run(drop=True)
+        out["step0"] = step0_metrics(torch, model, tcfg, tokens, mesh)
+    else:
+        if resume:
+            out["resumed"] = run(ckpt)
+        out["step0"] = step0_metrics(torch, model, tcfg, tokens, mesh)
+        out["step0_halves"] = step0_metrics(
+            torch, model, dataclasses.replace(tcfg, microbatches=2), tokens,
+            mesh)
+    return out
+
+
+def step0_metrics(torch, model, tcfg, tokens, mesh, own_count=False):
+    """(loss, grad_norm) of step 0 from TRAIN's initial state, on the
+    step-0 batch of TRAIN's pipeline (no selection), in ``tcfg``'s
+    microbatches; with ``own_count`` (the planted fault) ``Model.loss``
+    divides each rank's NLL by its own count (the data-parallel group
+    hidden from it)."""
+    from repro_torch.data import TokenPipeline, shard_batch
+    from repro_torch.models import transformer
+    from repro_torch.train import init_train_state, make_train_step
+
+    c = TRAIN
+    gen = torch.Generator(device=mesh.device).manual_seed(tcfg.seed)
+    state = init_train_state(model, gen, tcfg)
+    with TokenPipeline(tokens, c["batch"], c["seq"]) as pipe:
+        batch = pipe.batch_for_step(0)
+    step = make_train_step(model, tcfg, mesh=mesh)
+    group = transformer.batch_group
+    if own_count:
+        transformer.batch_group = lambda: None
+    try:
+        _, met = step(state, shard_batch(batch, mesh,
+                                         microbatches=tcfg.microbatches))
+    finally:
+        transformer.batch_group = group
+    return float(met["loss"]), float(met["grad_norm"])
+
+
+def phase_train_sharded(torch):
+    """[train sharded]: see TRAIN_SHARDED."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+
+    c, s = TRAIN, TRAIN_SHARDED
+    cfg = get_config(c["arch"])
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_sharded_ckpt_", dir=ROOT / "build")
+    try:
+        t0 = time.perf_counter()
+        w2 = spawn_ranks(train_sharded_rank, 2, (ckpt, False),
+                         device="cuda", timeout_s=s["timeout"])
+        t_w2 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        w1 = spawn_ranks(train_sharded_rank, 1, (ckpt, True),
+                         device="cuda", timeout_s=s["timeout"])
+        t_w1 = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    one = w1[0]
+    periods = s["steps"] // c["selection_every"]
+    pool = c["batch"] * c["selection_every"] * c["pool_factor"]
+    tok_step = c["batch"] * c["seq"]
+    log(f"[train sharded] {cfg.name} published width, {cfg.n_layers} "
+        f"layers, TRAIN's recipe for {s['steps']} steps; world 2 (gloo, "
+        f"both ranks on the card, mesh (data 2, model 1)) launch "
+        f"{t_w2:.1f} s (two runs), world 1 (NCCL, mesh (1, 1)) launch "
+        f"{t_w1:.1f} s (two runs)")
+    runs = [("world 1", 0, one["clean"])] + [
+        (f"world 2 rank {r['rank']}", r["rank"], r["clean"]) for r in w2]
+    for name, rank, r in runs:
+        steady = r["step_seconds"][1:]
+        step_s = sum(steady) / len(steady)
+        ar = r["allreduce_seconds"]
+        log(f"[train sharded] {name}: losses "
+            f"{[round(x, 6) for x in r['losses']]}; step seconds "
+            f"{[round(x, 4) for x in r['step_seconds']]}, mean of steps "
+            f"1-{s['steps'] - 1} {step_s:.4f} s = {tok_step / step_s:.1f} "
+            f"tokens/s (global batch); all-reduce seconds per step "
+            f"{[round(x, 4) for x in ar]}; selection seconds "
+            f"{[round(x, 4) for x in r['selection_seconds']]}; run "
+            f"{r['secs']:.3f} s; peak {r['peak']} bytes; launches="
+            f"{r['launches']}")
+    # gates
+    w1l = one["clean"]["losses"]
+    for r in w2:
+        need(r["clean"]["losses"] == w2[0]["clean"]["losses"],
+             "[train sharded]: the world-2 ranks report other losses")
+    w2l = w2[0]["clean"]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(w2l, w1l)]
+    fault = w2[0]["fault_loss"]
+    fault_rel = abs(fault - w1l[0]) / abs(w1l[0])
+    log(f"[train sharded] world 2 against world 1: loss relative "
+        f"differences {[f'{x:.3e}' for x in rel]} (gates "
+        f"{SHARDED_LOSS_TOL}); planted fault (each rank's loss over its "
+        f"own count) step 0 loss {fault:.6f} against {w1l[0]:.6f}: "
+        f"reading {fault_rel:.3e}")
+    need(all(math.isfinite(x) for x in w1l + w2l),
+         "[train sharded]: a loss is not finite")
+    need(len(w2l) == len(w1l) == s["steps"]
+         and rel[0] <= SHARDED_LOSS_TOL["step0"]
+         and max(rel) <= SHARDED_LOSS_TOL["later"],
+         f"[train sharded]: world 2's losses {w2l} against world 1's {w1l}")
+    need(fault_rel > SHARDED_LOSS_TOL["later"],
+         "[train sharded]: the loss gate does not see its planted fault")
+    # the summed gradient, read through each step's grad_norm
+    gn1, gn2 = one["clean"]["grad_norms"], w2[0]["clean"]["grad_norms"]
+    drop = w2[0]["drop"]
+    g_rel = [abs(a - b) / abs(b) for a, b in zip(gn2, gn1)]
+    d_rel = [abs(a - b) / abs(b) for a, b in zip(drop["grad_norms"], gn1)]
+    dl_rel = [abs(a - b) / abs(b) for a, b in zip(drop["losses"], w1l)]
+    log(f"[train sharded] grad_norm world 1 {gn1}, world 2 {gn2}: relative "
+        f"differences {[f'{x:.3e}' for x in g_rel]} (gate "
+        f"{SHARDED_GRAD_NORM_TOL}); planted fault (the all-reduce leaves "
+        f"out rank 1's gradient) grad_norm {drop['grad_norms']}: readings "
+        f"{[f'{x:.3e}' for x in d_rel]}; its losses {drop['losses']}: "
+        f"readings against world 1's {[f'{x:.3e}' for x in dl_rel]}")
+    need(len(gn2) == len(gn1) == len(drop["grad_norms"]) == s["steps"]
+         and max(g_rel) <= SHARDED_GRAD_NORM_TOL,
+         f"[train sharded]: world 2's grad norms {gn2} against world 1's "
+         f"{gn1}")
+    need(min(d_rel) > SHARDED_GRAD_NORM_TOL,
+         "[train sharded]: the grad-norm gate does not see its planted "
+         "fault at every step")
+    need(max(dl_rel) > SHARDED_LOSS_TOL["later"],
+         "[train sharded]: the loss gate does not see the dropped gradient")
+    # World 2 sums the bf16 gradients of two 4-row halves in f32; world 1
+    # in two microbatches does the same on one device.
+    (_, g1), (_, gh), (_, g2) = (one["step0"], one["step0_halves"],
+                                 w2[0]["step0"])
+    log(f"[train sharded] step 0 on the pipeline's batch (no selection): "
+        f"grad_norm world 1 {g1}, world 1 in two microbatches (world 2's "
+        f"halves) {gh}, world 2 {g2}: world 2 equal to the halves' "
+        f"{g2 == gh}, against the whole batch {abs(g2 - g1) / g1:.3e}")
+    need(g2 == gh,
+         f"[train sharded]: world 2's step-0 grad_norm {g2} is not one "
+         f"device's sum of the same halves {gh}")
+    sel1, sel2 = one["clean"]["selections"], w2[0]["clean"]["selections"]
+    same = {p: bool(np.array_equal(sel1[p], sel2[p])) for p in sel1}
+    log(f"[train sharded] selected ids equal per period (world 1 vs 2): "
+        f"{same}")
+    need(sorted(sel1) == sorted(sel2) == list(range(periods))
+         and same[0], "[train sharded]: period 0's selection differs")
+    first_part = min([p for p, e in same.items() if not e], default=None)
+    if first_part is not None:
+        # A later period selects on parameters trained apart by rounding
+        # (the two worlds sum the gradients in another order).
+        log(f"[train sharded] period {first_part} parts: its parameters "
+            f"differ by rounding (losses up to it within the gate)")
+    killed = w2[0]["killed"]
+    clean2 = w2[0]["clean"]
+    log(f"[train sharded] world 2 killed at step {s['fail_at']} and "
+        f"resumed: restarts={killed['restarts']}, checkpoints "
+        f"{w2[0]['saved']}; losses equal {killed['losses'] == clean2['losses']}"
+        f", selections equal "
+        f"{all(np.array_equal(killed['selections'][p], v) for p, v in clean2['selections'].items())}"
+        f", final parameters equal "
+        f"{killed['params_sha'] == clean2['params_sha']}")
+    for r in w2:
+        k, cl = r["killed"], r["clean"]
+        need(k["restarts"] == 1 and k["losses"] == cl["losses"]
+             and k["params_sha"] == cl["params_sha"]
+             and sorted(k["selections"]) == sorted(cl["selections"])
+             and all(np.array_equal(k["selections"][p], v)
+                     for p, v in cl["selections"].items()),
+             "[train sharded]: the resumed world-2 run differs")
+    res1 = one["resumed"]
+    last = s["steps"] - 1
+    r_rel = abs(res1["losses"][0] - w2l[last]) / abs(w2l[last])
+    log(f"[train sharded] world-2 checkpoint resumed at world 1: "
+        f"{res1['restarts']} restarts, steps run {len(res1['losses'])}, "
+        f"step {last} loss {res1['losses'][0]:.6f} against world 2's "
+        f"{w2l[last]:.6f} (relative {r_rel:.3e}); launches="
+        f"{res1['launches']}")
+    need(len(res1["losses"]) == 1 and r_rel <= SHARDED_LOSS_TOL["step0"],
+         "[train sharded]: the world-1 resume of the world-2 checkpoint")
+    # kernel 8 once per layer per feature chunk, on each rank
+    for world, ranks in ((1, [one]), (2, w2)):
+        chunks = pool // world // c["batch"]
+        want = periods * chunks * cfg.n_layers
+        for r in ranks:
+            got = r["clean"]["launches"]
+            need(got.get("flash_attention", 0) == want,
+                 f"[train sharded]: world {world} rank {r['rank']} kernel 8 "
+                 f"{got.get('flash_attention', 0)} launches, want {want}")
+            need(got.get("aopt_gains", 0) > 0,
+                 f"[train sharded]: world {world} rank {r['rank']} never "
+                 f"launched kernel 4")
+        log(f"[train sharded] world {world}: kernel 8 {want} launches per "
+            f"rank = {periods} selections x {chunks} chunks x "
+            f"{cfg.n_layers} layers; kernel 4 "
+            f"{[r['clean']['launches'].get('aopt_gains', 0) for r in ranks]}"
+            f" per rank; kernel 5 "
+            f"{[r['clean']['launches'].get('aopt_filter_gains', 0) for r in ranks]}")
+    return {"w1": one, "w2": w2, "launch_s": (t_w1, t_w2),
+            "rel": rel, "fault_rel": fault_rel}
+
+
+def solo_greedy(torch, model, params, prompt, n_new):
+    """Greedy decoding of one prompt alone (batch 1): tokens, each step's
+    top-two logit margin and each step's logits."""
+    batch = {"tokens": torch.from_numpy(prompt[None]).cuda()}
+    toks, margins, steps = [], [], []
+    with torch.no_grad():
+        logits, cache = model.prefill(params, batch)
+        pos = cache["step_offset"]
+        for i in range(n_new):
+            steps.append(logits[0].clone())
+            top = torch.topk(logits[0].float(), 2).values
+            margins.append(float(top[0] - top[1]))
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            toks.append(int(tok[0]))
+            if i == n_new - 1:
+                break
+            logits, cache = model.decode_step(params, cache, tok[:, None],
+                                              pos + i)
+    return toks, margins, steps
+
+
+def recorded_engine(torch, model, params, fault=None):
+    """ServeEngine at ENGINE's size whose prefills and decode steps keep
+    each request's logits (``engine.logits``: request id → one (vocab,)
+    row per token, in order).  ``fault`` plants an engine fault: "pos+1"
+    decodes every slot one position on, "slot+1" inserts each admitted
+    cache into the next slot."""
+    from repro_torch.train import ServeEngine
+
+    e = ENGINE
+    engine = ServeEngine(model, params, max_batch=e["max_batch"],
+                         max_seq=e["max_seq"], eos_id=-1, device="cuda")
+    engine.logits = {}
+    prefill, decode = model.prefill, model.decode_step
+
+    def prefill_rec(p, batch, **kw):
+        logits, cache = prefill(p, batch, **kw)
+        engine.logits[len(engine.logits)] = [logits[0].clone()]
+        return logits, cache
+
+    def decode_rec(p, cache, toks, pos):
+        if fault == "pos+1":
+            pos = pos + 1
+        logits, cache = decode(p, cache, toks, pos)
+        for slot, req in enumerate(engine.active):
+            if req is not None:
+                engine.logits[req.rid].append(logits[slot].clone())
+        return logits, cache
+
+    engine.model = copy.copy(model)
+    engine.model.prefill, engine.model.decode_step = prefill_rec, decode_rec
+    return engine
+
+
+def faulty_engine_logits(torch, model, params, prompts, fault):
+    """Each request's logits from a recorded engine with ``fault``
+    planted, serving ``prompts`` for ENGINE's fault_tokens each."""
+    from repro_torch.train import engine as engine_mod
+
+    insert = engine_mod.insert_slot
+    if fault == "slot+1":
+        engine_mod.insert_slot = lambda dst, src, slot: insert(
+            dst, src, (slot + 1) % ENGINE["max_batch"])
+    try:
+        engine = recorded_engine(torch, model, params, fault)
+        for p in prompts:
+            engine.submit(p, max_new=ENGINE["fault_tokens"])
+        engine.run_until_done()
+    finally:
+        engine_mod.insert_slot = insert
+    logits = engine.logits
+    del engine
+    torch.cuda.empty_cache()
+    return logits
+
+
+def logit_reading(got, want):
+    """max |got − want| over max |want|, over the logits of the steps
+    whose inputs agree: up to and including the first token where the
+    two greedy runs part."""
+    n = min(len(got), len(want))
+    part = next((i for i in range(n) if int(got[i].argmax())
+                 != int(want[i].argmax())), n - 1)
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got[:part + 1], want[:part + 1]))
+    return err / max(float(w.float().abs().max()) for w in want[:part + 1])
+
+
+def phase_engine(torch, lm):
+    """[engine]: see ENGINE."""
+    import numpy as np
+
+    e = ENGINE
+    model, params = lm["model"], lm["params"]
+    cfg = model.cfg
+    rng = np.random.default_rng(e["seed"])
+    lens = rng.integers(e["lo"], e["hi"] + 1, e["n_requests"])
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    engine = recorded_engine(torch, model, params)
+    steps, admit = [], []
+    admit_fn = engine._admit
+
+    def timed_admit():
+        t0 = time.perf_counter()
+        admit_fn()
+        admit.append(time.perf_counter() - t0)
+
+    engine._admit = timed_admit
+
+    def serve():
+        rids = [engine.submit(p, max_new=e["new_tokens"]) for p in prompts]
+        while engine.pending or any(r is not None for r in engine.active):
+            t0 = time.perf_counter()
+            live = engine.step()
+            steps.append((live, time.perf_counter() - t0 - admit[-1]))
+        return rids
+
+    secs, rids, launches = synced(torch, serve)
+    peak = torch.cuda.max_memory_allocated() - held
+    outs = {rid: list(map(int, req.out))
+            for rid, req in engine.finished.items()}
+    n_tok = sum(len(v) for v in outs.values())
+    decode = [t for live, t in steps if live]
+    log(f"[engine] {cfg.name} published width, {cfg.n_layers} layers, bf16;"
+        f" ServeEngine(max_batch={e['max_batch']}, max_seq={e['max_seq']}):"
+        f" {len(prompts)} requests, prompts {sorted(int(n) for n in lens)},"
+        f" {e['new_tokens']} new tokens each; {secs:.3f} s = "
+        f"{len(prompts) / secs:.3f} requests/s, {n_tok / secs:.1f} "
+        f"tokens/s; {len(steps)} engine steps: decode host seconds per "
+        f"step (admissions apart) mean {sum(decode) / len(decode):.4f}, "
+        f"min {min(decode):.4f}, max {max(decode):.4f}; admissions "
+        f"{sum(admit):.3f} s in all; peak {peak} "
+        f"bytes above the {held} held; launches={launches}")
+    logits = engine.logits
+    del engine
+    torch.cuda.empty_cache()
+    t_solo = time.perf_counter()
+    identical, worst = 0, 0.0
+    solo_logits, readings = {}, []
+    for rid, p in zip(rids, prompts):
+        solo, margins, solo_logits[rid] = solo_greedy(
+            torch, model, params, p, e["new_tokens"])
+        readings.append(logit_reading(logits[rid], solo_logits[rid]))
+        got = outs[rid]
+        need(len(got) == e["new_tokens"],
+             f"[engine]: request {rid} got {len(got)} tokens")
+        if got == solo:
+            identical += 1
+            continue
+        first = next(i for i, (a, b) in enumerate(zip(got, solo)) if a != b)
+        log(f"[engine] request {rid} (prompt {len(p)}) parts from its solo "
+            f"run at token {first}: solo top-two margin {margins[first]:.4f}"
+            f" (gate {ENGINE_MARGIN_GATE})")
+        worst = max(worst, margins[first])
+        need(margins[first] < ENGINE_MARGIN_GATE,
+             f"[engine]: request {rid} parts at a margin of "
+             f"{margins[first]:.4f}")
+    log(f"[engine] {identical} of {len(prompts)} requests identical to "
+        f"their solo greedy runs ({time.perf_counter() - t_solo:.1f} s)")
+    # The logits up to where each request parts from its solo run, beside
+    # two planted engine faults served on the first max_batch prompts.
+    faults = {}
+    for fault in ("pos+1", "slot+1"):
+        got = faulty_engine_logits(torch, model, params,
+                                   prompts[:e["max_batch"]], fault)
+        faults[fault] = [logit_reading(got[rid], solo_logits[rid])
+                         for rid in rids[:e["max_batch"]]]
+    log(f"[engine] logits against the solo runs' (max |engine - solo| over"
+        f" max |solo|, up to the first differing token) per request: "
+        f"{[f'{x:.3e}' for x in readings]} (gate {ENGINE_LOGIT_TOL}); "
+        f"planted faults on requests 0-{e['max_batch'] - 1}, "
+        f"{e['fault_tokens']} tokens each: " + "; ".join(
+            f"{f} {[f'{x:.3e}' for x in v]}" for f, v in faults.items()))
+    need(max(readings) <= ENGINE_LOGIT_TOL,
+         f"[engine]: the engine's logits part from the solo runs' "
+         f"({max(readings):.3e})")
+    need(all(min(v) > ENGINE_LOGIT_TOL for v in faults.values()),
+         "[engine]: the logits gate does not see a planted fault")
+    want = cfg.n_layers * len(prompts)
+    need(launches.get("flash_attention", 0) == want,
+         f"[engine]: kernel 8 launched {launches}, want {want} "
+         f"({cfg.n_layers} per admitted request)")
+    return {"launches": launches, "lens": [int(n) for n in lens],
+            "secs": secs, "identical": identical}
+
+
+def phase_engine_timing(torch, engine):
+    """Kernel 8 at [engine]'s B = 1 prefills, one per request's prompt
+    length (danube's heads, window 4096, causal), bf16, beside its bound
+    and SDPA with the same mask; the plain version at the median length.
+    A shape record for the kernels line's flash_attention row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+
+    h, hkv, d, w = (LM_HEADS[x] for x in ("h", "hkv", "d", "window"))
+    tot = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    bys = set()
+    for s in engine["lens"]:
+        pairs = count_valid_pairs(s, s, True, w)
+        flops = 4.0 * d * pairs * h
+        q, k, v = flash_inputs(torch, 1, s, s, h, hkv, d, torch.bfloat16,
+                               seed=3)
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        parts = {"operations": max(flops / BF16_TC_FLOPS,
+                                   pairs * h / SFU_OPS_PER_S) * 1e3,
+                 "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+        by = max(parts, key=parts.get)
+        kw = dict(causal=True, window=w, softcap=0.0)
+        t = time_flash(torch, q, k, v, kw)
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+        mask = attention_mask(s, s, causal=True, window=w, q_offset=0,
+                              device=q.device)
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask))
+        log(f"[timing] flash_attention bf16 engine prefill B=1 S={s} H={h} "
+            f"Hkv={hkv} D={d} window={w}: kernel_ms={t:.4f} bound_ms="
+            f"{parts[by]:.4f} ({by}) library_ms={lib:.4f} (SDPA, same "
+            f"mask) bound/kernel={parts[by] / t:.3f}")
+        tot["ms"] += t
+        tot["bound_ms"] += parts[by]
+        tot["library_ms"] += lib
+        bys.add(by)
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    med = sorted(engine["lens"])[len(engine["lens"]) // 2]
+    q, k, v = flash_inputs(torch, 1, med, med, h, hkv, d, torch.bfloat16,
+                           seed=3)
+    plain = time_ms(torch, lambda: flash_attention_ref(
+        q, k, v, causal=True, window=w, softcap=0.0), iters=2, warmup=1)
+    t_med = time_flash(torch, q, k, v, dict(causal=True, window=w,
+                                            softcap=0.0))
+    del q, k, v
+    torch.cuda.empty_cache()
+    n = len(engine["lens"])
+    row = {"shape": f"B=1 S={sorted(engine['lens'])} H={h} Hkv={hkv} D={d} "
+                    f"window={w} causal (one prefill per request)",
+           "launches": engine["launches"].get("flash_attention", 0),
+           "ms": tot["ms"] / n, "bound_ms": tot["bound_ms"] / n,
+           "bound_by": "/".join(sorted(bys)),
+           "library_ms": tot["library_ms"] / n,
+           "plain_ms": plain, "plain_shape": f"B=1 S={med}",
+           "ms_at_plain_shape": t_med}
+    log(f"[timing] flash_attention engine prefills: mean per call over the "
+        f"{n} prompt lengths kernel_ms={row['ms']:.4f} bound_ms="
+        f"{row['bound_ms']:.4f} library_ms={row['library_ms']:.4f}; at "
+        f"S={med}: kernel_ms={t_med:.4f} plain_ms={plain:.4f}; launches in "
+        f"[engine] {row['launches']}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -5175,7 +5815,7 @@ OWN_KERNEL = re.compile(r"gains_|epilogue_kernel|aopt_filter|flash_")
 def phase_profile(torch, runs):
     """Replay each run under torch.profiler (``profiled``)."""
     for algo, fn in runs.items():
-        wall, busy, ranked = profiled(torch, fn)
+        wall, busy, ranked = profiled(torch, fn, cpu=False)
         if busy is None:
             log(f"[profile] {algo}: wall_s={wall:.4f}; device time not "
                 f"measured (the profiler saw no device activity)")
@@ -5336,6 +5976,12 @@ def main() -> int:
     phase_train_parity(torch)
     log(f"[train parity] done at {time.perf_counter() - t0:.1f} s; slice "
         f"11's phases took {time.perf_counter() - t11:.1f} s")
+    t12 = time.perf_counter()
+    train_sharded = phase_train_sharded(torch)
+    log(f"[train sharded] done at {time.perf_counter() - t0:.1f} s")
+    engine = phase_engine(torch, lm)
+    log(f"[engine] done at {time.perf_counter() - t0:.1f} s; slice 12's "
+        f"phases took {time.perf_counter() - t12:.1f} s")
     t_timing = time.perf_counter()
     rows = phase_timing(torch, worst, launches)
     rows += phase_aopt_timing(torch, worst, launches)
@@ -5348,9 +5994,20 @@ def main() -> int:
     hybrid_row = phase_hybrid_flash_timing(torch, hybrid["launches"])
     slice10_rows = phase_slice10_flash_timing(torch, whisper, vlm)
     train_rows = phase_train_timing(torch, train)
+    engine_row = phase_engine_timing(torch, engine)
+    per_rank = {name: {f"world {w}": [r["clean"]["launches"].get(name, 0)
+                                      for r in ranks]
+                       for w, ranks in ((1, [train_sharded["w1"]]),
+                                        (2, train_sharded["w2"]))}
+                for name in ("flash_attention", "aopt_gains",
+                             "aopt_filter_gains")}
     for row in rows:
         if row["name"] in train_rows:
             row["train_shape"] = train_rows[row["name"]]
+        if row["name"] in per_rank:
+            row["train_sharded_launches_per_rank"] = per_rank[row["name"]]
+        if row["name"] == "flash_attention":
+            row["engine_prefill_shape"] = engine_row
         if row["name"] in serve_rows:
             row["serve_shape"] = serve_rows[row["name"]]
         if row["name"] == "flash_attention":

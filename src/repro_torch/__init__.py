@@ -23,7 +23,10 @@ elastic resumes); slice 8 the selection service (``serve/``); slice 10
 the xLSTM, encoder-decoder and VLM archs; slice 11 single-device
 training with selection in the loop (``Model.loss``, ``optim``,
 ``train``, the token pipeline and ``BatchSelector``;
-``repro_torch.train_lm_with_selection``, ``repro_torch.launch.train``).
+``repro_torch.train_lm_with_selection``, ``repro_torch.launch.train``);
+slice 12 data-parallel training on a mesh (``sharding``,
+``train_loop(mesh=)``, ``launch.train --mesh``) and the
+continuous-batching ``train.engine.ServeEngine``.
 
 Layers:
   repro_torch.kernels  — hand-written CUDA C++ kernels for sm_90a (the
@@ -49,8 +52,13 @@ Layers:
                          token pipeline and training-batch selection
   repro_torch.optim    — AdamW with an f32 master, the cosine schedule,
                          gradient compression with error feedback
-  repro_torch.train    — the train step and the training loop with
-                         checkpoint/restart and selection in the loop
+  repro_torch.train    — the train step (one device or data parallel on
+                         a mesh), the training loop with
+                         checkpoint/restart and selection in the loop,
+                         and the continuous-batching serving engine
+  repro_torch.sharding — the perf flags, mesh placements of parameters,
+                         caches and batches, and the batch-axes context
+                         of data-parallel training
   repro_torch.tree     — nested dict/list/tuple trees of tensors
   repro_torch.configs  — the LM configs (copies of the JAX package's:
                          dense, MoE, hybrid) and their registry

@@ -1,4 +1,8 @@
-from repro_torch.data.pipeline import TokenPipeline, pool_from_callable
+from repro_torch.data.pipeline import (
+    TokenPipeline,
+    pool_from_callable,
+    shard_batch,
+)
 from repro_torch.data.selection import (
     BatchSelector,
     DashBatchSelector,
@@ -21,4 +25,5 @@ __all__ = [
     "make_lm_tokens",
     "pool_embeddings",
     "pool_from_callable",
+    "shard_batch",
 ]

@@ -11,8 +11,8 @@ joins; the pipeline is a context manager).
 RNG streams: every draw is seeded with a ``np.random.SeedSequence`` over
 ``(seed, stream_tag, step)``, so the per-step batch stream and the
 selection pool stream never collide.  The same seed gives the
-reference's arrays bit for bit.  Placing a batch on a mesh
-(``shard_batch``) comes with the port's sharded training.
+reference's arrays bit for bit.  ``shard_batch`` gives a rank of a
+mesh its rows of a host batch, on its device.
 """
 
 from __future__ import annotations
@@ -122,3 +122,40 @@ def pool_from_callable(batch_for_step, step: int,
     }
     n = next(iter(pooled.values())).shape[0]
     return pooled, np.arange(n, dtype=np.int64)
+
+
+def shard_batch(batch: dict, mesh, *, microbatches: int = 1) -> dict:
+    """This rank's rows of a host ``batch`` (numpy arrays, the global
+    batch on every rank), as tensors on ``mesh.device``.
+
+    The rows are split over the batch axes (``('pod', 'data')``, or
+    ``('data',)``) and the rank takes the block at its row-major
+    coordinate over them: where the reference's ``shard_batch`` puts
+    them with ``NamedSharding(mesh, P(('pod', 'data')))``.  Ranks that
+    differ only on ``model`` get the same rows.  With ``microbatches``
+    = m the global batch is first cut into m equal microbatches, as the
+    reference's train step cuts it, and the rank takes its block of each,
+    in order: its microbatch j is its block of the reference's
+    microbatch j.  Raises ``ValueError`` where the ranks (times m) do
+    not divide the rows.
+    """
+    import torch
+
+    from repro_torch.sharding.partitioning import batch_axes_for_mesh
+
+    axes = batch_axes_for_mesh(mesh)
+    size, idx = mesh.size(axes), mesh.index(axes)
+    m = int(microbatches)
+
+    def rows(x):
+        x = np.asarray(x)
+        b = x.shape[0]
+        if b % (size * m):
+            raise ValueError(f"batch of {b} rows does not split over the "
+                             f"{size} ranks of the batch axes {axes}"
+                             + (f" in {m} microbatches" if m > 1 else ""))
+        blk = x.reshape(m, size, b // (m * size), *x.shape[1:])[:, idx]
+        blk = np.ascontiguousarray(blk.reshape(b // size, *x.shape[1:]))
+        return torch.from_numpy(blk).to(mesh.device)
+
+    return {k: rows(v) for k, v in batch.items()}

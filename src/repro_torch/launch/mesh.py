@@ -88,14 +88,25 @@ class Mesh:
         self.coords: dict[str, int] = {}
         self._groups: dict[str, tuple] = {}
         grid = np.asarray(members).reshape(shape)
-        for ai, axis in enumerate(axes):
-            lines = np.moveaxis(grid, ai, -1).reshape(-1, shape[ai])
+        # One group per axis, and one over the batch axes together (every
+        # axis but ``model``) where there are several: the data-parallel
+        # group of the trainer, ranked row-major over those axes.
+        batch = tuple(a for a in axes if a != MODEL_AXIS)
+        spans = [(axis,) for axis in axes]
+        if len(batch) > 1:
+            spans.append(batch)
+        for span in spans:
+            dims = [axes.index(a) for a in span]
+            rest = [i for i in range(len(axes)) if i not in dims]
+            width = int(np.prod([shape[i] for i in dims]))
+            lines = np.transpose(grid, rest + dims).reshape(-1, width)
+            key = span[0] if len(span) == 1 else span
             for line in lines:
                 line = [int(r) for r in line]
                 group = dist.new_group(line)
                 if me in line:
-                    self._groups[axis] = (group, line)
-                    self.coords[axis] = line.index(me)
+                    self._groups[key] = (group, line)
+                    self.coords[key] = line.index(me)
         if device is None:
             device = _RANK_DEVICE if _RANK_DEVICE is not None else "cuda"
         self.device = torch.device(device)
@@ -105,20 +116,41 @@ class Mesh:
                 f"coords={self.coords}, device={self.device})")
 
     # -- axes -------------------------------------------------------------
-    def size(self, axis: str | None) -> int:
-        """Size of ``axis``; 1 for ``None`` or an axis the mesh lacks."""
+    # ``axis`` is an axis name, None, or a tuple of names: the batch axes
+    # (every axis but ``model``) taken together, ranked row-major.
+    def _key(self, axis):
+        """The group key of ``axis`` (a name or the batch axes' tuple),
+        or None where it spans no axis of the mesh."""
+        if isinstance(axis, tuple):
+            present = tuple(a for a in axis if a in self.shape)
+            if len(present) > 1:
+                if present not in self._groups and self.member:
+                    raise ValueError(f"axes {present} have no group: only "
+                                     "the batch axes (every axis but "
+                                     "'model') are grouped together")
+                return present
+            axis = present[0] if present else None
+        return axis if axis and axis in self.shape else None
+
+    def size(self, axis) -> int:
+        """Size of ``axis`` (a product for a tuple); 1 for ``None`` or an
+        axis the mesh lacks."""
+        if isinstance(axis, tuple):
+            return int(np.prod([self.shape.get(a, 1) for a in axis]))
         return int(self.shape.get(axis, 1)) if axis else 1
 
-    def index(self, axis: str | None) -> int:
+    def index(self, axis) -> int:
         """This rank's coordinate on ``axis`` (0 for ``None``)."""
-        if not axis or axis not in self.shape:
+        key = self._key(axis)
+        if key is None:
             return 0
         self._check_member()
-        return self.coords[axis]
+        return self.coords[key]
 
-    def _group(self, axis: str):
+    def group(self, axis):
+        """(process group, its ranks in coordinate order) of ``axis``."""
         self._check_member()
-        return self._groups[axis]
+        return self._groups[self._key(axis)]
 
     def _check_member(self):
         if not self.member:
@@ -149,11 +181,11 @@ class Mesh:
         return self.psum(x, axis) / self.size(axis)
 
     def _all_reduce(self, x, axis, op):
-        if not axis or axis not in self.shape:
+        if self._key(axis) is None:
             return x
         import torch.distributed as dist
 
-        group, _ = self._group(axis)
+        group, _ = self.group(axis)
         is_bool = x.dtype == torch.bool
         y = (x.to(torch.int32) if is_bool else x).clone().contiguous()
         dist.all_reduce(y, op=dist.ReduceOp.SUM if op == "sum"
@@ -162,11 +194,11 @@ class Mesh:
 
     def all_gather(self, x: torch.Tensor, axis: str | None) -> torch.Tensor:
         """(P, *x.shape): every member's ``x`` in coordinate order."""
-        if not axis or axis not in self.shape:
+        if self._key(axis) is None:
             return x[None]
         import torch.distributed as dist
 
-        group, line = self._group(axis)
+        group, line = self.group(axis)
         is_bool = x.dtype == torch.bool
         y = (x.to(torch.uint8) if is_bool else x).contiguous()
         out = [torch.empty_like(y) for _ in line]
@@ -177,11 +209,11 @@ class Mesh:
     def broadcast(self, x: torch.Tensor, axis: str | None,
                   src: int) -> torch.Tensor:
         """The ``x`` of the member at coordinate ``src`` on ``axis``."""
-        if not axis or axis not in self.shape:
+        if self._key(axis) is None:
             return x
         import torch.distributed as dist
 
-        group, line = self._group(axis)
+        group, line = self.group(axis)
         is_bool = x.dtype == torch.bool
         y = (x.to(torch.uint8) if is_bool else x).clone().contiguous()
         dist.broadcast(y, src=line[int(src)], group=group)

@@ -10,11 +10,34 @@ A port of ``repro/models/layers/moe.py``:
   4. scatter into an (E, C, D) buffer, dense per-expert products,
   5. gather back, unsort, combine with the routing weights.
 
-Only the JAX package's path without token groups is ported: its
-``moe_groups`` flag defaults to 0, and the grouped dispatch (one sort per
-data shard) and the expert-parallel sharding constraints come with the
-port's ``sharding/`` (ROADMAP item 14.6).  The expert products are
-``torch.bmm`` (the JAX package's ``einsum``, outside any Pallas kernel).
+With ``moe_groups = G`` (``sharding/flags.py``) the tokens are cut into
+G groups of whole rows, in order, and each group is dispatched on its
+own (its own sort, capacity C = int(⌈T·k/(G·E)⌉ · capacity_factor)),
+the G buffers laid out (E, G·C, D) for the expert products, as the
+reference's vmapped dispatch.  The expert products are ``torch.bmm``
+(the JAX package's ``einsum``, outside any Pallas kernel).
+
+Data parallel (``sharding.activation_sharding_ctx`` with a mesh): this
+rank holds its block of the global batch's rows, and the layer computes
+the reference's function of the global batch.
+  * The load-balance loss is global: the sums of ``probs`` (with
+    autograd, so that each rank's gradient is its rows' share) and the
+    expert counts are summed over the batch axes before ``aux`` is
+    formed.
+  * With groups, a multiple of the batch axes' ranks, each rank's rows
+    are whole groups of the global batch (group g holds rows
+    [g·B/G, (g+1)·B/G), and rank r rows [r·B/R, (r+1)·B/R)), so the
+    dispatch needs no collective; any other group count raises.
+  * Without groups the reference sorts all T·k assignments of the
+    global batch together and keeps the first C of each expert, in
+    token order.  An assignment's place in its expert is its place
+    among this rank's assignments plus the count of that expert's
+    assignments on the ranks before it (rows earlier in the batch), so
+    one all-gather of the (E,) counts makes every keep-or-drop decision
+    the reference's.  That is exact; each rank's buffer keeps the
+    global capacity's E·C rows (the other ranks' slots stay zero), so
+    the expert products cost each rank what the whole batch's cost one
+    device, as they do in the reference's single global dispatch.
 
 Ties: ``jax.lax.top_k`` puts the lower expert index first among equal
 probabilities; ``torch.topk`` documents no order for ties, so the port
@@ -27,6 +50,8 @@ import torch
 
 from repro_torch.models.layers import normal
 from repro_torch.models.layers.mlp import _act
+from repro_torch.sharding.flags import get_flags
+from repro_torch.sharding.partitioning import batch_group
 
 
 def expert_capacity(tk: int, e: int, capacity_factor: float) -> int:
@@ -48,18 +73,22 @@ def route(params, xt, cfg):
     return probs, top_w, top_e
 
 
-def _dispatch_group(xt, flat_e, e: int, cap: int, topk: int):
+def _dispatch_group(xt, flat_e, e: int, cap: int, topk: int, before=None):
     """Sort-based dispatch.  xt: (T, D), flat_e: (T·k,) expert ids.
     Returns (buf (E, cap, D), dest, keep, sort_idx, counts).  Every kept
     assignment has a slot of its own, so ``index_add_`` adds each once to
     a zero and the result does not depend on the order of the adds; the
-    dropped ones (zeros) share the overflow slot E·cap, which is cut."""
+    dropped ones (zeros) share the overflow slot E·cap, which is cut.
+    ``before`` (E,) counts each expert's assignments ahead of these
+    (other ranks' rows): an assignment's slot is its place after them."""
     d = xt.shape[1]
     tk = flat_e.shape[0]
     sort_idx = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[sort_idx]
     counts = torch.bincount(flat_e, minlength=e)
     starts = torch.cumsum(counts, 0) - counts
+    if before is not None:
+        starts = starts - before
     pos = torch.arange(tk, device=xt.device) - starts[sorted_e]
     keep = pos < cap
     dest = torch.where(keep, sorted_e * cap + pos, e * cap)
@@ -83,7 +112,9 @@ def _combine_group(out_buf, dest, keep, sort_idx, e: int, cap: int,
 
 
 def moe_apply(params, x, cfg):
-    """x: (B, S, D) → (B, S, D), aux_loss (scalar f32)."""
+    """x: (B, S, D) → (B, S, D), aux_loss (scalar f32).  Under a
+    data-parallel context x is this rank's rows and aux_loss the global
+    batch's (the same on every rank)."""
     b, s, d = x.shape
     m = cfg.moe
     e, topk = m.n_experts, m.top_k
@@ -92,23 +123,50 @@ def moe_apply(params, x, cfg):
     probs, top_w, top_e = route(params, xt, cfg)
     flat_e = top_e.reshape(-1)                              # (T·k,)
     tk = t * topk
-    cap = expert_capacity(tk, e, m.capacity_factor)
-    buf, dest, keep, sort_idx, counts = _dispatch_group(xt, flat_e, e, cap,
-                                                        topk)
+    grp = batch_group()
+    ranks = grp.size if grp is not None else 1
+    groups = get_flags().moe_groups
+    if groups and (b * ranks) % groups == 0:
+        if groups % ranks:
+            raise ValueError(f"moe_groups={groups} is not a multiple of the "
+                             f"{ranks} ranks of the batch axes: a group "
+                             f"would span ranks")
+        g = groups // ranks                 # this rank's whole groups
+        cap = expert_capacity(tk * ranks, groups * e, m.capacity_factor)
+        parts = [_dispatch_group(xg, eg, e, cap, topk) for xg, eg in zip(
+            xt.reshape(g, t // g, d), flat_e.reshape(g, tk // g))]
+        # (G, E, cap, D) → (E, G·cap, D)
+        buf = torch.stack([p[0] for p in parts], 1).reshape(e, g * cap, d)
+        counts = torch.stack([p[4] for p in parts]).sum(0)
+    else:
+        g = 1
+        cap = expert_capacity(tk * ranks, e, m.capacity_factor)
+        before = None
+        if grp is not None:
+            every = grp.all_gather(torch.bincount(flat_e, minlength=e))
+            before = every[:grp.index].sum(0)
+        parts = [_dispatch_group(xt, flat_e, e, cap, topk, before)]
+        buf, counts = parts[0][0], parts[0][4]
     h = torch.bmm(buf, params["w1"])
     if m.gated:
         h = _act(cfg.activation, h) * torch.bmm(buf, params["w3"])
     else:
         h = _act(cfg.activation, h)
     out_buf = torch.bmm(h, params["w2"])
-    out = _combine_group(out_buf, dest, keep, sort_idx, e, cap, topk,
-                         x.dtype)
+    out_g = out_buf.reshape(e, g, cap, d).transpose(0, 1)
+    out = torch.cat([_combine_group(ob, p[1], p[2], p[3], e, cap, topk,
+                                    x.dtype)
+                     for ob, p in zip(out_g, parts)])   # (T, k, D)
     out = out * top_w[..., None].to(x.dtype)
     out = torch.sum(out, dim=1).reshape(b, s, d)
 
-    # load-balance auxiliary loss (Switch-style)
-    me = torch.mean(probs, dim=0)                           # (E,)
-    dispatch_frac = counts.to(torch.float32) / tk
+    # load-balance auxiliary loss (Switch-style), over the global batch
+    if grp is None:
+        me = torch.mean(probs, dim=0)                       # (E,)
+    else:
+        me = grp.psum_grad(torch.sum(probs, dim=0)) / (t * ranks)
+        counts = grp.psum(counts)
+    dispatch_frac = counts.to(torch.float32) / (tk * ranks)
     aux = e * torch.sum(me * dispatch_frac) * m.aux_loss_weight
     return out, aux
 
@@ -135,6 +193,8 @@ def init_moe(gen, cfg, dtype):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
 
     def stack(shape, scale):
+        if gen.device.type == "meta":            # shapes only
+            return normal(gen, (e,) + shape, scale, dtype)
         w = torch.empty((e,) + shape, dtype=dtype, device=gen.device)
         for i in range(e):
             w[i] = normal(gen, shape, scale, dtype)

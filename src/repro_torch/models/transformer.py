@@ -21,8 +21,10 @@ layer (the JAX package stacks each pattern position over super-blocks
 in ``blocks`` and the encoder's layers in ``enc_blocks`` for
 ``lax.scan``; layer i is position i % period of super-block i // period,
 and ``repro_torch.convert.model_params_from_numpy`` splits both).  The
-forward pass is a Python loop over layers, on one device: the JAX
-package's sharding constraints wait for the port's sharded training.
+forward pass is a Python loop over layers.  Data-parallel training
+(``sharding.activation_sharding_ctx``) stands in for the JAX package's
+sharding constraints with explicit collectives where the batch's rows
+meet: ``loss``'s token count and the MoE's dispatch and aux loss.
 With ``cfg.remat`` the training loss checkpoints each layer
 (``torch.utils.checkpoint``), the counterpart of the reference's
 per-sub-layer ``jax.checkpoint``.
@@ -49,6 +51,7 @@ whose forward-only kernel has no gradient, and neither does the port's.
 Entry points
 ------------
   init(generator)                        → params
+  param_specs()                          → params as ``meta`` tensors
   loss(params, batch)                    → (loss + aux, {lm_loss,
                                            aux_loss}), differentiable
   prefill(params, batch)                 → (last_logits, cache)
@@ -71,7 +74,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import normal
+from repro_torch.models.layers import MetaGenerator, normal
 from repro_torch.models.layers.attention import (
     KVCache,
     attention_block,
@@ -98,6 +101,7 @@ from repro_torch.models.layers.xlstm import (
     init_xlstm_state,
     xlstm_block_apply,
 )
+from repro_torch.sharding.partitioning import batch_group
 from repro_torch.tree import tree_map
 
 # The temporal-mixing kinds of ``block_pattern`` the port runs.
@@ -295,6 +299,11 @@ class Model:
             params["enc_final_norm"] = init_norm(cfg.norm, d, pdt, dev)
         return params
 
+    def param_specs(self):
+        """The parameter tree as ``meta`` tensors: shapes and dtypes of
+        ``init`` at any width, with no storage."""
+        return self.init(MetaGenerator())
+
     def kind(self, i: int) -> str:
         """Layer i's temporal-mixing kind."""
         pattern = self.cfg.block_pattern
@@ -386,7 +395,12 @@ class Model:
         Labels are the tokens shifted by one (the last position wraps and
         is masked out); the cross-entropy is logsumexp − the gold logit
         in f32 over the padded vocab, the gold logit taken by a gather
-        (the reference contracts with a one-hot, a sharding device)."""
+        (the reference contracts with a one-hot, a sharding device).
+
+        Under ``sharding.activation_sharding_ctx`` with a mesh, ``batch``
+        is this rank's rows and the loss and both metrics are this
+        rank's shares of the global batch's: summed over the batch axes
+        they give the reference's values, and so do the gradients."""
         cfg = self.cfg
         tokens = batch["tokens"]
         n_prefix = cfg.vision.n_img_tokens if cfg.vision is not None else 0
@@ -404,8 +418,17 @@ class Model:
         lse = torch.logsumexp(lf, dim=-1)
         gold = torch.gather(lf, -1, labels[..., None])[..., 0]
         nll = lse - gold
-        loss = torch.sum(nll * lmask) / torch.clamp(torch.sum(lmask),
-                                                    min=1.0)
+        count = torch.sum(lmask)
+        grp = batch_group()
+        if grp is not None:
+            # Data parallel: this rank's share of the global loss, whose
+            # gradient is its rows' share of the global gradient.  The
+            # NLL is divided by the global count of supervised tokens,
+            # and the aux loss (global, the same on every rank) by the
+            # ranks; the shares sum to the reference's loss.
+            count = grp.psum(count)
+            aux = aux / grp.size
+        loss = torch.sum(nll * lmask) / torch.clamp(count, min=1.0)
         return loss + aux, {"lm_loss": loss, "aux_loss": aux}
 
     # ---- input specs (launchers) ---------------------------------------------

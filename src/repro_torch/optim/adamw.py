@@ -5,8 +5,11 @@ parameter leaf: f32 master, f32 m, f32 v, and one step count; the new
 parameters are the master cast to ``param_dtype``.  The reference's
 formula and weight decay apply to every leaf.  Plain tensor functions
 over the parameter tree, not ``torch.optim``: the state is a tree of
-tensors that ``repro_torch.ckpt`` saves and restores as it is.  ZeRO-1
-sharding of the state waits for the port's sharded training.
+tensors that ``repro_torch.ckpt`` saves and restores as it is.  The
+state is replicated on every rank of a data-parallel mesh, as in the
+reference's training; its ZeRO-1 placements
+(``sharding.cache_specs.zero1_specs``) are put to use by the dry run,
+ROADMAP item 14.7.
 """
 
 from __future__ import annotations

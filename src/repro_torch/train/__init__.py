@@ -1,6 +1,8 @@
-"""The port's single-device trainer: the train step and the training
-loop with checkpoint/restart and selection in the loop."""
+"""The port's trainer (the train step, single-device or data parallel
+on a mesh, and the training loop with checkpoint/restart and selection
+in the loop) and the continuous-batching serving engine."""
 
+from repro_torch.train.engine import Request, ServeEngine, insert_slot
 from repro_torch.train.loop import LoopResult, LoopState, train_loop
 from repro_torch.train.step import (
     TrainState,
@@ -11,8 +13,11 @@ from repro_torch.train.step import (
 __all__ = [
     "LoopResult",
     "LoopState",
+    "Request",
+    "ServeEngine",
     "TrainState",
     "init_train_state",
+    "insert_slot",
     "make_train_step",
     "train_loop",
 ]

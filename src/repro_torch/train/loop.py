@@ -1,7 +1,7 @@
 """Training loop: the train step, checkpoint/restart and periodic coreset
 selection through the ``select`` registry.
 
-A port of the single-device half of ``repro/train/loop.py``.  Every
+A port of ``repro/train/loop.py``.  Every
 ``selection_every`` steps the loop draws a candidate pool
 (``selection_pool_factor`` × the examples it will train on), scores the
 candidates with ``coreset_features`` under the current parameters (on
@@ -20,8 +20,28 @@ would hold two 25.8 GB f32 tensors at once).  A row's features depend on
 that row alone except through an MoE's capacity, so an arch with
 ``cfg.moe`` scores its pool whole.
 
-Training on a mesh (the reference's ``mesh=``) is the port's sharded
-training, ROADMAP item 14.6; ``mesh=`` raises until then.
+On a mesh (``mesh=``, a ``launch/mesh.py::Mesh`` that every rank builds
+and passes; each rank runs the loop, SPMD) the loop is data parallel, as
+the reference's under its mesh:
+  * each step's batch goes through ``data.pipeline.shard_batch``, and
+    the step (``make_train_step(..., mesh=)``) sums the gradients over
+    the batch axes; the parameters and every other leaf of the loop's
+    state stay replicated;
+  * each rank computes the features of its own rows of the pool (in
+    chunks of at most ``selector.k`` rows, kernel 8 on the card), and an
+    all-gather over the batch axes, in row order, gives every rank the
+    whole pool's features; with ``cfg.moe`` every rank computes the
+    whole pool, as one device does;
+  * the selector runs the algorithm's distributed twin on the mesh
+    (the candidates sharded over ``model``), with the same key on every
+    rank;
+  * one rank writes each checkpoint, whole, and the others wait for it
+    at a barrier; on a restart every rank restores, so a run resumes on
+    any world size (the state is the same on every rank);
+  * a failure raised at the top of a step (``failure_injector``) comes
+    before any collective of that step, so every rank fails at the same
+    step and each one's ``run_with_restart`` resumes it; a failed
+    collective ends the run.
 """
 
 from __future__ import annotations
@@ -37,16 +57,14 @@ import torch
 from repro_torch.ckpt import CheckpointManager, restore_checkpoint
 from repro_torch.core.objectives.coreset import coreset_features
 from repro_torch.core.random import SeedKey
-from repro_torch.data.pipeline import pool_from_callable
+from repro_torch.data.pipeline import pool_from_callable, shard_batch
 from repro_torch.data.selection import BatchSelector
 from repro_torch.kernels.common import resolve_device
 from repro_torch.runtime.fault_tolerance import FailureInjector, run_with_restart
+from repro_torch.sharding.partitioning import batch_axes_for_mesh
 from repro_torch.train.step import TrainState, init_train_state, make_train_step
 
 log = logging.getLogger(__name__)
-
-SHARDED_TRAINING = ("train_loop(mesh=...) is the port's sharded training, "
-                    "ROADMAP item 14.6 (sharded part); not ported yet")
 
 
 class LoopState(NamedTuple):
@@ -76,6 +94,8 @@ class LoopResult:
     # its loss), and of each selection (features and select).
     step_seconds: list = field(default_factory=list)
     selection_seconds: list = field(default_factory=list)
+    # On a mesh: host seconds of each step's gradient all-reduce.
+    allreduce_seconds: list = field(default_factory=list)
 
 
 def _to_device(batch: dict, device) -> dict:
@@ -99,7 +119,8 @@ def train_loop(
     init_state: TrainState | None = None,
     sel_key=None,
 ) -> LoopResult:
-    """Run ``tcfg.total_steps`` steps on ``device`` (``None``: the card).
+    """Run ``tcfg.total_steps`` steps on ``device`` (``None``: the card;
+    with a ``mesh``, the mesh's device).
 
     ``batch_source`` is a ``TokenPipeline`` (anything with
     ``batch_for_step`` and ``pool_for_step``) or a bare ``step -> batch``
@@ -114,16 +135,21 @@ def train_loop(
     1, host=True)``: the CPU and the card draw the same noise); period
     p selects with ``sel_key.fold_in(p)``.
     """
-    if mesh is not None:
-        raise NotImplementedError(SHARDED_TRAINING)
-    dev = resolve_device(device)
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        dev = mesh.device
+        if device is not None and resolve_device(device) != dev:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        axes = batch_axes_for_mesh(mesh)
     has_pool = hasattr(batch_source, "pool_for_step")
     batch_for_step: Callable[[int], dict] = (
         batch_source.batch_for_step if has_pool else batch_source)
     selection_every = max(int(selection_every), 1)
     k_sel = (selector.k * selection_every) if selector is not None else 0
 
-    train_step = make_train_step(model, tcfg)
+    train_step = make_train_step(model, tcfg, mesh=mesh)
     manager = (CheckpointManager(ckpt_dir, every=tcfg.checkpoint_every)
                if ckpt_dir else None)
     losses: list = []
@@ -181,15 +207,20 @@ def train_loop(
 
     def features(params, pb: dict) -> torch.Tensor:
         n = next(iter(pb.values())).shape[0]
-        step = n if model.cfg.moe is not None else selector.k
+        whole = model.cfg.moe is not None
+        step = n if whole else selector.k
+        rows = (_to_device(pb, dev) if mesh is None or whole
+                else shard_batch(pb, mesh))
+        mine = next(iter(rows.values())).shape[0]
         with torch.no_grad():
-            return torch.cat([
+            f = torch.cat([
                 coreset_features(
-                    model, params,
-                    _to_device({k: v[i:i + step] for k, v in pb.items()},
-                               dev),
+                    model, params, {k: v[i:i + step] for k, v in rows.items()},
                     mode=selector.feature_mode)
-                for i in range(0, n, step)])
+                for i in range(0, mine, step)])
+        if mine == n:
+            return f
+        return mesh.all_gather(f, axes).reshape(n, -1)
 
     def ensure_selection(state: LoopState, period: int) -> LoopState:
         pb, ids = pool_for_period(period)
@@ -197,7 +228,7 @@ def train_loop(
             t0 = time.perf_counter()
             feats = features(state.train.params, pb)
             pkey = key_type.from_array(state.sel_key).fold_in(period)
-            idx = selector.select(feats, pkey, k=k_sel)
+            idx = selector.select(feats, pkey, k=k_sel, mesh=mesh)
             state = state._replace(
                 cur_period=np.asarray(period, np.int32),
                 cur_sel=idx.cpu().numpy().astype(np.int32))
@@ -217,29 +248,52 @@ def train_loop(
         rows = state.cur_sel[off:off + selector.k]
         return {k: np.asarray(v)[rows] for k, v in pb.items()}, state
 
+    def save(step: int, state: LoopState) -> None:
+        if manager is None:
+            return
+        if mesh is None:
+            manager.maybe_save(step, state)
+        elif step % manager.every == 0:
+            # One writer; the others wait until its write is whole.
+            if mesh.is_writer:
+                manager.maybe_save(step, state, blocking=True)
+            mesh.barrier()
+
     def step_fn(state: LoopState, step: int) -> LoopState:
         if failure_injector is not None:
             failure_injector.check(step)
         batch, state = batch_at(state, step)
+        batch = (_to_device(batch, dev) if mesh is None else
+                 shard_batch(batch, mesh, microbatches=tcfg.microbatches))
         t0 = time.perf_counter()
-        new_train, metrics = train_step(state.train, _to_device(batch, dev))
+        new_train, metrics = train_step(state.train, batch)
         state = state._replace(train=new_train)
         loss = float(metrics["loss"])
         step_secs.append(time.perf_counter() - t0)
         losses.append(loss)
         if step % log_every == 0:
             log.info("step %d loss %.4f (%.3fs)", step, loss, step_secs[-1])
-        if manager is not None:
-            manager.maybe_save(step, state)
+        save(step, state)
         return state
 
     state = run_with_restart(total_steps=tcfg.total_steps,
                              make_state=make_state, restore=restore,
-                             step_fn=step_fn)
+                             step_fn=step_fn, fatal=_fatal(mesh))
     if manager is not None:
         manager.wait()
     return LoopResult(state=state.train, losses=losses,
                       steps_run=len(losses), restarts=restarts[0],
                       selections=selections,
                       selection_time_s=float(sum(sel_secs)),
-                      step_seconds=step_secs, selection_seconds=sel_secs)
+                      step_seconds=step_secs, selection_seconds=sel_secs,
+                      allreduce_seconds=list(train_step.allreduce_seconds))
+
+
+def _fatal(mesh) -> tuple:
+    """The failures a rank of ``mesh`` must not restart from: a failed
+    collective (its peers are gone or out of step)."""
+    if mesh is None:
+        return ()
+    import torch.distributed as dist
+
+    return (dist.DistError,)

@@ -1798,3 +1798,83 @@ def test_train_loop_selection_launches_kernels(cuda):
     assert aopt_gains.launches - before[1] > 0
     for ids in res.selections.values():
         assert len(set(ids.tolist())) == 8
+
+
+def _sharded_step_world1_rank():
+    """World 1 on the card (NCCL): two steps of reduced smollm in bf16
+    through ``make_train_step(mesh=)`` and through the single-device
+    step, from one state on the same batches; the two runs' leaves."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train import init_train_state, make_train_step
+
+    mesh = make_host_mesh()
+    cfg = dataclasses.replace(get_reduced_config("smollm-135m"),
+                              dtype="bfloat16", param_dtype="bfloat16")
+    model = build_model(cfg)
+    tcfg = TrainConfig(total_steps=4, learning_rate=1e-3, warmup_steps=1)
+    gen = torch.Generator(device=mesh.device).manual_seed(0)
+    state = init_train_state(model, gen, tcfg)
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, 64)).astype(
+        np.int32)} for _ in range(2)]
+    out = {}
+    for name, step in (("mesh", make_train_step(model, tcfg, mesh=mesh)),
+                       ("single", make_train_step(model, tcfg))):
+        st, losses = state, []
+        for b in batches:
+            dev = (shard_batch(b, mesh) if name == "mesh" else
+                   {k: torch.from_numpy(v).to(mesh.device)
+                    for k, v in b.items()})
+            st, met = step(st, dev)
+            losses.append(float(met["loss"]))
+        out[name] = (losses, [t.float().cpu().numpy()
+                              for t in tree_leaves(st)])
+    return out
+
+
+def test_sharded_step_world1_is_the_single_device_step_on_card(cuda):
+    """World 1 (NCCL, mesh (1, 1)): the data-parallel step is the
+    single-device step bit for bit (the batch axes hold one rank, so no
+    collective touches the gradients)."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    (out,) = spawn_ranks(_sharded_step_world1_rank, 1, device="cuda",
+                         timeout_s=600)
+    assert out["mesh"][0] == out["single"][0]
+    for a, b in zip(out["mesh"][1], out["single"][1]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_engine_on_card_matches_generate_on_card(cuda):
+    """``ServeEngine`` on the card (kernel 8 in every admission's
+    prefill) gives each request the card's own greedy ``generate`` of
+    it alone, on reduced danube in f32 (ring caches: window 32, prompts
+    past it)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.lm_serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.train import ServeEngine
+
+    cfg = get_reduced_config("h2o-danube-1.8b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (40, 12, 50, 7)]
+    before = flash_attention.launches
+    engine = ServeEngine(model, params, max_batch=2, max_seq=96, eos_id=-1,
+                         device="cuda")
+    rids = [engine.submit(p, max_new=6) for p in prompts]
+    outs = engine.run_until_done()
+    assert flash_attention.launches - before == cfg.n_layers * len(prompts)
+    for p, rid in zip(prompts, rids):
+        want = generate(model, params, {"tokens": p[None]}, 6,
+                        device="cuda")
+        np.testing.assert_array_equal(outs[rid], want[0].cpu().numpy())

@@ -259,12 +259,21 @@ def test_kill_and_resume_replays_bitwise(tmp_path):
 
 
 def test_mesh_raises_until_the_sharded_slice():
+    """Named from before sharded training was ported; it now checks that
+    ``mesh=`` trains on the mesh's device (another ``device=`` raises),
+    and that ``--mesh`` trains on spawned ranks (one gloo rank here;
+    tests/test_torch_train_loop_sharded.py holds world 4 to the
+    reference)."""
+    class StubMesh:
+        device = torch.device("meta")
+
     cfg = get_reduced_config(ARCH)
-    with pytest.raises(NotImplementedError, match="14.6"):
+    with pytest.raises(ValueError, match="not the mesh's"):
         train_loop(build_model(cfg), TrainConfig(total_steps=1),
-                   lambda s: None, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="14.6"):
-        launch_train.main(["--arch", ARCH, "--device", "cpu", "--mesh"])
+                   lambda s: None, device="cpu", mesh=StubMesh())
+    res = launch_train.main(["--arch", ARCH, "--device", "cpu", "--mesh",
+                             "--world", "1", "--steps", "2"])
+    assert res.steps_run == 2 and np.isfinite(res.losses).all()
 
 
 def test_entry_points_train_on_the_cpu():

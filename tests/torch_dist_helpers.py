@@ -48,7 +48,8 @@ def _jax_fns():
 
 class JaxKey:
     """The port's key interface over a raw JAX PRNG key (numpy uint32):
-    ``split``, ``fold_in`` and the Gumbel draw are the reference's."""
+    ``split``, ``fold_in``, the Gumbel and normal draws are the
+    reference's; ``as_array``/``from_array`` carry it in a checkpoint."""
 
     def __init__(self, key):
         self.key = np.asarray(key, dtype=np.uint32)
@@ -69,6 +70,20 @@ class JaxKey:
 
         g = np.array(_jax_fns()[2](self.key, n))
         return torch.from_numpy(g).to(device)
+
+    def normal(self, shape, device):
+        import jax
+        import torch
+
+        z = np.array(jax.random.normal(self.key, tuple(shape)))
+        return torch.from_numpy(z).to(device)
+
+    def as_array(self):
+        return self.key.copy()
+
+    @classmethod
+    def from_array(cls, a):
+        return cls(np.asarray(a, np.uint32))
 
 
 # ---------------------------------------------------------------------------
