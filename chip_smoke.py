@@ -234,6 +234,29 @@ exits nonzero, with no result line) when a check fails:
                at a top-two margin below ENGINE_MARGIN_GATE), kernel 8
                24 times per admitted request; requests/s, tokens/s,
                decode seconds per engine step
+ slice 13 — after engine:
+     train zero1 — train's model and batch (no selection) for 3 steps
+               through make_train_step(mesh=, grad_specs=zero1_specs(...))
+               on spawned ranks, world 2 (gloo, both ranks on the card:
+               smollm's stacks over data, 15 layers' optimizer state a
+               rank) and world 1 (NCCL), beside the replicated step on
+               the same rows: losses and grad norms under [train
+               sharded]'s gates, the gathered state's norms
+               (ZERO1_STATE_TOL), each rank's optimizer bytes = its
+               placements' share, a planted unsummed gradient above the
+               gates; step, reduce-scatter and all-gather seconds, each
+               step's peak
+     dryrun  — repro_torch.launch.dryrun on meta tensors (no card): every
+               runnable cell at 16×16 and 2×16×16, in a pool of nice-19
+               processes that runs beside [registry parity], which times
+               nothing, and is waited for before [lm], the next timed
+               phase; each record's line in print_record's format (the
+               records whole in build/dryrun_records.json), no error
+               record; train's recipe (8 × 2048) at mesh 1×1 and data 2
+               against [train zero1]'s real steps: held bytes and
+               collective bytes by kind equal, the peak reckoning within
+               DRYRUN_PEAK_GATE of a real step's peak, the no-remat
+               reckoning outside it
  14. timing  — CUDA-event times per call of each kernel, its plain
                version and a library call, beside the kernel's bound
                from its shapes and the H100 SXM peaks (kernel 8 at the lm
@@ -271,6 +294,7 @@ nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import atexit
 import copy
 import functools
 import json
@@ -1731,17 +1755,6 @@ def phase_lm_parity(torch, arch=None, tag="[lm parity]", tol=LM_PARITY_TOL):
     return errs
 
 
-def count_valid_pairs(sq, skv, causal, window, q_offset=0):
-    """Valid (q, k) pairs of one (b, h) under the masks."""
-    total = 0
-    for i in range(sq):
-        qp = i + q_offset
-        hi = min(skv - 1, qp) if causal else skv - 1
-        lo = max(0, qp - window + 1) if window else 0
-        total += max(0, hi - lo + 1)
-    return total
-
-
 def flash_staging_bytes(info, b, sq, skv, h, hkv, d, causal, window):
     """Bytes one call of the bf16 kernel stages from L2 into shared
     memory, reckoned from its tile sizes (``kernel_info``): each CTA's
@@ -1796,23 +1809,28 @@ def time_flash_shape(torch, b, sq, skv, h, hkv, d, causal=True, window=0):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
+        count_valid_pairs,
         flash_attention,
         flash_attention_ref,
+        flash_cost,
         kernel_info,
     )
     from repro_torch.kernels.flash_attention.ref import attention_mask
 
     w = window
+    # One copy of row 8's formulas: the package's, which the dry run's
+    # meta route of the wrapper reports too.
     pairs = count_valid_pairs(sq, skv, causal, w)
-    flops = 4.0 * d * pairs * b * h
-    exps = float(pairs * b * h)
+    flops, _, exps = flash_cost(b, sq, skv, h, hkv, d, causal=causal,
+                                window=w)
     torch.cuda.empty_cache()
     out = {}
     for prec, dt, peak in (("bf16", torch.bfloat16, BF16_TC_FLOPS),
                            ("f32", torch.float32, F32_PEAK_FLOPS)):
         q, k, v = flash_inputs(torch, b, sq, skv, h, hkv, d, dt, seed=3)
         kw = dict(causal=causal, window=w, softcap=0.0)
-        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        _, nbytes, _ = flash_cost(b, sq, skv, h, hkv, d, causal=causal,
+                                  window=w, itemsize=q.element_size())
         parts = {"operations": flops / peak * 1e3,
                  "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
         if prec == "bf16":
@@ -3649,20 +3667,22 @@ def phase_engine_timing(torch, engine):
     A shape record for the kernels line's flash_attention row."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_ref,
+        flash_cost,
+    )
     from repro_torch.kernels.flash_attention.ref import attention_mask
 
     h, hkv, d, w = (LM_HEADS[x] for x in ("h", "hkv", "d", "window"))
     tot = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     bys = set()
     for s in engine["lens"]:
-        pairs = count_valid_pairs(s, s, True, w)
-        flops = 4.0 * d * pairs * h
+        flops, nbytes, exps = flash_cost(1, s, s, h, hkv, d, causal=True,
+                                         window=w)
         q, k, v = flash_inputs(torch, 1, s, s, h, hkv, d, torch.bfloat16,
                                seed=3)
-        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
         parts = {"operations": max(flops / BF16_TC_FLOPS,
-                                   pairs * h / SFU_OPS_PER_S) * 1e3,
+                                   exps / SFU_OPS_PER_S) * 1e3,
                  "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
         by = max(parts, key=parts.get)
         kw = dict(causal=True, window=w, softcap=0.0)
@@ -3708,6 +3728,455 @@ def phase_engine_timing(torch, engine):
         f"S={med}: kernel_ms={t_med:.4f} plain_ms={plain:.4f}; launches in "
         f"[engine] {row['launches']}")
     return row
+
+
+# ---------------------------------------------------------------------------
+# slice 13: ZeRO-1 and the dry run
+# ---------------------------------------------------------------------------
+
+# [train zero1]: TRAIN's model and batch (smollm-135m whole, bf16 with an
+# f32 master, remat, 8 × 2048 tokens of TRAIN's pipeline, no selection)
+# for 3 steps through make_train_step(mesh=, grad_specs=zero1_specs(...))
+# on spawned ranks, world 2 (gloo, both ranks on the card, mesh (data 2,
+# model 1): smollm's 30-layer stacks go over data, each rank holds 15
+# layers' optimizer state) and world 1 (NCCL); beside it, in each rank,
+# the replicated data-parallel step ([train sharded]'s) from the same
+# state on the same rows.  Gates: each step's loss within
+# SHARDED_LOSS_TOL of the replicated step's (step 0 "step0", later
+# "later"), each grad norm within SHARDED_GRAD_NORM_TOL, the gathered
+# state after the last step within ZERO1_STATE_TOL of the replicated
+# step's, each reading a norm over the whole tree: the parameters' and
+# the master's difference over the replicated run's change from the
+# initial state, m's and v's over the replicated run's; each rank's
+# optimizer bytes equal to its share under the placements; the planted
+# fault (each rank updates its part with its own gradient, the
+# reduce-scatter's sum left out) reads above the grad-norm gate and the
+# state gates at world 2.  Two runs of one step on the card part in the
+# gradients' last bits (the embedding's backward adds with atomics), and
+# Adam's g/√v turns that into up to ~lr on the parameters whose
+# gradient is rounding noise: the largest difference is no gate, the
+# norms are.  Readings on the H100 80GB HBM3 at 700 W: world 1 0 (the
+# same bits); world 2 params 6.562e-03, master 2.446e-03, m 1.066e-03,
+# v 6.850e-04 (the global norm from the parts' sums parts from the
+# replicated step's in its last bits, and so the clip factor; norm
+# scales near 1.0 then round to other bf16 values, 1.38 × lr); the
+# planted fault 6.078e-01, 6.073e-01, 3.276e-01, 2.763e-01, its grad
+# norms 0.44-0.57 off.  Each gate lies 4.6-9 × above its sound reading
+# and 20-33 × below the fault's.
+TRAIN_ZERO1 = dict(steps=3, timeout=900)
+ZERO1_STATE_TOL = dict(params=3e-2, master=2e-2, m=1e-2, v=1e-2)
+
+# [dryrun]: every runnable cell of the registry at 16×16 and at 2×16×16
+# traced by repro_torch.launch.dryrun on meta tensors (no card) in
+# DRYRUN["workers"] processes at the lowest CPU priority, the costliest
+# cells first.  The pool starts before [registry parity], which checks
+# results and times nothing, and is waited for when that phase ends, so
+# that no timed phase shares the host's cores with it; 2×16×16 cells not
+# done DRYRUN["budget_s"] after the wait begins are named and left out.  Then TRAIN's recipe as a
+# ShapeConfig (8 × 2048, smollm-135m) traced at mesh 1×1 and data 2 and
+# held to [train zero1]'s real steps: held_bytes equal to the real ZeRO-1
+# state and rows on the card, the collective bytes by kind equal to what
+# the real world-2 step moved (the mesh's methods wrapped in the rank),
+# and peak_est_bytes within DRYRUN_PEAK_GATE of one real step's peak
+# (torch.cuda.max_memory_allocated above what the process held besides
+# the step's arguments), relative; the planted fault, the estimate of
+# the model without remat, must read outside the gate.  Readings on the
+# H100 80GB HBM3 at 700 W, before the trace counted the parameters' copy
+# that ``detach`` makes a second time: 1.445e-02 (world 1: 18,919,857,428
+# reckoned against 18,650,354,564 on the card), 2.841e-02 (world 2:
+# 9,729,205,652 against 9,460,463,108), both 269,030,016 bytes (one bf16
+# copy of the parameters) high; the fault 5.967.  After: 2.535e-05
+# (18,650,827,412 against 18,650,354,564) and 3.039e-05 (9,460,175,636
+# against 9,460,463,108); the fault 5.939.  With the layers summed from
+# two super-blocks (launch/dryrun.py::_depth): 1.227e-07 (18,650,352,276
+# against 18,650,354,564) and 8.061e-05 (9,459,700,500 against
+# 9,460,463,108); the fault 5.939.
+DRYRUN = dict(workers=8, budget_s=60.0)
+DRYRUN_PEAK_GATE = 1e-2
+
+
+def zero1_collectives(mesh, log_to):
+    """Wrap ``mesh``'s collectives so that each call over more than one
+    member appends (kind, bytes) to ``log_to`` (``collective_bytes``, the
+    dry run's count)."""
+    from repro_torch.launch.mesh import collective_bytes
+
+    def wrap(name, kind):
+        inner = getattr(mesh, name)
+
+        def call(x, axis, *a):
+            if mesh.size(axis) > 1:
+                log_to.append((kind, collective_bytes(kind, x,
+                                                      mesh.size(axis))))
+            return inner(x, axis, *a)
+        setattr(mesh, name, call)
+
+    for name, kind in (("psum", "all-reduce"), ("pmax", "all-reduce"),
+                       ("all_gather", "all-gather"),
+                       ("broadcast", "broadcast"),
+                       ("psum_scatter", "reduce-scatter")):
+        wrap(name, kind)
+
+    def unwrap():
+        for name in ("psum", "pmax", "all_gather", "broadcast",
+                     "psum_scatter"):
+            delattr(mesh, name)
+    return unwrap
+
+
+def train_zero1_rank():
+    """One rank of [train zero1]: see TRAIN_ZERO1."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import TokenPipeline, make_lm_tokens, shard_batch
+    from repro_torch.launch.dryrun import _zero1_stack, placed_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding import (
+        batch_axes_for_mesh,
+        param_partition_specs,
+        zero1_layout,
+        zero1_specs,
+    )
+    from repro_torch.train import (
+        gather_train_state,
+        init_train_state,
+        make_train_step,
+        shard_train_state,
+    )
+    from repro_torch.tree import tree_leaves
+    from repro_torch.utils.tree import tree_bytes
+
+    c, z1 = TRAIN, TRAIN_ZERO1
+    mesh = make_host_mesh()
+    world = len(mesh.ranks)
+    cfg = get_config(c["arch"])
+    model = build_model(cfg)
+    tcfg = TrainConfig(total_steps=z1["steps"], learning_rate=c["lr"],
+                       warmup_steps=c["warmup"])
+    with TokenPipeline(make_lm_tokens(0, c["n_tokens"], cfg.vocab_size),
+                       c["batch"], c["seq"]) as pipe:
+        batches = [shard_batch(pipe.batch_for_step(i), mesh)
+                   for i in range(z1["steps"])]
+    gen = torch.Generator(device=mesh.device).manual_seed(tcfg.seed)
+    state = init_train_state(model, gen, tcfg)
+    axes = batch_axes_for_mesh(mesh)
+    specs = zero1_specs(param_partition_specs(state.params, cfg, mesh),
+                        state.params, mesh, axes, cfg)
+    share = 3 * placed_bytes(state.opt.master, specs, mesh, _zero1_stack(
+        zero1_layout(specs, state.params, mesh, axes, cfg), mesh))
+
+    def run(zero1, n, fault=False):
+        st = shard_train_state(state, mesh, specs, cfg) if zero1 else state
+        held = tree_bytes(st) + tree_bytes(batches[0])
+        opt_bytes = tree_bytes((st.opt.master, st.opt.m, st.opt.v))
+        step = (make_train_step(model, tcfg, mesh=mesh, grad_specs=specs)
+                if zero1 else make_train_step(model, tcfg, mesh=mesh))
+        moved: list = []
+        unwrap = zero1_collectives(mesh, moved)
+        if fault:
+            # the planted fault: each rank's part of its own gradient,
+            # not summed over the ranks
+            def own(x, axis):
+                p, i = mesh.size(axis), mesh.index(axis)
+                n_ = x.shape[0] // p
+                return x[i * n_:(i + 1) * n_].clone()
+            mesh.psum_scatter = own
+        losses, norms, secs, peaks, first = [], [], [], [], None
+        try:
+            for i in range(n):
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                st, met = step(st, batches[i])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                # the step's peak: what it held at its start (its
+                # arguments) plus what it allocated above that
+                peaks.append(torch.cuda.max_memory_allocated() - before
+                             + held)
+                losses.append(float(met["loss"]))
+                norms.append(float(met["grad_norm"]))
+                if i == 0:
+                    first = list(moved)
+        finally:
+            unwrap()
+        out = dict(losses=losses, grad_norms=norms, step_seconds=secs,
+                   peaks=peaks, held=held, opt_bytes=opt_bytes,
+                   moved_step0=first)
+        if zero1:
+            out["reduce_scatter_seconds"] = step.reduce_scatter_seconds
+            out["all_gather_seconds"] = step.all_gather_seconds
+            out["final"] = gather_train_state(st, mesh, specs, cfg)
+        else:
+            out["final"] = st
+        return out
+
+    rep = run(False, z1["steps"])
+    zero = run(True, z1["steps"])
+    r = rep.pop("final")
+
+    def norm(tree, minus=None):
+        ls = tree_leaves(tree)
+        ms = tree_leaves(minus) if minus is not None else [None] * len(ls)
+        return math.sqrt(sum(
+            float(((x.float() - y.float()) if y is not None
+                   else x.float()).square().sum()) for x, y in zip(ls, ms)))
+
+    def state_err(g):
+        return {"params": norm(g.params, r.params)
+                / norm(r.params, state.params),
+                "master": norm(g.opt.master, r.opt.master)
+                / norm(r.opt.master, state.opt.master),
+                "m": norm(g.opt.m, r.opt.m) / norm(r.opt.m),
+                "v": norm(g.opt.v, r.opt.v) / norm(r.opt.v),
+                "params_max_lr": max(
+                    float((a.float() - b.float()).abs().max())
+                    for a, b in zip(tree_leaves(g.params),
+                                    tree_leaves(r.params))) / c["lr"]}
+
+    out = {"world": world, "rank": mesh.rank, "rep": rep, "zero": zero,
+           "share": share, "state_err": state_err(zero.pop("final"))}
+    if world > 1:
+        f = run(True, z1["steps"], fault=True)
+        out["fault_state_err"] = state_err(f.pop("final"))
+        out["fault"] = f
+    return out
+
+
+def phase_train_zero1(torch):
+    """[train zero1]: see TRAIN_ZERO1."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+
+    c, z1 = TRAIN, TRAIN_ZERO1
+    cfg = get_config(c["arch"])
+    t0 = time.perf_counter()
+    w2 = spawn_ranks(train_zero1_rank, 2, (), device="cuda",
+                     timeout_s=z1["timeout"])
+    t_w2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w1 = spawn_ranks(train_zero1_rank, 1, (), device="cuda",
+                     timeout_s=z1["timeout"])
+    t_w1 = time.perf_counter() - t0
+    log(f"[train zero1] {cfg.name} published width, {cfg.n_layers} layers, "
+        f"bf16 params + f32 master, remat; batch {c['batch']} x {c['seq']}, "
+        f"{z1['steps']} steps, lr {c['lr']:g} warmup {c['warmup']}; world 2 "
+        f"(gloo, both ranks on the card, mesh (data 2, model 1)) launch "
+        f"{t_w2:.1f} s, world 1 (NCCL) launch {t_w1:.1f} s")
+    for r in w1 + w2:
+        name = f"world {r['world']} rank {r['rank']}"
+        for tag in ("rep", "zero"):
+            x = r[tag]
+            steady = x["step_seconds"][1:]
+            log(f"[train zero1] {name} {'ZeRO-1' if tag == 'zero' else 'replicated'}"
+                f": losses {[round(v, 6) for v in x['losses']]} grad norms "
+                f"{[round(v, 6) for v in x['grad_norms']]} step seconds "
+                f"{[round(v, 4) for v in x['step_seconds']]} (mean of steps "
+                f"1-{z1['steps'] - 1} {sum(steady) / len(steady):.4f} s); "
+                f"optimizer bytes {x['opt_bytes']}; step peak "
+                f"{[int(p) for p in x['peaks']]} bytes"
+                + (f"; reduce-scatter seconds "
+                   f"{[round(v, 4) for v in x['reduce_scatter_seconds']]}, "
+                   f"all-gather seconds "
+                   f"{[round(v, 4) for v in x['all_gather_seconds']]}"
+                   if tag == "zero" else ""))
+        log(f"[train zero1] {name}: optimizer bytes held "
+            f"{r['zero']['opt_bytes']}, its share under the placements "
+            f"{r['share']}; gathered state against the replicated step's "
+            f"{ {k: f'{v:.3e}' for k, v in r['state_err'].items()} } (gates "
+            f"{ZERO1_STATE_TOL}; params_max_lr, the largest difference in "
+            f"units of the learning rate, logged only)")
+        need(r["zero"]["opt_bytes"] == r["share"],
+             f"[train zero1]: {name} holds {r['zero']['opt_bytes']} optimizer"
+             f" bytes, its share is {r['share']}")
+        for k, tol in ZERO1_STATE_TOL.items():
+            need(r["state_err"][k] <= tol,
+                 f"[train zero1]: {name} gathered {k} reads "
+                 f"{r['state_err'][k]:.3e}")
+            if "fault_state_err" in r:
+                need(r["fault_state_err"][k] > tol,
+                     f"[train zero1]: the {k} gate does not see the planted"
+                     f" fault ({r['fault_state_err'][k]:.3e})")
+
+    def readings(a, b):
+        loss = [abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                    b["losses"])]
+        norm = [abs(x - y) / abs(y) for x, y in zip(a["grad_norms"],
+                                                    b["grad_norms"])]
+        return loss, norm
+
+    for r in w1 + w2:
+        loss, norm = readings(r["zero"], r["rep"])
+        need(all(math.isfinite(x) for x in r["zero"]["losses"]),
+             "[train zero1]: a loss is not finite")
+        need(loss[0] <= SHARDED_LOSS_TOL["step0"]
+             and max(loss) <= SHARDED_LOSS_TOL["later"]
+             and max(norm) <= SHARDED_GRAD_NORM_TOL,
+             f"[train zero1]: world {r['world']} rank {r['rank']} losses "
+             f"{loss}, grad norms {norm} against the replicated step")
+        log(f"[train zero1] world {r['world']} rank {r['rank']} ZeRO-1 "
+            f"against replicated: loss {[f'{x:.3e}' for x in loss]} (gates "
+            f"{SHARDED_LOSS_TOL}), grad norm {[f'{x:.3e}' for x in norm]} "
+            f"(gate {SHARDED_GRAD_NORM_TOL})")
+    fl, fn = readings(w2[0]["fault"], w2[0]["rep"])
+    log(f"[train zero1] planted fault (each rank's own gradient, not "
+        f"summed): loss {[f'{x:.3e}' for x in fl]}, grad norm "
+        f"{[f'{x:.3e}' for x in fn]}; its state against the replicated "
+        f"step's {({k: f'{v:.3e}' for k, v in w2[0]['fault_state_err'].items()})}")
+    need(min(fn) > SHARDED_GRAD_NORM_TOL,
+         "[train zero1]: the grad-norm gate does not see the planted fault")
+    return {"w1": w1[0], "w2": w2, "launch_s": (t_w1, t_w2)}
+
+
+def dryrun_cell(arch, shape, multi_pod):
+    """One cell of [dryrun] in a worker process: its record, or its error
+    record."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.dryrun import error_record, lower_cell
+
+    t0 = time.perf_counter()
+    try:
+        r = lower_cell(arch, shape, multi_pod=multi_pod)
+    except Exception as e:       # noqa: BLE001 — recorded, fails the phase
+        r = error_record(arch, shape, "2x16x16" if multi_pod else "16x16",
+                         "", e)
+    r["wall_s"] = time.perf_counter() - t0
+    return r
+
+
+def dryrun_recipe(world, remat=True):
+    """TRAIN's recipe traced by the dry run on mesh (world, 1): its
+    record."""
+    import dataclasses
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import ShapeMesh
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), remat=remat)
+    shape = ShapeConfig("train_recipe", TRAIN["seq"], TRAIN["batch"],
+                        "train")
+    return trace_cell(cfg, shape, ShapeMesh((world, 1), ("data", "model")))
+
+
+def _dryrun_worker():
+    import os
+
+    os.nice(19)          # behind [registry parity], which it runs beside
+
+
+def start_dryrun():
+    """Start [dryrun]'s traces in a pool of daemon worker processes (ended
+    at exit if the script fails first); returns what ``phase_dryrun``
+    collects."""
+    import multiprocessing
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_shape, runnable_cells
+
+    order = {"train": 0, "prefill": 1, "long_decode": 2, "decode": 3}
+    cells = sorted(runnable_cells(),
+                   key=lambda c: order[get_shape(c[1]).kind])
+    pool = multiprocessing.get_context("spawn").Pool(
+        DRYRUN["workers"], initializer=_dryrun_worker)
+    return {"pool": pool, "cells": cells, "t0": time.perf_counter(),
+            "recipe": {w: pool.apply_async(dryrun_recipe, (w,))
+                       for w in (1, 2)},
+            "no_remat": pool.apply_async(dryrun_recipe, (2, False)),
+            "single": [pool.apply_async(dryrun_cell, (a, s, False))
+                       for a, s in cells],
+            "multi": [pool.apply_async(dryrun_cell, (a, s, True))
+                      for a, s in cells]}
+
+
+def collect_dryrun(started):
+    """Wait for [dryrun]'s pool (``start_dryrun()``'s) and end it: its
+    records, for ``phase_dryrun``."""
+    cells, multi, pool = started["cells"], started["multi"], started["pool"]
+    t0 = time.perf_counter()
+    try:
+        records = [r.get() for r in started["single"]]
+        recipe = {w: r.get() for w, r in started["recipe"].items()}
+        no_remat = started["no_remat"].get()
+        while (time.perf_counter() - t0 < DRYRUN["budget_s"]
+               and not all(r.ready() for r in multi)):
+            time.sleep(0.5)
+        done = [r.get() for r in multi if r.ready()]
+        left = [c for c, r in zip(cells, multi) if not r.ready()]
+    finally:
+        pool.terminate()
+        pool.join()
+    return {"records": records, "recipe": recipe, "no_remat": no_remat,
+            "done": done, "left": left, "cells": cells,
+            "t_pool": time.perf_counter() - started["t0"],
+            "t_wait": time.perf_counter() - t0}
+
+
+def phase_dryrun(torch, zero1, collected):
+    """[dryrun]: see DRYRUN; ``collected`` is ``collect_dryrun()``'s."""
+    from repro_torch.launch.dryrun import print_record
+
+    records, done, left, cells = (collected[k] for k in
+                                  ("records", "done", "left", "cells"))
+    recipe, no_remat = collected["recipe"], collected["no_remat"]
+    t_pool, t_wait = collected["t_pool"], collected["t_wait"]
+    errors = [r for r in records + done if "error" in r]
+    for r in records + done:
+        if "error" in r:
+            log(f"[dryrun] [FAIL] {r['arch']} × {r['shape']} ({r['mesh']}): "
+                f"{r['error']}\n{r['traceback']}")
+        else:
+            print_record(r)
+    # every record whole, for reading after the run (gitignored)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with open(ROOT / "build" / "dryrun_records.json", "w") as f:
+        json.dump({"cells": records + done, "recipe": recipe,
+                   "no_remat": no_remat}, f, indent=1)
+    log(f"[dryrun] {len(records)} runnable cells at 16x16 and {len(done)} of "
+        f"{len(cells)} at 2x16x16 traced by {DRYRUN['workers']} processes, "
+        f"ended {t_pool:.1f} s after they started beside [registry parity]; "
+        f"the wait after that phase took {t_wait:.1f} s; 2x16x16 cells left "
+        f"out (budget {DRYRUN['budget_s']} s): {left or 'none'}")
+    need(not errors, f"[dryrun]: {len(errors)} cells failed to trace")
+    need(len(records) == len(cells), "[dryrun]: a 16x16 cell is missing")
+    # TRAIN's recipe against [train zero1]'s real steps
+    real = {1: zero1["w1"], 2: zero1["w2"][0]}
+    for w in (1, 2):
+        r, x = recipe[w], real[w]["zero"]
+        moved: dict = {}
+        for kind, n in x["moved_step0"]:
+            slot = moved.setdefault(kind, {"bytes": 0, "count": 0})
+            slot["bytes"] += n
+            slot["count"] += 1
+        est, got = r["memory"]["peak_est_bytes"], x["peaks"][1]
+        rel = abs(est - got) / got
+        log(f"[dryrun] recipe world {w}: held_bytes {r['held_bytes']} "
+            f"against the card's {x['held']}; collectives {r['collectives']} "
+            f"against the real first step's {moved}; peak_est_bytes {est} "
+            f"against step 1's {got} on the card: reading {rel:.3e} (gate "
+            f"{DRYRUN_PEAK_GATE})")
+        need(r["held_bytes"] == x["held"],
+             f"[dryrun]: world {w} held_bytes {r['held_bytes']} != "
+             f"{x['held']}")
+        need({k: v["bytes"] for k, v in r["collectives"].items()}
+             == {k: v["bytes"] for k, v in moved.items()},
+             f"[dryrun]: world {w} collective bytes differ")
+        need(rel <= DRYRUN_PEAK_GATE,
+             f"[dryrun]: world {w} peak estimate reads {rel:.3e}")
+    got = real[2]["zero"]["peaks"][1]
+    fault = abs(no_remat["memory"]["peak_est_bytes"] - got) / got
+    log(f"[dryrun] planted fault (the estimate without remat) "
+        f"{no_remat['memory']['peak_est_bytes']} against {got}: reading "
+        f"{fault:.3e}")
+    need(fault > DRYRUN_PEAK_GATE,
+         "[dryrun]: the peak gate does not see the planted fault")
+    return {"records": records + done, "left": left, "seconds": t_pool,
+            "wait_s": t_wait}
 
 
 # ---------------------------------------------------------------------------
@@ -5925,8 +6394,13 @@ def main() -> int:
     for tag in ("design", "class"):
         fast_launches.update(paths[(tag, "fast")][2])
     log(f"[registry design, class] done at {time.perf_counter() - t0:.1f} s")
+    dryrun = start_dryrun()
+    atexit.register(dryrun["pool"].terminate)
     phase_registry_parity(torch)
     log(f"[registry parity] done at {time.perf_counter() - t0:.1f} s")
+    dryrun = collect_dryrun(dryrun)
+    log(f"[dryrun] pool waited for, done at {time.perf_counter() - t0:.1f} "
+        f"s")
     lm, launches["flash_attention"], _ = phase_lm_main(torch)
     log(f"[lm] done at {time.perf_counter() - t0:.1f} s")
     phase_lm_consistency(torch, lm["model"], lm["params"])
@@ -5982,6 +6456,15 @@ def main() -> int:
     engine = phase_engine(torch, lm)
     log(f"[engine] done at {time.perf_counter() - t0:.1f} s; slice 12's "
         f"phases took {time.perf_counter() - t12:.1f} s")
+    t13 = time.perf_counter()
+    zero1 = phase_train_zero1(torch)
+    log(f"[train zero1] done at {time.perf_counter() - t0:.1f} s; the phase "
+        f"took {time.perf_counter() - t13:.1f} s")
+    t_dry = time.perf_counter()
+    phase_dryrun(torch, zero1, dryrun)
+    log(f"[dryrun] done at {time.perf_counter() - t0:.1f} s; the phase took "
+        f"{time.perf_counter() - t_dry:.1f} s; slice 13's phases took "
+        f"{time.perf_counter() - t13:.1f} s")
     t_timing = time.perf_counter()
     rows = phase_timing(torch, worst, launches)
     rows += phase_aopt_timing(torch, worst, launches)

@@ -10,6 +10,11 @@ tiling heuristics:
     kernel cannot take raises, and so does a build or launch failure —
     there is no size threshold above which the plain version takes over;
   * a CPU tensor goes to the plain version;
+  * a ``meta`` tensor (the dry run's trace, ``launch/dryrun.py``) goes to
+    the meta route of the wrappers that have one — kernel 8's: an empty
+    output of the kernel's shape, and the launch's operations and bytes
+    handed to the active recorders (``record_meta_launch``); it launches
+    nothing and counts no launch;
   * any other device raises.
 
 Precision policy (as in the JAX package): ``precision="bf16"`` stores
@@ -21,6 +26,7 @@ kernel and plain version compute the same function per precision.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -131,6 +137,26 @@ def use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain route for device {t.device}")
+
+
+_META_RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def meta_launch_recorder(fn):
+    """Within the block, ``fn(name, flops, nbytes)`` is called for every
+    kernel launch a wrapper's meta route stands in for."""
+    _META_RECORDERS.append(fn)
+    try:
+        yield
+    finally:
+        _META_RECORDERS.remove(fn)
+
+
+def record_meta_launch(name: str, flops: float, nbytes: float) -> None:
+    """Hand a stood-in launch's operations and bytes to the recorders."""
+    for fn in list(_META_RECORDERS):
+        fn(name, float(flops), float(nbytes))
 
 
 @functools.lru_cache(maxsize=None)

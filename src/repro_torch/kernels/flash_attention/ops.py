@@ -7,9 +7,14 @@ mma.sync at 16 and 32), for f32 the CUDA cores.  It raises on what the kernel ca
 take — another dtype, mixed dtypes,
 a non-contiguous or unaligned tensor, H % Hkv ≠ 0, a head_dim outside
 ``KERNEL_HEAD_DIMS`` — and on a failed launch.  On a CPU tensor it runs
-the plain version of ``ref.py``.  There is no size threshold and no
-fallback.  The kernel reads the model's (B, S, H, D) layout directly
-and masks ragged Sq and Skv itself, so nothing is padded or transposed.
+the plain version of ``ref.py``.  On a ``meta`` tensor (a dry run's
+trace) it checks the inputs as for the kernel, returns an empty output
+of the kernel's shape and hands the launch's operations and bytes
+(``flash_cost``, the formulas of the kernel's bound in ``chip_smoke.py``)
+to ``kernels.common.record_meta_launch``; that is not a launch and is
+not counted.  There is no size threshold and no fallback.  The kernel
+reads the model's (B, S, H, D) layout directly and masks ragged Sq and
+Skv itself, so nothing is padded or transposed.
 ``flash_attention.launches`` counts launches; ``kernel_info`` describes
 the kernel a dtype and head_dim get.
 """
@@ -19,10 +24,11 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import use_kernel
+from repro_torch.kernels.common import record_meta_launch, use_kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
@@ -54,6 +60,27 @@ def kernel_info(dtype, d: int) -> dict:
     _build.check(fn(int(dtype == torch.bfloat16), d, out),
                  "flash_attention_kernel_info")
     return dict(zip(_INFO_KEYS, out))
+
+
+def count_valid_pairs(sq: int, skv: int, causal: bool, window: int,
+                      q_offset: int = 0) -> int:
+    """Valid (query, key) pairs of one (batch, head) under the causal
+    mask (query i at position i + q_offset) and the window."""
+    qp = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(skv - 1, qp) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_cost(b: int, sq: int, skv: int, h: int, hkv: int, d: int, *,
+               causal: bool, window: int = 0, q_offset: int = 0,
+               itemsize: int = 2) -> tuple:
+    """(operations, bytes, exponentials) of one call: 4·d flops (QKᵀ and
+    PV) and one exp per valid pair of every (batch, head), and Q, K, V
+    read once and O written once."""
+    pairs = count_valid_pairs(sq, skv, causal, window, q_offset) * b * h
+    nbytes = itemsize * (2 * b * sq * h * d + 2 * b * skv * hkv * d)
+    return 4.0 * d * pairs, float(nbytes), float(pairs)
 
 
 def _check(q, k, v):
@@ -105,14 +132,29 @@ def _launch(q, k, v, causal, window, softcap, q_offset):
     return out
 
 
+def _meta_route(q, k, v, causal, window, q_offset):
+    """The kernel's output shape, and its cost handed to the recorders."""
+    _check(q, k, v)
+    b, sq, h, d = q.shape
+    flops, nbytes, _ = flash_cost(b, sq, k.shape[1], h, k.shape[2], d,
+                                  causal=causal, window=window or 0,
+                                  q_offset=q_offset,
+                                  itemsize=q.element_size())
+    record_meta_launch("flash_attention", flops, nbytes)
+    return torch.empty_like(q)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_offset: int = 0):
     """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) → (B, Sq, H, D).
 
-    The CUDA kernel for a CUDA tensor, the plain version for a CPU one.
+    The CUDA kernel for a CUDA tensor, the plain version for a CPU one,
+    the meta route for a ``meta`` one.
     """
     if window and window < 0:
         raise ValueError(f"window={window}: expected ≥ 0")
+    if q.device.type == "meta":
+        return _meta_route(q, k, v, causal, window, q_offset)
     if use_kernel(q):
         return _launch(q, k, v, causal, window, softcap, q_offset)
     return flash_attention_ref(q, k, v, causal=causal, window=window,

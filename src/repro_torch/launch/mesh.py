@@ -6,6 +6,13 @@ port runs one process per rank, SPMD: every rank calls the same entry
 point with the same objective and key, and the collectives of an axis run
 on that axis's process group.
 
+The reference's ``make_production_mesh`` builds a real 16×16 (or
+2×16×16) mesh over forced host devices for its dry run; the port cannot
+start 256 ranks, so its production mesh is a :class:`ShapeMesh`: the
+axes and sizes seen from the first rank, no process group, and every
+collective an operation on ``meta`` tensors that returns the right shape
+and records its bytes (``launch/dryrun.py``).
+
 A :class:`Mesh` names its axes and their sizes (``mesh.shape`` is the
 mapping the registry validates), and holds, for this rank, one process
 group per axis — the ranks that share every other coordinate — with this
@@ -219,6 +226,137 @@ class Mesh:
         dist.broadcast(y, src=line[int(src)], group=group)
         return y.bool() if is_bool else y
 
+    def psum_scatter(self, x: torch.Tensor,
+                     axis: str | None) -> torch.Tensor:
+        """The sum over ``axis`` of ``x`` (first dimension P·n for the P
+        members), cut into P blocks of n rows: this member's block, at
+        its coordinate.  NCCL runs a reduce-scatter; gloo has none, so
+        there it is an all-reduce and then a slice (the same sums)."""
+        if self._key(axis) is None:
+            return x
+        import torch.distributed as dist
+
+        group, line = self.group(axis)
+        p = len(line)
+        if x.shape[0] % p:
+            raise ValueError(f"psum_scatter: {x.shape[0]} rows do not "
+                             f"split over {p} members")
+        n = x.shape[0] // p
+        x = x.contiguous()
+        if dist.get_backend(group) == "nccl":
+            out = torch.empty((n,) + tuple(x.shape[1:]), dtype=x.dtype,
+                              device=x.device)
+            dist.reduce_scatter_tensor(out, x, group=group)
+            return out
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        i = line.index(self.rank)
+        return y[i * n:(i + 1) * n].clone()
+
+
+def collective_bytes(kind: str, x: torch.Tensor, size: int) -> int:
+    """Bytes one member's collective of ``kind`` over ``size`` members
+    outputs for an input ``x`` (the reference's count in
+    ``utils/hlo.py``: a collective's output bytes): an all-reduce or a
+    broadcast its input's, an all-gather ``size`` times that, a
+    reduce-scatter a ``size``-th of it."""
+    n = x.numel() * x.element_size()
+    if kind == "all-gather":
+        return n * size
+    if kind == "reduce-scatter":
+        return n // size
+    return n
+
+
+class ShapeMesh(Mesh):
+    """A mesh of shapes alone: ``shape`` over ``axes`` seen from its first
+    rank (coordinate 0 on every axis), with no process group.
+
+    Its collectives take and return ``meta`` tensors of the right shapes
+    (an all-gather's (P, …), a reduce-scatter's block) and record, per
+    kind under the reference's names (``all-reduce``, ``all-gather``,
+    ``reduce-scatter``, and ``broadcast``, which the reference's programs
+    have no use for), the count and the bytes of ``collective_bytes``
+    in ``collectives``; an axis of one member moves nothing and records
+    nothing.  ``notes`` collects what a caller could not do on it (the
+    train step's first-call state check compares no checksums here)."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+        shape = tuple(int(s) for s in shape)
+        axes = tuple(str(a) for a in axes)
+        if len(shape) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes} do not "
+                             "match")
+        self.shape = dict(zip(axes, shape))
+        self.axis_names = axes
+        self.ranks = tuple(range(int(np.prod(shape))))
+        self.member = True
+        self.rank = 0
+        self.coords = {a: 0 for a in axes}
+        self._groups = {}
+        self.device = torch.device("meta")
+        self.collectives: dict[str, dict] = {}
+        self.notes: list[str] = []
+
+    def __repr__(self):
+        return f"ShapeMesh({self.shape})"
+
+    def index(self, axis) -> int:
+        return 0
+
+    def group(self, axis):
+        raise RuntimeError("a ShapeMesh has no process groups")
+
+    def _record(self, kind, x, axis) -> bool:
+        """Record a collective of ``kind`` on ``x`` over ``axis``; False
+        where the axis has one member (nothing moves)."""
+        if x.device.type != "meta":
+            raise ValueError(f"a ShapeMesh's collectives take meta "
+                             f"tensors, got one on {x.device}")
+        size = self.size(axis)
+        if size == 1:
+            return False
+        slot = self.collectives.setdefault(kind, {"bytes": 0, "count": 0})
+        slot["bytes"] += collective_bytes(kind, x, size)
+        slot["count"] += 1
+        return True
+
+    def _all_reduce(self, x, axis, op):
+        if not self._record("all-reduce", x, axis):
+            return x
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+    def all_gather(self, x: torch.Tensor, axis: str | None) -> torch.Tensor:
+        if not self._record("all-gather", x, axis):
+            return x[None]
+        return torch.empty((self.size(axis),) + tuple(x.shape),
+                           dtype=x.dtype, device=x.device)
+
+    def broadcast(self, x: torch.Tensor, axis: str | None,
+                  src: int) -> torch.Tensor:
+        if not self._record("broadcast", x, axis):
+            return x
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+    def psum_scatter(self, x: torch.Tensor,
+                     axis: str | None) -> torch.Tensor:
+        p = self.size(axis)
+        if x.shape[0] % p:
+            raise ValueError(f"psum_scatter: {x.shape[0]} rows do not "
+                             f"split over {p} members")
+        if not self._record("reduce-scatter", x, axis):
+            return x
+        return torch.empty((x.shape[0] // p,) + tuple(x.shape[1:]),
+                           dtype=x.dtype, device=x.device)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    """The reference's production mesh as a :class:`ShapeMesh`: 16×16
+    (data, model), or 2×16×16 (pod, data, model)."""
+    if multi_pod:
+        return ShapeMesh((2, 16, 16), (POD_AXIS, DATA_AXIS, MODEL_AXIS))
+    return ShapeMesh((16, 16), (DATA_AXIS, MODEL_AXIS))
+
 
 def make_mesh(shape, axes, *, ranks=None, device=None) -> Mesh:
     """The mesh of ``shape`` over ``axes`` (cached per process: every
@@ -393,7 +531,7 @@ def spawn_ranks(fn: Callable, world: int, args: tuple = (), *,
 
 
 __all__ = [
-    "POD_AXIS", "DATA_AXIS", "MODEL_AXIS", "Mesh", "make_mesh",
-    "make_lattice_mesh", "make_host_mesh", "mesh_num_devices",
-    "spawn_ranks", "to_numpy",
+    "POD_AXIS", "DATA_AXIS", "MODEL_AXIS", "Mesh", "ShapeMesh",
+    "collective_bytes", "make_mesh", "make_lattice_mesh", "make_host_mesh",
+    "make_production_mesh", "mesh_num_devices", "spawn_ranks", "to_numpy",
 ]

@@ -73,6 +73,15 @@ def route(params, xt, cfg):
     return probs, top_w, top_e
 
 
+def expert_counts(flat_e, e: int):
+    """(E,) int64 count of each expert's assignments: ``bincount`` with
+    ``minlength`` E, as a scatter-add, whose output shape does not depend
+    on the data (it runs on ``meta`` tensors, in the dry run)."""
+    return torch.zeros((e,), dtype=torch.int64,
+                       device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+
+
 def _dispatch_group(xt, flat_e, e: int, cap: int, topk: int, before=None):
     """Sort-based dispatch.  xt: (T, D), flat_e: (T·k,) expert ids.
     Returns (buf (E, cap, D), dest, keep, sort_idx, counts).  Every kept
@@ -85,7 +94,7 @@ def _dispatch_group(xt, flat_e, e: int, cap: int, topk: int, before=None):
     tk = flat_e.shape[0]
     sort_idx = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[sort_idx]
-    counts = torch.bincount(flat_e, minlength=e)
+    counts = expert_counts(flat_e, e)
     starts = torch.cumsum(counts, 0) - counts
     if before is not None:
         starts = starts - before
@@ -143,7 +152,7 @@ def moe_apply(params, x, cfg):
         cap = expert_capacity(tk * ranks, e, m.capacity_factor)
         before = None
         if grp is not None:
-            every = grp.all_gather(torch.bincount(flat_e, minlength=e))
+            every = grp.all_gather(expert_counts(flat_e, e))
             before = every[:grp.index].sum(0)
         parts = [_dispatch_group(xt, flat_e, e, cap, topk, before)]
         buf, counts = parts[0][0], parts[0][4]

@@ -15,8 +15,18 @@ PyTorch ops, where the JAX package calls ``jax.lax.associative_scan``);
 no Pallas kernel is involved, so none is written.  The combine is
 associative, but the two scans apply it in another order, so f32 results
 differ by a few ulps.  Decode is one step of the recurrence with O(1)
-state: (h, conv tail).  The JAX package's chunked scan (perf flag
-``rglru_chunk``, default off) is not ported.
+state: (h, conv tail).
+
+The reference's two perf flags (``sharding/flags.py``, default off):
+``rglru_chunk`` C runs a prompt longer than C as a host loop over chunks
+of C steps that carries h (``chunked_scan``; the padding of the last
+chunk, a = 1 and b = 0, leaves h alone), each chunk through the
+log-depth scan and, where autograd records (the loss), under
+``torch.utils.checkpoint`` as the reference's ``jax.checkpoint``: the
+scan's live set and its backward's residuals are one chunk's.
+``rglru_block_gates`` draws ``w_a`` and ``w_i`` as 16 blocks of
+(W/16)² (where 16 divides W), block-diagonal gates that
+``_gate_matmul`` applies.
 
 Dtypes as the reference's: the gate products in the compute dtype, then
 f32 for a, b and the scan; h and the conv tail stored in x's dtype.  GeLU
@@ -30,8 +40,13 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import normal
+from repro_torch.sharding.flags import get_flags
+
+#: Blocks of the block-local gates (``rglru_block_gates``).
+GATE_BLOCKS = 16
 
 
 class RGLRUState(NamedTuple):
@@ -92,6 +107,39 @@ def linear_scan(a, b):
     return b
 
 
+def _chunk_step(hprev, a, b):
+    """One chunk of ``chunked_scan``: the carried h folded into its first
+    step, then the scan."""
+    b = b.clone()
+    b[:, 0] = b[:, 0] + a[:, 0] * hprev
+    return linear_scan(a, b)
+
+
+def chunked_scan(a, b, chunk: int):
+    """``linear_scan`` over chunks of ``chunk`` steps, h carried from one
+    to the next (the reference's ``lax.scan`` over chunks).  The sequence
+    is padded to whole chunks with a = 1, b = 0 (state-neutral) and cut
+    back.  Each chunk goes under ``torch.utils.checkpoint`` where autograd
+    records."""
+    bsz, s, w = a.shape
+    pad = (-s) % chunk
+    if pad:
+        a = F.pad(a, (0, 0, 0, pad), value=1.0)
+        b = F.pad(b, (0, 0, 0, pad))
+    h = torch.zeros((bsz, w), dtype=torch.float32, device=a.device)
+    remat = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    hs = []
+    for j in range(0, s + pad, chunk):
+        aj, bj = a[:, j:j + chunk], b[:, j:j + chunk]
+        if remat:
+            hj = checkpoint(_chunk_step, h, aj, bj, use_reentrant=False)
+        else:
+            hj = _chunk_step(h, aj, bj)
+        h = hj[:, -1]
+        hs.append(hj)
+    return torch.cat(hs, dim=1)[:, :s]
+
+
 def rglru_apply(params, x, cfg, state: RGLRUState | None = None):
     """Prefill.  x: (B, S, D) → (B, S, D), final state."""
     rc = cfg.recurrent
@@ -107,7 +155,11 @@ def rglru_apply(params, x, cfg, state: RGLRUState | None = None):
         # fold the incoming state into the first step: h_1 = a_1 h_0 + b_1
         b = b.clone()
         b[:, 0] = b[:, 0] + a[:, 0] * state.h.to(torch.float32)
-    h = linear_scan(a, b)
+    chunk = get_flags().rglru_chunk
+    if chunk and x.shape[1] > chunk:
+        h = chunked_scan(a, b, chunk)
+    else:
+        h = linear_scan(a, b)
     out = (h.to(x.dtype) * gate) @ params["w_out"]
     cw1 = rc.conv_width - 1
     if branch.shape[1] >= cw1:
@@ -141,19 +193,24 @@ def init_rglru_state(batch: int, cfg, dtype, device=None) -> RGLRUState:
 
 
 def init_rglru(gen, cfg, dtype):
-    """Random weights with the JAX init's shapes and scales, full (W, W)
-    gates (the JAX package's default)."""
+    """Random weights with the JAX init's shapes and scales: full (W, W)
+    gates (the JAX package's default), or with ``rglru_block_gates`` and
+    16 dividing W, 16 blocks of (W/16)² each scaled (W/16)^-1/2."""
     d = cfg.d_model
     w = cfg.recurrent.width
     cw = cfg.recurrent.conv_width
     dev = gen.device
+    gate_shape, gate_scale = (w, w), w ** -0.5
+    if get_flags().rglru_block_gates and w % GATE_BLOCKS == 0:
+        bw = w // GATE_BLOCKS
+        gate_shape, gate_scale = (GATE_BLOCKS, bw, bw), bw ** -0.5
     return {
         "w_in": normal(gen, (d, w), d ** -0.5, dtype),
         "w_gate": normal(gen, (d, w), d ** -0.5, dtype),
         "conv": normal(gen, (cw, w), cw ** -0.5, dtype),
-        "w_a": normal(gen, (w, w), w ** -0.5, dtype),
+        "w_a": normal(gen, gate_shape, gate_scale, dtype),
         "b_a": torch.zeros((w,), dtype=dtype, device=dev),
-        "w_i": normal(gen, (w, w), w ** -0.5, dtype),
+        "w_i": normal(gen, gate_shape, gate_scale, dtype),
         "b_i": torch.zeros((w,), dtype=dtype, device=dev),
         # Λ so that a ≈ 0.9–0.999 under r ≈ 0.5 (Griffin's init range)
         "lam": torch.linspace(0.0, 2.0, w, device=dev).to(dtype),

@@ -128,12 +128,15 @@ def mlstm_chunkwise(params, a, xcfg, state: MLSTMState):
         t = t.reshape(b, nc, W, H, *t.shape[3:])
         return t.permute(1, 0, 3, 2, *range(4, t.dim()))
 
-    q, k, v, ig = chunks(q), chunks(k), chunks(v), chunks(ig)
-    logf = chunks(F.logsigmoid(fg))
+    # ``unbind``, not ``x[c]``: its backward stacks the chunks' gradients
+    # once, where each slice's backward writes a zero tensor of the
+    # whole (quadratic in the chunks)
+    per_chunk = zip(*(chunks(t).unbind(0) for t in
+                      (q, k, v, ig, F.logsigmoid(fg))))
     carry = (state.C.to(_F32), state.n.to(_F32), state.m.to(_F32))
     hs = []
-    for c in range(nc):
-        carry, h = _mlstm_chunk(carry, q[c], k[c], v[c], ig[c], logf[c])
+    for qc, kc, vc, igc, lfc in per_chunk:
+        carry, h = _mlstm_chunk(carry, qc, kc, vc, igc, lfc)
         hs.append(h)
     # (nc, B, H, W, dh) → (B, S, H·dh)
     out = torch.stack(hs).permute(1, 0, 3, 2, 4).reshape(b, sp, H * dh)
@@ -176,9 +179,10 @@ def slstm_scan(params, a, xcfg, state: SLSTMState):
     r = params["r_gates"].to(_F32).reshape(H, dh, 4 * dh)
     h, c, n, m = (x.to(_F32) for x in state)
     hs = []
-    for t in range(s):
+    # ``unbind`` (one stack in the backward), as in ``mlstm_chunkwise``
+    for gx in gates_x.unbind(1):
         rec = torch.bmm(h.transpose(0, 1), r).reshape(H, b, 4, dh)
-        z = gates_x[:, t] + rec.transpose(0, 1)            # (B, H, 4, dh)
+        z = gx + rec.transpose(0, 1)                        # (B, H, 4, dh)
         it, ft, zt, ot = z.unbind(2)
         lf = F.logsigmoid(ft)
         m_new = torch.maximum(lf + m, it)

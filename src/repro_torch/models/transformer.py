@@ -503,7 +503,9 @@ class Model:
         x, enc_out = self._inputs(params, batch)
         n = x.shape[1]                                   # prefix + prompt
         cache0 = self.init_cache(b, n + max_new_tokens, device=x.device)
-        impl = "chunked" if not x.is_cuda and n > 1024 else "kernel"
+        # The card's path on ``meta`` tensors too (the dry run's trace).
+        impl = ("chunked" if x.device.type == "cpu" and n > 1024
+                else "kernel")
         x, caches, _ = self._backbone(params, x, impl=impl,
                                       cache=cache0["layers"],
                                       enc_out=enc_out)

@@ -7,9 +7,11 @@ formula and weight decay apply to every leaf.  Plain tensor functions
 over the parameter tree, not ``torch.optim``: the state is a tree of
 tensors that ``repro_torch.ckpt`` saves and restores as it is.  The
 state is replicated on every rank of a data-parallel mesh, as in the
-reference's training; its ZeRO-1 placements
-(``sharding.cache_specs.zero1_specs``) are put to use by the dry run,
-ROADMAP item 14.7.
+reference's training, unless the train step runs ZeRO-1
+(``train.step.make_train_step(..., grad_specs=)``): there each rank's
+master, m and v hold its part of every leaf, the update is elementwise,
+and the global gradient norm is given (``gnorm``), summed from the
+parts over the mesh.
 """
 
 from __future__ import annotations
@@ -49,20 +51,23 @@ def global_norm(grads) -> torch.Tensor:
                           for g in tree_leaves(grads)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads · min(1, max_norm / max(‖g‖, 1e-9)) in f32, ‖g‖)."""
-    gn = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, gn=None):
+    """(grads · min(1, max_norm / max(‖g‖, 1e-9)) in f32, ‖g‖); ``gn``,
+    where given, is ‖g‖ (of a tree of which ``grads`` is a part)."""
+    if gn is None:
+        gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_map(lambda g: g.to(torch.float32) * scale, grads), gn
 
 
 def adamw_update(grads, state: AdamWState, lr, tcfg,
-                 param_dtype=torch.bfloat16):
+                 param_dtype=torch.bfloat16, gnorm=None):
     """One AdamW step.  Returns (new params in ``param_dtype``, new
     state, {"grad_norm"}).  ``lr``: a scalar tensor (the schedule's) or
     a float; ``tcfg``: a ``TrainConfig`` (beta1, beta2, weight_decay,
-    grad_clip)."""
-    grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+    grad_clip); ``gnorm``: the global gradient norm, where ``grads`` and
+    the state are a rank's parts (ZeRO-1), else taken from ``grads``."""
+    grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, gnorm)
     step = state.step + 1
     b1, b2 = tcfg.beta1, tcfg.beta2
     c1 = 1.0 - b1 ** step.to(torch.float32)

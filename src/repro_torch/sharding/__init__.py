@@ -2,9 +2,11 @@
 and the batch-axes context that makes the model code data-parallel."""
 
 from repro_torch.sharding.cache_specs import (
+    Zero1Part,
     batch_dim_spec,
     batch_partition_specs,
     cache_partition_specs,
+    zero1_layout,
     zero1_specs,
 )
 from repro_torch.sharding.flags import (
@@ -22,6 +24,7 @@ from repro_torch.sharding.partitioning import (
 
 __all__ = [
     "PerfFlags",
+    "Zero1Part",
     "activation_sharding_ctx",
     "batch_axes_for_mesh",
     "batch_dim_spec",
@@ -32,5 +35,6 @@ __all__ = [
     "param_partition_specs",
     "reset_flags",
     "set_flags",
+    "zero1_layout",
     "zero1_specs",
 ]

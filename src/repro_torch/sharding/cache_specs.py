@@ -11,6 +11,8 @@ reference's with the leading entry dropped.  ``step_offset`` (B,) and
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 from repro_torch.sharding.partitioning import (
     _divisible,
     _rebuild,
@@ -122,3 +124,64 @@ def _walk_specs(tree, path=()):
             yield from _walk_specs(v, path + (i,))
     else:
         yield path, tree
+
+
+@dataclass(frozen=True)
+class Zero1Part:
+    """Where one leaf's optimizer state lives over the batch axes under
+    ZeRO-1 (``zero1_layout``).  ``axes`` empty: replicated.  ``dim`` set:
+    cut along ``dim`` into ``mesh.size(axes)`` blocks, block c on the
+    member at coordinate c.  ``dim`` None with ``axes``: the reference
+    stacks ``stacked`` layers into this leaf and places the stack over
+    ``axes``, so this layer, ``block`` of the stack, lives whole on the
+    member at coordinate ``block // (stacked // size)``."""
+    axes: tuple
+    dim: int | None = None
+    stacked: int = 1
+    block: int = 0
+
+    def owner(self, size: int) -> int:
+        """The coordinate of the member that holds a stacked leaf."""
+        return self.block // (self.stacked // size)
+
+
+def _stack_block(path, cfg) -> int:
+    """The super-block (or encoder layer) of the leaf at ``path``: its
+    index in the reference's stack."""
+    if path and path[0] == "layers":
+        return path[1] // cfg.pattern_period
+    if path and path[0] == "enc_layers":
+        return path[1]
+    return 0
+
+
+def zero1_layout(grad_specs, param_shapes, mesh, axes, cfg):
+    """A tree of :class:`Zero1Part` with the parameters' structure: what
+    ``zero1_specs``' placements (``grad_specs``) mean for a rank of the
+    port, whose leaves are one layer each.  A leaf whose placement names
+    batch axes is cut along that dimension.  One whose placement names
+    none is either a slice of a reference stack that goes over the batch
+    axes (``fsdp`` took the stack over ``data``, or ZeRO-1 took it over
+    ``axes``: ``extend_first_free`` leaves the per-layer placement alone
+    then) or replicated."""
+    specs = dict(_walk_specs(grad_specs))
+    size = 1
+    for a in axes:
+        size *= mesh.shape[a]
+
+    def part(path, leaf):
+        shape = tuple(leaf.shape)
+        for i, d in enumerate(specs[path]):
+            names = d if isinstance(d, tuple) else (d,)
+            held = tuple(a for a in names if a in axes)
+            if held:
+                return Zero1Part(held, i)
+        stacked = stack_count(path, cfg)
+        block = _stack_block(path, cfg)
+        if fsdp_takes_stack(path, shape, cfg, mesh):
+            return Zero1Part(("data",), None, stacked, block)
+        if stacked > 1 and _divisible(stacked, size):
+            return Zero1Part(tuple(axes), None, stacked, block)
+        return Zero1Part(())
+
+    return _rebuild(param_shapes, part)

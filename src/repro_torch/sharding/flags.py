@@ -2,9 +2,12 @@
 
 Every flag is off by default, as in the reference.  Of them the port's
 model code reads ``moe_groups`` (the MoE's group-local dispatch,
-``models/layers/moe.py``) and ``param_partition_specs`` reads ``fsdp``;
-the others are carried so that a configuration that names them means the
-same in both packages.
+``models/layers/moe.py``), ``rglru_chunk`` and ``rglru_block_gates``
+(``models/layers/rglru.py``), and the placements read ``fsdp``;
+``moe_2d`` and ``seq_shard`` steer the reference's layout of
+activations over the model axis, which the port does not shard
+(``launch/dryrun.py`` refuses them): they are carried so that a
+configuration that names them means the same in both packages.
 """
 
 from __future__ import annotations

@@ -32,10 +32,13 @@ leaf of fewer than 2^20 elements counted over the whole stack, and
 takes the stacked axis itself when the data axis divides it (the
 per-layer placement then carries no ``data``: each layer lives whole on
 the data shard of its super-block).  ``cache_specs.zero1_specs`` does
-the same.  Where the reference places arrays on a mesh with these
-specs (``launch/dryrun.py``, not ported yet), the port has no use for
-them yet: its training keeps the parameters replicated, as the
-reference's ``train_loop`` does (below).
+the same.  The port's dry run (``launch/dryrun.py``) uses these
+placements as the reference's does: for one device's argument bytes on
+the production mesh, and ``zero1_specs`` for the ZeRO-1 train step
+(``train/step.py``, through ``cache_specs.zero1_layout``), which cuts
+the optimizer's state over the batch axes.  The parameters themselves
+stay replicated in the port's training, as the reference's
+``train_loop`` keeps them (below): it runs no tensor parallelism.
 
 **Activations.**  The reference constrains activations to the batch
 axes ``('pod', 'data')`` (``('data',)`` on one pod) at block boundaries

@@ -6,8 +6,10 @@ from repro_torch.train.engine import Request, ServeEngine, insert_slot
 from repro_torch.train.loop import LoopResult, LoopState, train_loop
 from repro_torch.train.step import (
     TrainState,
+    gather_train_state,
     init_train_state,
     make_train_step,
+    shard_train_state,
 )
 
 __all__ = [
@@ -16,8 +18,10 @@ __all__ = [
     "Request",
     "ServeEngine",
     "TrainState",
+    "gather_train_state",
     "init_train_state",
     "insert_slot",
     "make_train_step",
+    "shard_train_state",
     "train_loop",
 ]

@@ -36,12 +36,42 @@ rank's block of each of the reference's microbatches, in order.  The
 first call checks, with a checksum broadcast over every axis, that
 every rank starts from the same state.  Where the batch axes hold one
 rank the step is the single-device step, bit for bit.
+
+**ZeRO-1** (``make_train_step(..., mesh=, grad_specs=)``, the
+reference's ``grad_specs``: ``sharding.zero1_specs``' placements of the
+optimizer's state).  The parameters stay whole on every rank (the port
+runs no tensor parallelism: a placement's ``model`` entries are
+ignored), and each rank holds AdamW's master, m and v only for its part
+of every leaf over the batch axes (``sharding.zero1_layout``): a block
+along the placed dimension; or, where the reference's stack of layers
+goes over the batch axes, the whole leaf on the member that holds its
+super-block and nothing (an empty tensor) elsewhere; or, where nothing
+divides, the whole leaf everywhere.  ``shard_train_state`` cuts a
+replicated state so, ``gather_train_state`` puts it back together.  A
+step takes the f32 gradients of the rank's rows as above, then:
+
+  1. sums them over the batch axes and keeps the rank's part: one
+     ``Mesh.psum_scatter`` per bucket of whole leaves (a reference
+     stack's layers together, so that every member's block has one
+     size), over the placement's axes (and a ``psum`` over the other
+     batch axes, where the placement names a subset); the replicated
+     leaves are all-reduced as above;
+  2. takes the global gradient norm from the parts' sums of squares,
+     summed over the batch axes (a part that several members hold
+     counted once);
+  3. runs AdamW on the parts;
+  4. all-gathers the new parameters (the parameters' dtype) over the
+     placement's axes.
+
+At world 1 every part is the whole leaf and the step is the
+single-device step, bit for bit.  The first call checks the parameters
+and the step count, the state every rank shares.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -54,11 +84,18 @@ from repro_torch.optim.compression import (
     init_error_feedback,
 )
 from repro_torch.optim.schedule import cosine_schedule
+from repro_torch.sharding.cache_specs import zero1_layout
 from repro_torch.sharding.partitioning import (
     activation_sharding_ctx,
     batch_axes_for_mesh,
 )
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import (
+    tree_leaves,
+    tree_leaves_with_path,
+    tree_map,
+    tree_unflatten,
+)
+from repro_torch.utils.timing import synced_seconds
 
 #: Elements of one bucket of the gradients' all-reduce (64 MiB of f32).
 BUCKET_ELEMS = 1 << 24
@@ -179,8 +216,16 @@ def state_checksum(state) -> torch.Tensor:
 def check_same_state(state, mesh) -> None:
     """Raise unless every rank of ``mesh`` holds the same ``state``: each
     axis broadcasts its first member's checksum and every member
-    compares its own."""
+    compares its own.  On ``meta`` tensors (a ``ShapeMesh``'s dry run)
+    the broadcasts run and nothing is compared, which ``mesh.notes``
+    records."""
     mine = state_checksum(state)
+    if mine.device.type == "meta":
+        for axis in mesh.axis_names:
+            mesh.broadcast(mine, axis, 0)
+        mesh.notes.append("the first call's state check broadcast its "
+                          "checksums and compared nothing (meta tensors)")
+        return
     for axis in mesh.axis_names:
         first = mesh.broadcast(mine, axis, 0)
         if not torch.equal(first, mine):
@@ -190,14 +235,225 @@ def check_same_state(state, mesh) -> None:
                 f"{mine.tolist()} against {first.tolist()}")
 
 
-def make_train_step(model, tcfg, *, mesh=None):
+class Zero1Plan:
+    """Where every leaf of a parameter tree lives under ZeRO-1 on a mesh
+    (``zero1_layout`` of the placements ``grad_specs``), and the
+    collectives that cut a tree of whole leaves into this rank's parts
+    and put parts back together.  Leaves are taken in ``tree_leaves``
+    order.  A unit is one leaf placed along a dimension, or every layer
+    of one reference stack placed over the batch axes; every member's
+    part of a unit has one size.  The units placed over the same axes
+    are cut in buckets of whole units of at most ``BUCKET_ELEMS``
+    elements (a larger unit goes alone)."""
+
+    def __init__(self, params, grad_specs, mesh, cfg):
+        self.mesh = mesh
+        axes = batch_axes_for_mesh(mesh)
+        self.axes = tuple(a for a in axes if a in mesh.shape)
+        self.parts = tree_leaves(zero1_layout(grad_specs, params, mesh,
+                                              axes, cfg))
+        leaves = tree_leaves_with_path(params)
+        self.shapes = [tuple(x.shape) for _, x in leaves]
+        self.replicated = [i for i, p in enumerate(self.parts)
+                           if not p.axes]
+        units: dict = {}
+        for i, (path, _) in enumerate(leaves):
+            p = self.parts[i]
+            if not p.axes:
+                continue
+            key = path
+            if p.dim is None:           # a reference stack: one unit
+                pos = path[1] % cfg.pattern_period \
+                    if path[0] == "layers" else 0
+                key = (path[0], pos) + path[2:]
+            units.setdefault((p.axes, key), []).append(i)
+        self.buckets: list = []         # (axes, [units])
+        current: dict = {}              # axes -> [its open bucket, elems]
+        for (axes_, _), unit in units.items():
+            elems = sum(math.prod(self.shapes[i]) for i in unit)
+            cur = current.get(axes_)
+            if cur is None or (cur[1] and cur[1] + elems > BUCKET_ELEMS):
+                cur = current[axes_] = [[], 0]
+                self.buckets.append((axes_, cur[0]))
+            cur[0].append(unit)
+            cur[1] += elems
+
+    def piece_shape(self, i: int, c: int) -> tuple:
+        """Shape of the part of leaf ``i`` held at coordinate ``c`` of its
+        axes."""
+        p, shape = self.parts[i], self.shapes[i]
+        if not p.axes:
+            return shape
+        size = self.mesh.size(p.axes)
+        if p.dim is None:
+            return shape if p.owner(size) == c else (0,)
+        out = list(shape)
+        out[p.dim] //= size
+        return tuple(out)
+
+    def piece(self, x, i: int):
+        """This rank's part of leaf ``i`` (the whole tensor ``x``)."""
+        p = self.parts[i]
+        if not p.axes:
+            return x
+        c = self.mesh.index(p.axes)
+        size = self.mesh.size(p.axes)
+        if p.dim is None:
+            return x if p.owner(size) == c else x.reshape(-1)[:0]
+        n = x.shape[p.dim] // size
+        return x.narrow(p.dim, c * n, n)
+
+    def pieces(self, leaves: list) -> list:
+        """This rank's parts of whole leaves, copied (no view of a whole
+        leaf outlives the call)."""
+        return [self.piece(x, i).clone() for i, x in enumerate(leaves)]
+
+    def _rows(self, leaves: list, unit: list, size: int):
+        """(size, n): row c the flattened parts of ``unit``'s leaves at
+        coordinate c, in the unit's order."""
+        p = self.parts[unit[0]]
+        if p.dim is None:
+            return torch.stack([torch.cat(
+                [leaves[i].reshape(-1) for i in unit
+                 if self.parts[i].owner(size) == c]) for c in range(size)])
+        x, d = leaves[unit[0]], p.dim
+        shape = x.shape[:d] + (size, x.shape[d] // size) + x.shape[d + 1:]
+        return x.reshape(shape).movedim(d, 0).reshape(size, -1)
+
+    def _split(self, row, units: list, c: int) -> list:
+        """The parts at coordinate c of ``units``' leaves, in order, from
+        one row of a bucket."""
+        idx = [i for u in units for i in u]
+        shapes = [self.piece_shape(i, c) for i in idx]
+        return [x.reshape(sh) for x, sh in zip(
+            torch.split(row, [math.prod(sh) for sh in shapes]), shapes)]
+
+    def reduce_scatter(self, grads: list) -> list:
+        """This rank's parts of the f32 gradients ``grads`` (whole
+        leaves) summed over the batch axes."""
+        mesh = self.mesh
+        out: list = [None] * len(grads)
+        for axes, units in self.buckets:
+            size, me = mesh.size(axes), mesh.index(axes)
+            flat = torch.cat([self._rows(grads, u, size) for u in units],
+                             dim=1).reshape(-1)
+            mine = mesh.psum_scatter(flat, axes)
+            rest = tuple(a for a in self.axes if a not in axes)
+            if rest:
+                # the members over the other batch axes hold this part too
+                mine = mesh.psum(mine, rest[0] if len(rest) == 1 else rest)
+            idx = [i for u in units for i in u]
+            for i, x in zip(idx, self._split(mine, units, me)):
+                out[i] = x
+        if self.replicated:
+            summed = all_reduce_buckets([grads[i] for i in self.replicated],
+                                        mesh, self.axes)
+            for i, x in zip(self.replicated, summed):
+                out[i] = x
+        return out
+
+    def all_gather(self, parts: list) -> list:
+        """Whole leaves from every rank's ``parts`` (this rank's given),
+        gathered over each placement's axes, a bucket's units of one
+        dtype at a time."""
+        mesh = self.mesh
+        out = list(parts)
+        for axes, units in self.buckets:
+            size = mesh.size(axes)
+            for dt in dict.fromkeys(parts[u[0]].dtype for u in units):
+                sub = [u for u in units if parts[u[0]].dtype == dt]
+                rows = mesh.all_gather(torch.cat(
+                    [parts[i].reshape(-1) for u in sub for i in u]), axes)
+                got = [self._split(rows[c], sub, c) for c in range(size)]
+                for j, i in enumerate(i for u in sub for i in u):
+                    p = self.parts[i]
+                    if p.dim is None:
+                        out[i] = got[p.owner(size)][j]
+                    else:
+                        out[i] = torch.cat([got[c][j] for c in range(size)],
+                                           dim=p.dim)
+        return out
+
+    def global_norm(self, parts: list) -> torch.Tensor:
+        """√(Σ‖g‖²) of the whole gradient from this rank's ``parts``: the
+        sums of squares grouped by how many members of the batch axes
+        hold a part, each group summed over the batch axes and divided
+        by that count; the parts every member holds are added here."""
+        mesh = self.mesh
+        size = mesh.size(self.axes)
+        sums: dict = {}
+        for x, p in zip(parts, self.parts):
+            held = size // mesh.size(p.axes) if p.axes else size
+            sq = torch.sum(torch.square(x.to(torch.float32)))
+            sums[held] = sums[held] + sq if held in sums else sq
+        total = sums.pop(size, None)
+        if sums:
+            held = sorted(sums)
+            summed = mesh.psum(torch.stack([sums[h] for h in held]),
+                               self.axes)
+            for j, h in enumerate(held):
+                part = summed[j] / h
+                total = part if total is None else total + part
+        return torch.sqrt(total)
+
+
+def shard_train_state(state: TrainState, mesh, grad_specs,
+                      cfg) -> TrainState:
+    """This rank's ZeRO-1 state from a replicated ``state``: the
+    parameters and step whole, master, m and v cut to its parts."""
+    plan = Zero1Plan(state.params, grad_specs, mesh, cfg)
+    opt = state.opt
+
+    def cut(tree):
+        return tree_unflatten(tree, plan.pieces(tree_leaves(tree)))
+
+    return TrainState(params=state.params,
+                      opt=AdamWState(step=opt.step, master=cut(opt.master),
+                                     m=cut(opt.m), v=cut(opt.v)),
+                      error_fb=state.error_fb)
+
+
+def gather_train_state(state: TrainState, mesh, grad_specs,
+                       cfg) -> TrainState:
+    """The replicated state from every rank's ZeRO-1 ``state`` (a
+    collective: every member of the mesh calls it)."""
+    plan = Zero1Plan(state.params, grad_specs, mesh, cfg)
+    opt = state.opt
+
+    def whole(tree):
+        return tree_unflatten(state.params,
+                              plan.all_gather(tree_leaves(tree)))
+
+    return TrainState(params=state.params,
+                      opt=AdamWState(step=opt.step, master=whole(opt.master),
+                                     m=whole(opt.m), v=whole(opt.v)),
+                      error_fb=state.error_fb)
+
+
+def make_train_step(model, tcfg, *, mesh=None, grad_specs=None):
     """``train_step(state, batch) -> (state, metrics)``; metrics are f32
     scalar tensors ``loss``, ``lm_loss``, ``aux_loss``, ``grad_norm``
     and ``lr``.  ``batch`` is a dict of tensors on the parameters'
     device: the whole batch, or with ``mesh`` this rank's rows
     (``data.pipeline.shard_batch``).  With a mesh the step's
     ``allreduce_seconds`` lists each call's host seconds in the
-    gradients' all-reduce (the device synchronized before and after)."""
+    gradients' all-reduce (the device synchronized before and after).
+
+    ``grad_specs`` (with a mesh: ``sharding.zero1_specs``' placements)
+    makes the step ZeRO-1 (the module docstring): ``state`` is then a
+    rank's ZeRO-1 state (``shard_train_state``), and the step's
+    ``reduce_scatter_seconds`` and ``all_gather_seconds`` list each
+    call's host seconds in those collectives (``allreduce_seconds`` the
+    replicated leaves' and the metrics' all-reduce).  It takes no
+    gradient compression."""
+    if grad_specs is not None:
+        if mesh is None:
+            raise ValueError("grad_specs (ZeRO-1) needs a mesh")
+        if tcfg.grad_compression != "none":
+            raise ValueError(
+                f"grad_compression={tcfg.grad_compression!r} with "
+                "grad_specs: compression under ZeRO-1 is not ported")
+        return _make_zero1_step(model, tcfg, mesh, grad_specs)
     cfg = model.cfg
     pdt = dtype_of(cfg.param_dtype)
     m = tcfg.microbatches
@@ -213,17 +469,12 @@ def make_train_step(model, tcfg, *, mesh=None):
         return activation_sharding_ctx(axes, mesh=mesh)
 
     def all_reduce(grads, metrics, loss):
-        dev = loss.device
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        leaves = all_reduce_buckets(tree_leaves(grads), mesh, axes)
         names = sorted(metrics)
-        vals = mesh.psum(torch.stack([loss] + [metrics[k] for k in names]),
-                         axes)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        train_step.allreduce_seconds.append(time.perf_counter() - t0)
+        (leaves, vals), seconds = synced_seconds(loss.device, lambda: (
+            all_reduce_buckets(tree_leaves(grads), mesh, axes),
+            mesh.psum(torch.stack([loss] + [metrics[k] for k in names]),
+                      axes)))
+        train_step.allreduce_seconds.append(seconds)
         return (tree_unflatten(grads, leaves),
                 dict(zip(names, vals[1:])), vals[0])
 
@@ -235,7 +486,7 @@ def make_train_step(model, tcfg, *, mesh=None):
                              warmup_steps=tcfg.warmup_steps,
                              total_steps=tcfg.total_steps)
         with context():
-            loss, metrics, grads = _accumulate(state, batch)
+            loss, metrics, grads = accumulate(state, batch)
         if ranks > 1:
             grads, metrics, loss = all_reduce(grads, metrics, loss)
 
@@ -254,7 +505,7 @@ def make_train_step(model, tcfg, *, mesh=None):
         metrics = {**metrics, **om, "loss": loss, "lr": lr}
         return TrainState(params=params, opt=opt, error_fb=error_fb), metrics
 
-    def _accumulate(state: TrainState, batch):
+    def accumulate(state: TrainState, batch):
         """(loss, metrics, f32 gradients) of this rank's batch, averaged
         over the microbatches."""
         if m > 1:
@@ -276,4 +527,65 @@ def make_train_step(model, tcfg, *, mesh=None):
         return loss, metrics, tree_map(lambda g: g.to(torch.float32), grads)
 
     train_step.allreduce_seconds = []
+    train_step.accumulate = accumulate
+    return train_step
+
+
+def _make_zero1_step(model, tcfg, mesh, grad_specs):
+    """The ZeRO-1 train step (``make_train_step``'s docstring): its two
+    halves are ``train_step.accumulate(state, batch)``, the loss, metrics
+    and f32 gradients of the rank's rows, and ``train_step.update(state,
+    accumulated)``, everything after; ``accumulated`` is a list of the
+    three, which ``update`` empties so that the gradients are freed once
+    cut to the rank's parts."""
+    cfg = model.cfg
+    pdt = dtype_of(cfg.param_dtype)
+    axes = batch_axes_for_mesh(mesh)
+    plain = make_train_step(model, tcfg).accumulate
+    plans: list = []                # built on the first call
+
+    def accumulate(state: TrainState, batch):
+        with activation_sharding_ctx(axes, mesh=mesh):
+            return plain(state, batch)
+
+    def update(state: TrainState, accumulated: list):
+        if not plans:
+            check_same_state((state.params, state.opt.step), mesh)
+            plans.append(Zero1Plan(state.params, grad_specs, mesh, cfg))
+        plan = plans[0]
+        loss, metrics, grads = accumulated
+        accumulated.clear()
+        lr = cosine_schedule(state.opt.step, base_lr=tcfg.learning_rate,
+                             warmup_steps=tcfg.warmup_steps,
+                             total_steps=tcfg.total_steps)
+        dev = loss.device
+        parts, t_rs = synced_seconds(
+            dev, lambda: plan.reduce_scatter(tree_leaves(grads)))
+        del grads
+        names = sorted(metrics)
+        vals, t_ar = synced_seconds(dev, lambda: mesh.psum(
+            torch.stack([loss] + [metrics[k] for k in names]), axes))
+        metrics, loss = dict(zip(names, vals[1:])), vals[0]
+        parts = tree_unflatten(state.params, parts)
+        gn = plan.global_norm(tree_leaves(parts))
+        new_parts, opt, om = adamw_update(parts, state.opt, lr, tcfg,
+                                          param_dtype=pdt, gnorm=gn)
+        del parts
+        leaves, t_ag = synced_seconds(
+            dev, lambda: plan.all_gather(tree_leaves(new_parts)))
+        train_step.reduce_scatter_seconds.append(t_rs)
+        train_step.allreduce_seconds.append(t_ar)
+        train_step.all_gather_seconds.append(t_ag)
+        params = tree_unflatten(state.params, leaves)
+        metrics = {**metrics, **om, "loss": loss, "lr": lr}
+        return TrainState(params=params, opt=opt, error_fb=()), metrics
+
+    def train_step(state: TrainState, batch):
+        return update(state, list(accumulate(state, batch)))
+
+    train_step.accumulate = accumulate
+    train_step.update = update
+    train_step.reduce_scatter_seconds = []
+    train_step.allreduce_seconds = []
+    train_step.all_gather_seconds = []
     return train_step

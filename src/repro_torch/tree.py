@@ -22,6 +22,18 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_leaves_with_path(tree, path=()) -> list:
+    """(path, leaf) of every leaf in :func:`tree_leaves` order; a path is
+    the tuple of dict keys and sequence indices from the root."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_leaves_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_leaves_with_path(v, path + (i,))]
+    return [(path, tree)]
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree``, with the matching leaves of
     ``rest`` (trees of the same structure) zipped in; the result has

@@ -13,6 +13,12 @@ Tolerances:
     a few ulps of its running sums (|h| of order 1, S ≤ 300), and those
     pass through the output projection.
 The scan alone is held to a sequential float64 recurrence at SCAN_TOL.
+The perf flags ``rglru_chunk`` (the chunked scan, against the
+reference's chunked scan and the port's whole scan, at SCAN_TOL; its
+gradient through the per-chunk checkpoints against the whole scan's at
+SCAN_TOL) and ``rglru_block_gates`` (the init's shapes; the reduced
+recurrentgemma's prefill logits against the reference's with both flags
+set, at LOGIT_TOL 1e-4, the LM tests' tolerance) run in both packages.
 """
 
 import pytest
@@ -32,6 +38,7 @@ from repro_torch.models.layers import rglru as tr  # noqa: E402
 
 TOL = 1e-5
 SCAN_TOL = 2e-5
+LOGIT_TOL = 1e-4
 ARCH = "recurrentgemma-2b"
 _jax_apply = jax.jit(jr.rglru_apply, static_argnums=2)
 _jax_decode = jax.jit(jr.rglru_decode_step, static_argnums=2)
@@ -185,3 +192,127 @@ def test_init_rglru_state_and_weights_match_jax_shapes():
         assert tuple(got[name].shape) == w.shape
     np.testing.assert_allclose(got["lam"].numpy(), _np(want["lam"]),
                                rtol=1e-6, atol=1e-6)
+
+
+class _flags:
+    """The same perf flags set in both packages for the block."""
+
+    def __init__(self, **kw):
+        self.kw = kw
+
+    def __enter__(self):
+        from repro.sharding import flags as jflags
+        from repro_torch.sharding import flags as tflags
+
+        jflags.set_flags(**self.kw)
+        tflags.set_flags(**self.kw)
+
+    def __exit__(self, *exc):
+        from repro.sharding import flags as jflags
+        from repro_torch.sharding import flags as tflags
+
+        jflags.reset_flags()
+        tflags.reset_flags()
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("s,chunk", [(300, 64), (128, 32), (40, 40)])
+def test_chunked_scan_matches_jax_and_the_whole_scan(s, chunk, with_state):
+    """``rglru_chunk``: a ragged last chunk (300 = 4·64 + 44), whole
+    chunks, and S not above the chunk (the whole scan)."""
+    cfg = get_reduced_config(ARCH)
+    jcfg = jax_reduced_config(ARCH)
+    jp, tp = _both(_params(cfg, seed=8))
+    x = np.random.default_rng(9).normal(
+        size=(2, s, cfg.d_model)).astype(np.float32)
+    jst = tst = None
+    if with_state:
+        h0, conv0 = _state(cfg, 2, 10)
+        jst = jr.RGLRUState(jnp.asarray(h0), jnp.asarray(conv0))
+        tst = tr.RGLRUState(_t(h0), _t(conv0))
+    whole, whole_st = tr.rglru_apply(tp, _t(x), cfg, state=tst)
+    with _flags(rglru_chunk=chunk):
+        # a fresh jit: the flag is read while tracing
+        want, wst = jax.jit(jr.rglru_apply, static_argnums=2)(
+            jp, jnp.asarray(x), jcfg, jst)
+        got, gst = tr.rglru_apply(tp, _t(x), cfg, state=tst)
+    for a, b in ((got, _np(want)), (gst.h, _np(wst.h)),
+                 (got, whole.numpy()), (gst.h, whole_st.h.numpy())):
+        np.testing.assert_allclose(a.numpy(), b, rtol=SCAN_TOL,
+                                   atol=SCAN_TOL)
+
+
+def test_chunked_scan_gradient_matches_the_whole_scan():
+    """Under autograd each chunk runs under ``torch.utils.checkpoint``:
+    the gradients of Σ out·w with respect to x and the weights equal the
+    whole scan's."""
+    cfg = get_reduced_config(ARCH)
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, 150, cfg.d_model)).astype(np.float32)
+    w = rng.normal(size=(2, 150, cfg.d_model)).astype(np.float32)
+
+    def grads():
+        p = {k: _t(v).requires_grad_(True)
+             for k, v in _params(cfg, seed=12).items()}
+        xt = _t(x).requires_grad_(True)
+        out, _ = tr.rglru_apply(p, xt, cfg)
+        return torch.autograd.grad(torch.sum(out * _t(w)),
+                                   [xt] + list(p.values()))
+
+    whole = grads()
+    with _flags(rglru_chunk=32):
+        chunked = grads()
+    for a, b in zip(chunked, whole):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=SCAN_TOL,
+                                   atol=SCAN_TOL)
+
+
+def test_block_gate_init_matches_jax_shapes():
+    """``rglru_block_gates``: 16 blocks of (W/16)² for w_a and w_i, the
+    scale (W/16)^-1/2; a width 16 does not divide keeps full gates."""
+    cfg = get_reduced_config(ARCH)
+    jcfg = jax_reduced_config(ARCH)
+    with _flags(rglru_block_gates=True):
+        want = jr.init_rglru(jax.random.PRNGKey(0), jcfg, jnp.float32)
+        got = tr.init_rglru(torch.Generator().manual_seed(0), cfg,
+                            torch.float32)
+        odd = tr.init_rglru(torch.Generator().manual_seed(0),
+                            get_reduced_config(ARCH, recurrent=type(
+                                cfg.recurrent)(width=40)), torch.float32)
+    w = cfg.recurrent.width
+    for name in ("w_a", "w_i"):
+        assert tuple(got[name].shape) == want[name].shape \
+            == (16, w // 16, w // 16)
+        assert odd[name].shape == (40, 40)
+        # N(0, 1/bw): the sample's spread within a factor of 2
+        assert 0.5 < float(got[name].std()) * (w // 16) ** 0.5 < 2.0
+    assert {k: tuple(v.shape) for k, v in got.items()} == \
+        {k: v.shape for k, v in want.items()}
+
+
+def test_reduced_recurrentgemma_logits_with_both_flags_match_jax():
+    """One 13-layer period of the reduced recurrentgemma, block-local
+    gates drawn by the reference's init and chunks of 16 positions: the
+    port's prefill logits on the converted weights against the
+    reference's."""
+    from repro.models import build_model as jax_build_model
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.models import build_model
+
+    with _flags(rglru_block_gates=True, rglru_chunk=16):
+        jcfg = jax_reduced_config(ARCH, n_layers=13)
+        cfg = get_reduced_config(ARCH, n_layers=13)
+        jm = jax_build_model(jcfg)
+        pnp = jax.tree_util.tree_map(np.asarray,
+                                     jm.init(jax.random.PRNGKey(1)))
+        tok = np.random.default_rng(13).integers(
+            0, cfg.vocab_size, (2, 40), dtype=np.int32)
+        want, _ = jax.jit(jm.prefill)(
+            jax.tree_util.tree_map(jnp.asarray, pnp),
+            {"tokens": jnp.asarray(tok)})
+        tp = model_params_from_numpy(cfg, pnp, "cpu")
+        assert tuple(tp["layers"][0]["rglru"]["w_a"].shape) == (16, 4, 4)
+        got, _ = build_model(cfg).prefill(tp, {"tokens":
+                                               torch.from_numpy(tok)})
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)

@@ -1,6 +1,6 @@
 """Rank functions and shared pieces of the port's sharded-training files
 (``tests/test_torch_moe_groups.py``, ``test_torch_train_sharded.py``,
-``test_torch_train_loop_sharded.py``).
+``test_torch_train_loop_sharded.py``, ``test_torch_train_zero1.py``).
 
 Spawned ranks import the module that holds their function by name, so
 these live here, with JAX out of the top level (``JaxKey`` imports it in
@@ -163,6 +163,74 @@ def step_rank(cases, states, steps):
         out[name] = {"metrics": mets, "states": kept,
                      "digest": state_digest(state),
                      "allreduce_calls": len(step.allreduce_seconds)}
+    return out
+
+
+def zero1_rank(cases, states, steps):
+    """Each case (name, arch, tcfg kwargs, moe_groups, fault): ``steps``
+    ZeRO-1 steps (``make_train_step(mesh=, grad_specs=zero1_specs(...))``)
+    on a (world, 1) mesh from the reference's initial state, beside the
+    replicated data-parallel step from the same state on the same rows.
+    Returns per case the ZeRO-1 metrics of every step, after every step
+    the gathered ZeRO-1 state and the replicated step's state (rank 0
+    only), the optimizer bytes this rank holds and its share under the
+    placements (f32 master, m and v: three times the master's placed
+    bytes, ``launch.dryrun.placed_bytes``), and every rank's reduce-
+    scatter and all-gather call counts."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.dryrun import _zero1_stack, placed_bytes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding import (
+        batch_axes_for_mesh,
+        param_partition_specs,
+        zero1_layout,
+        zero1_specs,
+    )
+    from repro_torch.train.step import (
+        gather_train_state,
+        make_train_step,
+        shard_train_state,
+    )
+    from repro_torch.utils.tree import tree_bytes
+
+    mesh = make_mesh((dist.get_world_size(), 1), AXES, device="cpu")
+    axes = batch_axes_for_mesh(mesh)
+    out = {}
+    for name, arch, kw, groups, _ in cases:
+        cfg = get_reduced_config(arch)
+        tcfg = TrainConfig(**kw)
+        model = build_model(cfg)
+        state = port_state(cfg, states[arch])
+        specs = zero1_specs(param_partition_specs(state.params, cfg, mesh),
+                            state.params, mesh, axes, cfg)
+        layout = zero1_layout(specs, state.params, mesh, axes, cfg)
+        share = 3 * placed_bytes(state.opt.master, specs, mesh,
+                                 _zero1_stack(layout, mesh))
+        z = shard_train_state(state, mesh, specs, cfg)
+        held = tree_bytes((z.opt.master, z.opt.m, z.opt.v))
+        with port_flags(moe_groups=groups):
+            zstep = make_train_step(model, tcfg, mesh=mesh, grad_specs=specs)
+            rstep = make_train_step(model, tcfg, mesh=mesh)
+            mets, gathered, replicated = [], [], []
+            r = state
+            for batch in batches(cfg.vocab_size, steps):
+                local = shard_batch(batch, mesh,
+                                    microbatches=tcfg.microbatches)
+                z, m = zstep(z, local)
+                r, _ = rstep(r, local)
+                mets.append({k: float(v) for k, v in m.items()})
+                g = gather_train_state(z, mesh, specs, cfg)
+                gathered.append(g if mesh.rank == 0 else None)
+                replicated.append(r if mesh.rank == 0 else None)
+        out[name] = {"metrics": mets, "gathered": gathered,
+                     "replicated": replicated, "held": held, "share": share,
+                     "calls": (len(zstep.reduce_scatter_seconds),
+                               len(zstep.all_gather_seconds))}
     return out
 
 
