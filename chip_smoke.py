@@ -245,7 +245,9 @@ exits nonzero, with no result line) when a check fails:
                (ZERO1_STATE_TOL), each rank's optimizer bytes = its
                placements' share, a planted unsummed gradient above the
                gates; step, reduce-scatter and all-gather seconds, each
-               step's peak
+               step's peak; in its world-2 spawn slice 14's [train tp]
+               and [serve tp] on a (data 1, model 2) mesh (TRAIN_TP,
+               SERVE_TP)
      dryrun  — repro_torch.launch.dryrun on meta tensors (no card): every
                runnable cell at 16×16 and 2×16×16, in a pool of nice-19
                processes that runs beside [registry parity], which times
@@ -3760,10 +3762,15 @@ def phase_engine_timing(torch, engine):
 # v 6.850e-04 (the global norm from the parts' sums parts from the
 # replicated step's in its last bits, and so the clip factor; norm
 # scales near 1.0 then round to other bf16 values, 1.38 × lr); the
-# planted fault 6.078e-01, 6.073e-01, 3.276e-01, 2.763e-01, its grad
-# norms 0.44-0.57 off.  Each gate lies 4.6-9 × above its sound reading
-# and 20-33 × below the fault's.
-TRAIN_ZERO1 = dict(steps=3, timeout=900)
+# planted fault, run 3 steps, 6.078e-01, 6.073e-01, 3.276e-01, 2.763e-01,
+# its grad norms 0.44-0.57 off.  Each gate lies 4.6-9 × above its sound
+# reading and 20-33 × below that fault's.  Since the tensor-parallel
+# phases joined this spawn the fault runs "fault_steps" = 2 steps (its
+# grad norms read at steps 0 and 1; its state after step 1, the first
+# step with a learning rate above 0) and its state is held against the
+# replicated run's after the same 2 steps (the run keeps that state);
+# its readings are in PERF.md §6.
+TRAIN_ZERO1 = dict(steps=3, fault_steps=2, timeout=900)
 ZERO1_STATE_TOL = dict(params=3e-2, master=2e-2, m=1e-2, v=1e-2)
 
 # [dryrun]: every runnable cell of the registry at 16×16 and at 2×16×16
@@ -3793,6 +3800,57 @@ ZERO1_STATE_TOL = dict(params=3e-2, master=2e-2, m=1e-2, v=1e-2)
 # 9,460,463,108); the fault 5.939.
 DRYRUN = dict(workers=8, budget_s=60.0)
 DRYRUN_PEAK_GATE = 1e-2
+
+# [train tp] and [serve tp] (slice 14), in [train zero1]'s world-2 spawn:
+# a second mesh over the same two ranks, (data 1, model 2), gloo, both
+# ranks on the card (gloo stages every collective through host memory).
+# [train tp]: TRAIN's model and batch for TRAIN_TP["steps"] steps through
+# make_train_step(mesh=, grad_specs=zero1_specs(...),
+# tensor_parallel=True) on the rank's shards (smollm's 9/3 heads: the
+# contracting path; d_ff and the vocabulary split), its losses and grad
+# norms against world 1's replicated step ([train zero1]'s "rep", the
+# same state and rows) under [train sharded]'s gates; each rank's
+# parameter bytes equal to its share under the placements; the planted
+# fault (the sum over model after every row-split product dropped) runs
+# one step and must read above the step-0 loss gate; partial products
+# rounded to bf16 before the sum run one step, logged, and are held at
+# the product itself (TRAIN_TP_ROUNDING_GATE); the world-1 rank times
+# partial_matmul's f32 GEMMs beside bf16 ones at the step's row-split
+# shapes (partial_matmul_cost).  [serve tp]: SERVE_TP's
+# archs at published width, bf16, seed-0 weights on each rank cut to its
+# shards (danube: the head path, kernel 8 on 16 of 32 heads and 4 of 8
+# KV heads at D 80; smollm: the contracting path, all heads, its linear
+# cache split by slots), batch 2, prompt 2048, greedy; kernel 8 launched
+# once per layer per prefill on each rank; against the same serve at
+# world 1 on one card, [engine]'s gates: the tokens equal, or the first
+# difference at a world-1 top-two margin below ENGINE_MARGIN_GATE, and
+# the logits up to there within ENGINE_LOGIT_TOL; the planted fault
+# (smollm's decode merge over the ranks' slots without the maxima's
+# maximum) served for SERVE_TP["fault_tokens"] tokens must read above the
+# logit gate.
+TRAIN_TP = dict(steps=3)
+# [train tp]'s loss gates.  The data-parallel steps keep each row's
+# arithmetic, so their step-0 losses match world 1's to 8.4e-08 ([train
+# sharded]);
+# under tensor parallelism every split product is summed in another
+# order and rounded to bf16 once, like one card's GEMM but not to the
+# same bits, and 30 layers carry the odd ulp to the loss: the first card
+# run read 1.901e-05 at step 0 (H100 80GB HBM3, 700 W), above [train
+# sharded]'s 1e-5.  So step 0 is gated at 1e-4; later steps and the
+# grad norms at [train sharded]'s.  The loss cannot tell partial
+# products rounded to bf16 before their sum (a second rounding that the
+# reference does not make) from f32 sums: one step so read 3.099e-06 off
+# world 1's, nearer than the f32 sums' 1.901e-05 (H100 80GB HBM3, 700 W;
+# world 1's tensor-core GEMM does not round like either), so that step
+# is logged only.  The f32 sum is held where it acts
+# (partial_sum_rounding): the share of a row-split product's bf16
+# outputs that differ from the exact product rounded once, gated at
+# TRAIN_TP_ROUNDING_GATE, beside the same product with bf16 partials,
+# which must read above it; readings in PERF.md §6.
+TRAIN_TP_LOSS_TOL = {"step0": 1e-4, "later": 1e-2}
+TRAIN_TP_ROUNDING_GATE = 2e-2
+SERVE_TP = dict(archs=("h2o-danube-1.8b", "smollm-135m"), batch=2,
+                prompt=2048, new_tokens=16, fault_tokens=4, seed=0)
 
 
 def zero1_collectives(mesh, log_to):
@@ -3824,15 +3882,208 @@ def zero1_collectives(mesh, log_to):
     return unwrap
 
 
+def serve_tp_run(torch, arch, mesh=None, n_new=None):
+    """[serve tp]'s greedy serve of ``arch`` (SERVE_TP) on the card: on
+    ``mesh``'s rank under tensor parallelism over its model axis, else
+    whole on one card.  Tokens (B, n), each step's top-two margins (B,
+    n) and logits (n, B, V) as numpy, kernel 8's launches, the rank's
+    parameter bytes and their share under the placements."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.dryrun import placed_bytes
+    from repro_torch.models import build_model
+    from repro_torch.sharding import activation_sharding_ctx
+    from repro_torch.sharding.tensor_parallel import shard_params
+    from repro_torch.train.step import tp_param_specs
+    from repro_torch.utils.tree import tree_bytes
+
+    c = SERVE_TP
+    n_new = n_new or c["new_tokens"]
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    params = model.init(gen)
+    share = held = tree_bytes(params)
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        specs = tp_param_specs(model, mesh)
+        share = placed_bytes(params, specs, mesh)
+        params = shard_params(params, specs, mesh)
+        held = tree_bytes(params)
+        ctx = activation_sharding_ctx(("data",), mesh=mesh,
+                                      tensor_parallel=True)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(c["seed"])
+    tok = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (c["batch"], c["prompt"])).astype(
+            np.int32)).cuda()
+    toks, margins, logs = [], [], []
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ctx, torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": tok})
+        launches = flash_attention.launches
+        pos = cache["step_offset"]
+        for i in range(n_new):
+            logs.append(logits.float().cpu())
+            top = torch.topk(logits.float(), 2, dim=-1).values
+            margins.append((top[:, 0] - top[:, 1]).cpu())
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            toks.append(nxt.cpu())
+            if i == n_new - 1:
+                break
+            logits, cache = model.decode_step(params, cache, nxt[:, None],
+                                              pos + i)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"tokens": torch.stack(toks, 1).numpy(),
+            "margins": torch.stack(margins, 1).numpy(),
+            "logits": torch.stack(logs).numpy(), "launches": launches,
+            "held": held, "share": share, "seconds": secs,
+            "layers": cfg.n_layers}
+
+
+def train_tp_run(torch, model, state, tcfg, mesh, batches, n, fault=None):
+    """[train tp]'s steps (TRAIN_TP) on ``mesh``, (data 1, model 2): the
+    rank's losses, grad norms, parameter bytes and their share, its
+    first step's collectives (kind, bytes) and held bytes.  ``fault``
+    plants "no_sum" (the sum over model after each row-split product
+    dropped) or "bf16" (each partial product rounded to bf16 before the
+    sum)."""
+    from repro_torch.launch.dryrun import placed_bytes
+    from repro_torch.models.layers import attention, mlp
+    from repro_torch.sharding import batch_axes_for_mesh, zero1_specs
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.train import make_train_step, shard_train_state
+    from repro_torch.train.step import tp_param_specs
+    from repro_torch.utils.tree import tree_bytes
+
+    cfg = model.cfg
+    pspecs = tp_param_specs(model, mesh)
+    specs = zero1_specs(pspecs, state.params, mesh,
+                        batch_axes_for_mesh(mesh), cfg)
+    st = shard_train_state(state, mesh, specs, cfg, param_specs=pspecs)
+    out = {"param_bytes": tree_bytes(st.params),
+           "param_share": placed_bytes(state.params, pspecs, mesh),
+           "held": tree_bytes(st) + tree_bytes(batches[0])}
+    step = make_train_step(model, tcfg, mesh=mesh, grad_specs=specs,
+                           tensor_parallel=True)
+    moved: list = []
+    unwrap = zero1_collectives(mesh, moved)
+    reduce, partial = tp.ModelGroup.reduce, tp.partial_matmul
+    if fault == "no_sum":
+        tp.ModelGroup.reduce = lambda self, x, dtype: x.to(dtype)
+    elif fault == "bf16":
+        # the GEMM's bf16 output, then the f32 sum: at model 2 the bits of
+        # a bf16 sum (two bf16 values add exactly in f32)
+        attention.partial_matmul = mlp.partial_matmul = \
+            lambda x, w: (x @ w).float()
+    losses, norms, secs, first = [], [], [], None
+    try:
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, met = step(st, batches[i])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            if i == 0:
+                first = list(moved)
+    finally:
+        unwrap()
+        tp.ModelGroup.reduce = reduce
+        attention.partial_matmul = mlp.partial_matmul = partial
+    del st
+    torch.cuda.empty_cache()
+    return {**out, "losses": losses, "grad_norms": norms,
+            "step_seconds": secs, "moved_step0": first}
+
+
+def partial_sum_rounding(torch, cfg, mesh, rows, bf16=False):
+    """[train tp]'s check that a row-split product is summed in f32 and
+    rounded once: on ``mesh``'s model axis, the MLP's down projection at
+    the step's shape ((rows, d_ff) @ (d_ff, d_model), seed-1 bf16
+    operands, each rank its half of d_ff) through ``mlp.partial_matmul``
+    and ``ModelGroup.reduce``, as the layer runs it; the share of the
+    bf16 outputs that differ from the exact product rounded once to
+    bf16.  ``bf16`` plants partial products rounded to bf16 before the
+    sum."""
+    from repro_torch.models.layers import mlp
+    from repro_torch.sharding import activation_sharding_ctx
+    from repro_torch.sharding.tensor_parallel import model_group
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    k, n = cfg.d_ff, cfg.d_model
+    x = torch.randn(rows, k, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5).to(
+        torch.bfloat16)
+    want = (x.double() @ w.double()).to(torch.bfloat16)
+    partial = mlp.partial_matmul
+    if bf16:
+        mlp.partial_matmul = lambda a, b: (a @ b).float()
+    try:
+        with activation_sharding_ctx(("data",), mesh=mesh,
+                                     tensor_parallel=True), torch.no_grad():
+            grp = model_group(cfg)
+            h = k // grp.size
+            mine = slice(grp.index * h, (grp.index + 1) * h)
+            got = grp.reduce(mlp.partial_matmul(x[:, mine], w[mine]),
+                             torch.bfloat16)
+    finally:
+        mlp.partial_matmul = partial
+    return float((got != want).double().mean())
+
+
+def partial_matmul_cost(torch, cfg, rows):
+    """The cost of summing [train tp]'s partial products in f32: per
+    row-split product of a layer at model 2 (the contracting path's q,
+    k, v from half of d_model; the MLP's down projection from half of
+    d_ff), the ms of one forward and backward of ``partial_matmul`` (f32
+    GEMMs) and of the bf16 GEMM with the same operands, on one card."""
+    from repro_torch.sharding.tensor_parallel import partial_matmul
+
+    a = cfg.attn
+    qkv = (a.n_heads + 2 * a.n_kv_heads) * a.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name, k, n in (("qkv", cfg.d_model // 2, qkv),
+                       ("w2", cfg.d_ff // 2, cfg.d_model)):
+        x = torch.randn(rows, k, generator=gen, device="cuda").to(
+            torch.bfloat16).requires_grad_(True)
+        w = (torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5).to(
+            torch.bfloat16).requires_grad_(True)
+        g = torch.randn(rows, n, generator=gen, device="cuda")
+
+        def f32():
+            partial_matmul(x, w).backward(g)
+
+        def bf16():
+            (x @ w).backward(g.to(torch.bfloat16))
+        out[name] = {"f32_ms": time_ms(torch, f32),
+                     "bf16_ms": time_ms(torch, bf16)}
+    return out
+
+
 def train_zero1_rank():
-    """One rank of [train zero1]: see TRAIN_ZERO1."""
+    """One rank of [train zero1]: see TRAIN_ZERO1; at world 2 also [train
+    tp] and [serve tp] (TRAIN_TP, SERVE_TP), whose world-1 halves are the
+    replicated step and the serve on one card."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import TokenPipeline, make_lm_tokens, shard_batch
     from repro_torch.launch.dryrun import _zero1_stack, placed_bytes
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
     from repro_torch.models import build_model
     from repro_torch.sharding import (
         batch_axes_for_mesh,
@@ -3856,10 +4107,14 @@ def train_zero1_rank():
     model = build_model(cfg)
     tcfg = TrainConfig(total_steps=z1["steps"], learning_rate=c["lr"],
                        warmup_steps=c["warmup"])
+    # [train tp]'s mesh over the same ranks: every rank takes every row
+    tp_mesh = make_mesh((1, 2), ("data", "model")) if world > 1 else None
     with TokenPipeline(make_lm_tokens(0, c["n_tokens"], cfg.vocab_size),
                        c["batch"], c["seq"]) as pipe:
         batches = [shard_batch(pipe.batch_for_step(i), mesh)
                    for i in range(z1["steps"])]
+        whole = ([shard_batch(pipe.batch_for_step(i), tp_mesh)
+                  for i in range(z1["steps"])] if tp_mesh else None)
     gen = torch.Generator(device=mesh.device).manual_seed(tcfg.seed)
     state = init_train_state(model, gen, tcfg)
     axes = batch_axes_for_mesh(mesh)
@@ -3868,7 +4123,7 @@ def train_zero1_rank():
     share = 3 * placed_bytes(state.opt.master, specs, mesh, _zero1_stack(
         zero1_layout(specs, state.params, mesh, axes, cfg), mesh))
 
-    def run(zero1, n, fault=False):
+    def run(zero1, n, fault=False, keep=None):
         st = shard_train_state(state, mesh, specs, cfg) if zero1 else state
         held = tree_bytes(st) + tree_bytes(batches[0])
         opt_bytes = tree_bytes((st.opt.master, st.opt.m, st.opt.v))
@@ -3902,11 +4157,16 @@ def train_zero1_rank():
                 norms.append(float(met["grad_norm"]))
                 if i == 0:
                     first = list(moved)
+                if i + 1 == keep:
+                    # a step writes into no state it was given
+                    kept = st
         finally:
             unwrap()
         out = dict(losses=losses, grad_norms=norms, step_seconds=secs,
                    peaks=peaks, held=held, opt_bytes=opt_bytes,
                    moved_step0=first)
+        if keep is not None:
+            out["kept"] = kept
         if zero1:
             out["reduce_scatter_seconds"] = step.reduce_scatter_seconds
             out["all_gather_seconds"] = step.all_gather_seconds
@@ -3915,9 +4175,12 @@ def train_zero1_rank():
             out["final"] = st
         return out
 
-    rep = run(False, z1["steps"])
+    rep = run(False, z1["steps"],
+              keep=z1["fault_steps"] if world > 1 else None)
     zero = run(True, z1["steps"])
     r = rep.pop("final")
+    # the replicated state after as many steps as the planted fault runs
+    r_fault = rep.pop("kept", None)
 
     def norm(tree, minus=None):
         ls = tree_leaves(tree)
@@ -3926,7 +4189,9 @@ def train_zero1_rank():
             float(((x.float() - y.float()) if y is not None
                    else x.float()).square().sum()) for x, y in zip(ls, ms)))
 
-    def state_err(g):
+    def state_err(g, r):
+        """``g`` against the replicated run's state ``r`` after as many
+        steps."""
         return {"params": norm(g.params, r.params)
                 / norm(r.params, state.params),
                 "master": norm(g.opt.master, r.opt.master)
@@ -3939,11 +4204,38 @@ def train_zero1_rank():
                                     tree_leaves(r.params))) / c["lr"]}
 
     out = {"world": world, "rank": mesh.rank, "rep": rep, "zero": zero,
-           "share": share, "state_err": state_err(zero.pop("final"))}
+           "share": share, "state_err": state_err(zero.pop("final"), r)}
     if world > 1:
-        f = run(True, z1["steps"], fault=True)
-        out["fault_state_err"] = state_err(f.pop("final"))
+        f = run(True, z1["fault_steps"], fault=True)
+        out["fault_state_err"] = state_err(f.pop("final"), r_fault)
+        del r_fault
         out["fault"] = f
+        out["tp"] = train_tp_run(torch, model, state, tcfg, tp_mesh, whole,
+                                 TRAIN_TP["steps"])
+        out["tp_fault"] = train_tp_run(torch, model, state, tcfg, tp_mesh,
+                                       whole, 1, fault="no_sum")
+        out["tp_bf16"] = train_tp_run(torch, model, state, tcfg, tp_mesh,
+                                      whole, 1, fault="bf16")
+        rows = c["batch"] * c["seq"]
+        out["rounding"] = partial_sum_rounding(torch, cfg, tp_mesh, rows)
+        out["rounding_bf16"] = partial_sum_rounding(torch, cfg, tp_mesh,
+                                                    rows, bf16=True)
+    else:
+        out["partial_cost"] = partial_matmul_cost(torch, cfg,
+                                                  c["batch"] * c["seq"])
+    del state, batches, whole
+    torch.cuda.empty_cache()
+    out["serve"] = {a: serve_tp_run(torch, a, tp_mesh)
+                    for a in SERVE_TP["archs"]}
+    if world > 1:
+        from repro_torch.models.layers import attention
+
+        def merge(m, l, acc, grp):       # the planted fault: no pmax
+            return grp.psum(acc) / grp.psum(l)[..., None]
+
+        attention.merge_partials = merge
+        out["serve_fault"] = serve_tp_run(torch, "smollm-135m", tp_mesh,
+                                          SERVE_TP["fault_tokens"])
     return out
 
 
@@ -4026,10 +4318,122 @@ def phase_train_zero1(torch):
     log(f"[train zero1] planted fault (each rank's own gradient, not "
         f"summed): loss {[f'{x:.3e}' for x in fl]}, grad norm "
         f"{[f'{x:.3e}' for x in fn]}; its state against the replicated "
-        f"step's {({k: f'{v:.3e}' for k, v in w2[0]['fault_state_err'].items()})}")
+        f"step's after the same {z1['fault_steps']} steps "
+        f"{({k: f'{v:.3e}' for k, v in w2[0]['fault_state_err'].items()})}")
     need(min(fn) > SHARDED_GRAD_NORM_TOL,
          "[train zero1]: the grad-norm gate does not see the planted fault")
+    check_train_tp(w1[0], w2, readings)
+    check_serve_tp(torch, w1[0], w2)
     return {"w1": w1[0], "w2": w2, "launch_s": (t_w1, t_w2)}
+
+
+def check_train_tp(w1, w2, readings):
+    """[train tp]'s gates (TRAIN_TP) on the world-2 ranks' runs against
+    world 1's replicated step."""
+    for r in w2:
+        x, name = r["tp"], f"rank {r['rank']}"
+        loss, norm = readings(x, w1["rep"])
+        log(f"[train tp] {name} mesh (data 1, model 2), ZeRO-1 on its "
+            f"shards: losses {[round(v, 6) for v in x['losses']]} grad norms"
+            f" {[round(v, 6) for v in x['grad_norms']]} step seconds "
+            f"{[round(v, 4) for v in x['step_seconds']]}; parameter bytes "
+            f"{x['param_bytes']}, their share under the placements "
+            f"{x['param_share']}; against world 1's replicated step: loss "
+            f"{[f'{v:.3e}' for v in loss]} (gates {TRAIN_TP_LOSS_TOL}), grad "
+            f"norm {[f'{v:.3e}' for v in norm]} (gate "
+            f"{SHARDED_GRAD_NORM_TOL})")
+        need(x["param_bytes"] == x["param_share"],
+             f"[train tp]: {name} holds {x['param_bytes']} parameter bytes, "
+             f"its share is {x['param_share']}")
+        need(all(math.isfinite(v) for v in x["losses"]),
+             "[train tp]: a loss is not finite")
+        need(loss[0] <= TRAIN_TP_LOSS_TOL["step0"]
+             and max(loss) <= TRAIN_TP_LOSS_TOL["later"]
+             and max(norm) <= SHARDED_GRAD_NORM_TOL,
+             f"[train tp]: {name} losses {loss}, grad norms {norm}")
+        fl, fn = readings(r["tp_fault"], w1["rep"])
+        log(f"[train tp] {name} planted fault (no sum over model after the "
+            f"row-split products): loss {fl[0]:.3e}, grad norm {fn[0]:.3e}")
+        need(fl[0] > TRAIN_TP_LOSS_TOL["step0"]
+             and fn[0] > SHARDED_GRAD_NORM_TOL,
+             "[train tp]: the gates do not see the planted fault")
+        bl, bn = readings(r["tp_bf16"], w1["rep"])
+        log(f"[train tp] {name} partial products rounded to bf16 before "
+            f"the sum over model, a step: loss {bl[0]:.3e}, grad norm "
+            f"{bn[0]:.3e} against world 1's (logged only: the loss does "
+            f"not tell them from the f32 sums, PERF.md §6)")
+        log(f"[train tp] {name} the MLP's down projection at "
+            f"{TRAIN['batch'] * TRAIN['seq']} rows, summed over model: "
+            f"share of outputs off the exact product rounded once "
+            f"{r['rounding']:.3e} (gate {TRAIN_TP_ROUNDING_GATE}); planted "
+            f"bf16 partial products {r['rounding_bf16']:.3e}")
+        need(r["rounding"] <= TRAIN_TP_ROUNDING_GATE,
+             f"[train tp]: {name} sums partial products with "
+             f"{r['rounding']:.3e} of the outputs off the exact product")
+        need(r["rounding_bf16"] > TRAIN_TP_ROUNDING_GATE,
+             "[train tp]: the rounding gate does not see partial products "
+             "rounded to bf16 before their sum")
+    cost = w1["partial_cost"]
+    log(f"[train tp] the f32 sum's cost, one card, rows "
+        f"{TRAIN['batch'] * TRAIN['seq']}, forward and backward of one "
+        f"layer's row-split product at model 2: "
+        + "; ".join(f"{k} partial_matmul (f32 GEMMs) {v['f32_ms']:.4f} ms, "
+                    f"bf16 GEMM {v['bf16_ms']:.4f} ms"
+                    for k, v in cost.items()))
+
+
+def check_serve_tp(torch, w1, w2):
+    """[serve tp]'s gates (SERVE_TP) on the world-2 ranks' serves against
+    world 1's."""
+    for arch in SERVE_TP["archs"]:
+        want = w1["serve"][arch]
+        log(f"[serve tp] {arch} world 1: {want['seconds']:.3f} s, kernel 8 "
+            f"launched {want['launches']} times in the prefill")
+        for r in w2:
+            got, name = r["serve"][arch], f"{arch} rank {r['rank']}"
+            log(f"[serve tp] {name} mesh (data 1, model 2): batch "
+                f"{SERVE_TP['batch']}, prompt {SERVE_TP['prompt']}, "
+                f"{SERVE_TP['new_tokens']} greedy tokens in "
+                f"{got['seconds']:.3f} s; kernel 8 launched "
+                f"{got['launches']} times in the prefill; parameter bytes "
+                f"{got['held']} (share {got['share']})")
+            need(got["launches"] == got["layers"],
+                 f"[serve tp]: {name} launched kernel 8 {got['launches']} "
+                 f"times, want {got['layers']}")
+            need(got["held"] == got["share"],
+                 f"[serve tp]: {name} holds {got['held']} parameter bytes")
+            for b in range(SERVE_TP["batch"]):
+                g, w = list(got["tokens"][b]), list(want["tokens"][b])
+                reading = logit_reading(
+                    [torch.from_numpy(x[b]) for x in got["logits"]],
+                    [torch.from_numpy(x[b]) for x in want["logits"]])
+                part = next((i for i, (p, q) in enumerate(zip(g, w))
+                             if p != q), None)
+                margin = (float(want["margins"][b][part])
+                          if part is not None else None)
+                log(f"[serve tp] {name} row {b}: "
+                    + ("tokens equal to world 1's" if part is None else
+                       f"parts from world 1 at token {part}, world 1's "
+                       f"top-two margin {margin:.4f} (gate "
+                       f"{ENGINE_MARGIN_GATE})")
+                    + f"; logits {reading:.3e} (gate {ENGINE_LOGIT_TOL})")
+                need(part is None or margin < ENGINE_MARGIN_GATE,
+                     f"[serve tp]: {name} row {b} parts at a margin of "
+                     f"{margin}")
+                need(reading <= ENGINE_LOGIT_TOL,
+                     f"[serve tp]: {name} row {b} logits read {reading:.3e}")
+    want = w1["serve"]["smollm-135m"]
+    n = SERVE_TP["fault_tokens"]
+    for r in w2:
+        got = r["serve_fault"]
+        reading = max(logit_reading(
+            [torch.from_numpy(x[b]) for x in got["logits"]],
+            [torch.from_numpy(x[b]) for x in want["logits"][:n]])
+            for b in range(SERVE_TP["batch"]))
+        log(f"[serve tp] planted fault (smollm's decode merge without the "
+            f"maxima's maximum), rank {r['rank']}: logits {reading:.3e}")
+        need(reading > ENGINE_LOGIT_TOL,
+             "[serve tp]: the logit gate does not see the planted fault")
 
 
 def dryrun_cell(arch, shape, multi_pod):
@@ -4048,8 +4452,8 @@ def dryrun_cell(arch, shape, multi_pod):
     return r
 
 
-def dryrun_recipe(world, remat=True):
-    """TRAIN's recipe traced by the dry run on mesh (world, 1): its
+def dryrun_recipe(world, remat=True, model=1):
+    """TRAIN's recipe traced by the dry run on mesh (world, model): its
     record."""
     import dataclasses
 
@@ -4061,7 +4465,8 @@ def dryrun_recipe(world, remat=True):
     cfg = dataclasses.replace(get_config(TRAIN["arch"]), remat=remat)
     shape = ShapeConfig("train_recipe", TRAIN["seq"], TRAIN["batch"],
                         "train")
-    return trace_cell(cfg, shape, ShapeMesh((world, 1), ("data", "model")))
+    return trace_cell(cfg, shape, ShapeMesh((world, model),
+                                            ("data", "model")))
 
 
 def _dryrun_worker():
@@ -4088,6 +4493,7 @@ def start_dryrun():
             "recipe": {w: pool.apply_async(dryrun_recipe, (w,))
                        for w in (1, 2)},
             "no_remat": pool.apply_async(dryrun_recipe, (2, False)),
+            "tp": pool.apply_async(dryrun_recipe, (1, True, 2)),
             "single": [pool.apply_async(dryrun_cell, (a, s, False))
                        for a, s in cells],
             "multi": [pool.apply_async(dryrun_cell, (a, s, True))
@@ -4103,6 +4509,7 @@ def collect_dryrun(started):
         records = [r.get() for r in started["single"]]
         recipe = {w: r.get() for w, r in started["recipe"].items()}
         no_remat = started["no_remat"].get()
+        recipe_tp = started["tp"].get()
         while (time.perf_counter() - t0 < DRYRUN["budget_s"]
                and not all(r.ready() for r in multi)):
             time.sleep(0.5)
@@ -4112,6 +4519,7 @@ def collect_dryrun(started):
         pool.terminate()
         pool.join()
     return {"records": records, "recipe": recipe, "no_remat": no_remat,
+            "recipe_tp": recipe_tp,
             "done": done, "left": left, "cells": cells,
             "t_pool": time.perf_counter() - started["t0"],
             "t_wait": time.perf_counter() - t0}
@@ -4175,6 +4583,18 @@ def phase_dryrun(torch, zero1, collected):
         f"{fault:.3e}")
     need(fault > DRYRUN_PEAK_GATE,
          "[dryrun]: the peak gate does not see the planted fault")
+    # the recipe at (data 1, model 2) against [train tp]'s rank
+    r, x = collected["recipe_tp"], zero1["w2"][0]["tp"]
+    moved = {}
+    for kind, n in x["moved_step0"]:
+        moved[kind] = moved.get(kind, 0) + n
+    est = {k: v["bytes"] for k, v in r["collectives"].items()}
+    log(f"[dryrun] recipe at (data 1, model 2), tensor parallel: held_bytes"
+        f" {r['held_bytes']} against [train tp]'s {x['held']}; collective "
+        f"bytes {est} against its first step's {moved}")
+    need(r["held_bytes"] == x["held"],
+         f"[dryrun]: tp held_bytes {r['held_bytes']} != {x['held']}")
+    need(est == moved, "[dryrun]: tp collective bytes differ")
     return {"records": records + done, "left": left, "seconds": t_pool,
             "wait_s": t_wait}
 

@@ -37,8 +37,17 @@ rank, as the reference's placement leaves it; the model code then runs
 outside the data-parallel context (prefill, decode) or, in the train
 step, treats the rows as the rank's share of as many identical copies as
 there are ranks (the mean loss and gradient are the batch's; the record
-notes it).  The port runs no tensor parallelism: a placement's ``model``
-entries shard nothing in the port, and the rank holds every parameter.
+notes it).
+
+Tensor parallelism: where the port's covers the arch
+(``sharding.tensor_parallel.tp_gap``; all but recurrentgemma-2b,
+xlstm-125m and whisper-base), the rank holds its shards of the
+parameters, the optimizer's state and the decode cache by their
+placements' ``model`` entries and runs the model code under the
+tensor-parallel context, whose collectives over ``model`` join the
+record's; without ``--fsdp`` its ``held_bytes`` then equal the
+placements' ``placed_argument_bytes``.  On the other three archs every
+rank holds every parameter (``NOTE_NO_TP`` names what is whole).
 
 Each record carries the reference's keys (``memory``, ``cost_raw``,
 ``cost``, ``collectives``, ``n_chips``, ``lower_s`` and ``compile_s``,
@@ -92,10 +101,12 @@ from repro_torch.sharding import (
     zero1_specs,
 )
 from repro_torch.sharding.partitioning import fsdp_takes_stack
+from repro_torch.sharding.tensor_parallel import shard_params, tp_gap
 from repro_torch.train.step import (
     init_train_state,
     make_train_step,
     shard_train_state,
+    tp_param_specs,
 )
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.utils.cost import CostMode
@@ -105,11 +116,13 @@ RESULTS = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "results")
 
 # What the port's rank cannot do as the reference's program does.
-NOTE_NO_TP = ("the port runs no tensor parallelism: every rank holds "
-              "every parameter, and the model axis shards nothing")
+NOTE_NO_TP = ("the port's tensor parallelism does not cover {}: every "
+              "rank holds every parameter, and the model axis shards "
+              "nothing")
 NOTE_FSDP = ("fsdp: placed_argument_bytes follow the reference's fsdp "
-             "placements; the port's step does not shard parameters, "
-             "and its ZeRO-1 parts are those without fsdp")
+             "placements; the port's step does not shard parameters "
+             "over the data axis, and its ZeRO-1 parts are those "
+             "without fsdp")
 
 
 def _entry_size(entry, mesh) -> int:
@@ -313,6 +326,17 @@ def _along(at, s: int, q: int) -> dict:
     return at(s)
 
 
+def uses_tp(cfg, mesh) -> bool:
+    """True where the rank runs tensor parallel: the ``model`` axis holds
+    several ranks and the port covers the arch."""
+    return mesh.size("model") > 1 and tp_gap(cfg) is None
+
+
+def _ctx(mesh, axes, tp):
+    """The context a traced rank runs its model code in."""
+    return activation_sharding_ctx(axes, mesh=mesh, tensor_parallel=tp)
+
+
 def _model_phase(cfg, shape, mesh, axes, tcfg, split):
     """The costs of the model's work at ``shape`` (the loss and
     gradients of a train step; a prefill; a decode step) on one rank,
@@ -322,34 +346,40 @@ def _model_phase(cfg, shape, mesh, axes, tcfg, split):
     cache's length as it is.  ``notes`` names the traces."""
     import torch
 
+    tp = uses_tp(cfg, mesh)
+
     def trace(c, sh):
         model = build_model(c)
         batch = model.input_specs(sh)
         batch.pop("cache", None)
         local = _rows(batch, batch_partition_specs(batch, mesh, axes), mesh)
         rows = local["tokens"].shape[0]
+        cut = ((lambda t: shard_params(t, tp_param_specs(model, mesh),
+                                       mesh)) if tp else (lambda t: t))
         if sh.kind == "train":
             acc = make_train_step(model, tcfg).accumulate
             state = init_train_state(model, MetaGenerator(), tcfg)
+            state = state._replace(params=cut(state.params))
 
             def run(m):
-                with activation_sharding_ctx(axes, mesh=m):
+                with _ctx(m, axes, tp):
                     return acc(state, local)
             return _model_trace(mesh, (state.params, local), run)
-        params = model.param_specs()
+        params = cut(model.param_specs())
         if sh.kind == "prefill":
             args = (params, local)
 
             def run(m):
-                return _serve(m, axes, split,
+                return _serve(m, axes, split, tp,
                               lambda: model.prefill(params, local))
         else:
-            cache = model.init_cache(rows, sh.seq_len,
-                                     device=torch.device("meta"))
+            with _ctx(mesh, axes if split else (), tp):
+                cache = model.init_cache(rows, sh.seq_len,
+                                         device=torch.device("meta"))
             args = (params, cache, local)
 
             def run(m):
-                return _serve(m, axes, split, lambda: model.decode_step(
+                return _serve(m, axes, split, tp, lambda: model.decode_step(
                     params, cache, local["tokens"], local["pos"]))
         return _model_trace(mesh, args, run)
 
@@ -385,33 +415,27 @@ def _model_trace(mesh, args, run) -> dict:
     return t
 
 
-def _serve(mesh, axes, split, call):
+def _serve(mesh, axes, split, tp, call):
+    """``call()`` without gradients in the rank's context: data parallel
+    where the rows are split, tensor parallel with ``tp``."""
     import torch
 
-    ctx = (activation_sharding_ctx(axes, mesh=mesh) if split
-           else contextlib.nullcontext())
-    with ctx, torch.no_grad():
+    with _ctx(mesh, axes if split else (), tp), torch.no_grad():
         return call()
 
 
-def trace_cell(cfg, shape, mesh, *, microbatches: int = 1) -> dict:
-    """The port's record of one rank's step at ``shape`` on ``mesh`` (a
-    ``ShapeMesh``) without the reference's identifying keys: placed and
-    held bytes, memory, costs, collectives, kernels, notes, seconds.
-
-    The layers' work is traced at two and three super-blocks (and
-    encoder layers) and weighted by the config's counts (``_depth``;
-    xlstm's also cut in the length, ``_along``): FLOPs, bytes,
-    collectives and kernel launches add up exactly, and the peak of live
-    bytes above the arguments grows by what each layer leaves live.  The
-    rest of a train step, ``update`` (the ZeRO-1 collectives, AdamW, the
-    gather), is traced whole, at full depth."""
+def cell_arguments(cfg, shape, mesh, tcfg) -> dict:
+    """What one rank of a cell holds before its step runs, and what the
+    reference's placements give one device: ``placed`` and ``held``
+    bytes, the rank's arguments (``held_args``), the train step's
+    ``update`` half (train cells) and the record's first notes."""
     import torch
 
     axes = batch_axes_for_mesh(mesh)
     ranks = mesh.size(axes)
-    notes = [NOTE_NO_TP]
-    t0 = time.time()
+    tp = uses_tp(cfg, mesh)
+    gap = tp_gap(cfg)
+    notes = [] if gap is None else [NOTE_NO_TP.format(gap)]
     model = build_model(cfg)
     batch = model.input_specs(shape)
     cache = batch.pop("cache", None)
@@ -428,7 +452,6 @@ def trace_cell(cfg, shape, mesh, *, microbatches: int = 1) -> dict:
                         if shape.kind == "train" else ""))
     if get_flags().fsdp:
         notes.append(NOTE_FSDP)
-    tcfg = TrainConfig(microbatches=microbatches)
     update = None
     if shape.kind == "train":
         state = init_train_state(model, MetaGenerator(), tcfg)
@@ -443,15 +466,16 @@ def trace_cell(cfg, shape, mesh, *, microbatches: int = 1) -> dict:
                                      opt_stack)
                   + placed_bytes(batch, bspecs, mesh))
         with _flags(fsdp=False):
-            specs = zero1_specs(param_partition_specs(state.params, cfg,
-                                                      mesh),
-                                state.opt.master, mesh, axes, cfg)
-            zstate = shard_train_state(state, mesh, specs, cfg)
+            tspecs = param_partition_specs(state.params, cfg, mesh)
+            specs = zero1_specs(tspecs, state.opt.master, mesh, axes, cfg)
+            zstate = shard_train_state(state, mesh, specs, cfg,
+                                       param_specs=tspecs if tp else None)
         del state
         held_args = (zstate, local)
 
         def update(m):
-            step = make_train_step(model, tcfg, mesh=m, grad_specs=specs)
+            step = make_train_step(model, tcfg, mesh=m, grad_specs=specs,
+                                   tensor_parallel=tp)
             f32 = lambda p: torch.empty(p.shape, dtype=torch.float32,
                                         device=p.device)
             scalar = lambda: torch.empty((), dtype=torch.float32,
@@ -465,15 +489,43 @@ def trace_cell(cfg, shape, mesh, *, microbatches: int = 1) -> dict:
         pspecs = param_partition_specs(params, cfg, mesh)
         placed = (placed_bytes(params, pspecs, mesh, _fsdp_stack(cfg, mesh))
                   + placed_bytes(batch, bspecs, mesh))
+        if tp:
+            params = shard_params(params, tp_param_specs(model, mesh), mesh)
         if cache is not None:
             placed += placed_bytes(cache, cache_partition_specs(
                 cache, cfg, mesh, axes), mesh)
-            held_args = (params, model.init_cache(
-                rows, shape.seq_len, device=torch.device("meta")), local)
+            with _ctx(mesh, axes if split else (), tp):
+                held_args = (params, model.init_cache(
+                    rows, shape.seq_len, device=torch.device("meta")),
+                    local)
         else:
             held_args = (params, local)
     del cache
-    held = tree_bytes(held_args)
+    return {"placed": placed, "held": tree_bytes(held_args),
+            "held_args": held_args, "update": update, "notes": notes,
+            "split": split, "rows": rows, "axes": axes}
+
+
+def trace_cell(cfg, shape, mesh, *, microbatches: int = 1) -> dict:
+    """The port's record of one rank's step at ``shape`` on ``mesh`` (a
+    ``ShapeMesh``) without the reference's identifying keys: placed and
+    held bytes, memory, costs, collectives, kernels, notes, seconds.
+
+    The layers' work is traced at two and three super-blocks (and
+    encoder layers) and weighted by the config's counts (``_depth``;
+    xlstm's also cut in the length, ``_along``): FLOPs, bytes,
+    collectives and kernel launches add up exactly, and the peak of live
+    bytes above the arguments grows by what each layer leaves live.  The
+    rest of a train step, ``update`` (the ZeRO-1 collectives, AdamW, the
+    gather), is traced whole, at full depth.  Where the port's tensor
+    parallelism covers the arch and ``model`` holds several ranks, the
+    rank holds its shards and runs tensor parallel (module docstring)."""
+    t0 = time.time()
+    tcfg = TrainConfig(microbatches=microbatches)
+    a = cell_arguments(cfg, shape, mesh, tcfg)
+    axes, split, rows, notes = a["axes"], a["split"], a["rows"], a["notes"]
+    held, held_args, update = a["held"], a["held_args"], a["update"]
+    placed = a["placed"]
     t_lower = time.time() - t0
     with _flags(fsdp=False):
         m = _model_phase(cfg, shape, mesh, axes, tcfg, split)
@@ -530,8 +582,11 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         return {**base, "skipped": skip}
     if seq_shard:
         raise ValueError("seq_shard lays the reference's activations out "
-                         "over the model axis, which the port does not "
-                         "shard (ROADMAP: tensor parallelism)")
+                         "over the model axis; the port's tensor "
+                         "parallelism keeps every activation replicated "
+                         "over it, and its hand-written collectives "
+                         "follow no activation layout (ROADMAP: the rest "
+                         "of tensor parallelism)")
     mesh = make_production_mesh(multi_pod=multi_pod)
     return {**base, "n_chips": 512 if multi_pod else 256,
             **trace_cell(cfg, shape, mesh, microbatches=microbatches)}
@@ -576,7 +631,7 @@ def main(argv=None):
                          "(placements only: the port's step does not)")
     ap.add_argument("--moe2d", action="store_true",
                     help="perf flag: 2D (C×f) MoE dispatch layout "
-                         "(refused: the port shards no activation over "
+                         "(refused: the port lays out no activation over "
                          "the model axis)")
     ap.add_argument("--moe-groups", type=int, default=0,
                     help="perf flag: group-local MoE dispatch (G groups)")
@@ -591,8 +646,10 @@ def main(argv=None):
                                                  "--seq-shard")):
         if flag:
             ap.error(f"{name} steers the reference's layout of activations "
-                     "over the model axis, which the port does not shard "
-                     "(ROADMAP: tensor parallelism of the step)")
+                     "over the model axis; the port's tensor parallelism "
+                     "keeps every activation replicated over it, and its "
+                     "hand-written collectives follow no activation "
+                     "layout (ROADMAP: the rest of tensor parallelism)")
 
     set_flags(fsdp=args.fsdp, moe_groups=args.moe_groups,
               rglru_chunk=args.rglru_chunk,

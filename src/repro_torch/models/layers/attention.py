@@ -36,6 +36,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.models.layers import normal
 from repro_torch.models.layers.rotary import apply_rope
+from repro_torch.sharding.tensor_parallel import model_group, partial_matmul
 
 NEG_INF = -1e30
 
@@ -61,20 +62,46 @@ def _valid(rel, causal: bool, window: int):
     return valid
 
 
+def _mode(cfg):
+    """(the model group, its attention layout) where the context shards
+    this config's attention, else (None, None)."""
+    grp = model_group(cfg)
+    mode = grp.layout.attn if grp is not None else None
+    return (grp, mode) if mode else (None, None)
+
+
 def qkv_project(params, x, cfg):
-    """x: (B, S, D) → q (B, S, Hq, Dh), k/v (B, S, Hkv, Dh)."""
+    """x: (B, S, D) → q (B, S, Hq, Dh), k/v (B, S, Hkv, Dh).
+
+    Under tensor parallelism (``sharding/tensor_parallel.py``):
+    on the head path this rank's heads (the weights' columns), on the
+    contracting path every head, from the rank's rows of the weights and
+    its slice of x, the partial products summed over ``model``."""
     b, s, _ = x.shape
     a = cfg.attn
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    grp, mode = _mode(cfg)
+    hq, hkv = a.n_heads, a.n_kv_heads
+    if mode == "contract":
+        # one sum over model for the three partial products
+        w = torch.cat([params["wq"], params["wk"], params["wv"]], dim=1)
+        qkv = grp.reduce(partial_matmul(grp.slice_last(x), w), x.dtype)
+        q, k, v = (t.contiguous() for t in torch.split(
+            qkv, [hq * a.head_dim, hkv * a.head_dim, hkv * a.head_dim],
+            dim=-1))
+    else:
+        if mode == "heads":
+            x = grp.enter(x)
+            hq, hkv = hq // grp.size, hkv // grp.size
+        q = x @ params["wq"]
+        k = x @ params["wk"]
+        v = x @ params["wv"]
     if a.qkv_bias:
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = q.reshape(b, s, a.n_heads, a.head_dim)
-    k = k.reshape(b, s, a.n_kv_heads, a.head_dim)
-    v = v.reshape(b, s, a.n_kv_heads, a.head_dim)
+    q = q.reshape(b, s, hq, a.head_dim)
+    k = k.reshape(b, s, hkv, a.head_dim)
+    v = v.reshape(b, s, hkv, a.head_dim)
     return q, k, v
 
 
@@ -145,6 +172,21 @@ def chunked_attention(q, k, v, *, causal: bool, window: int, softcap: float,
     return out[:, :sq].to(q.dtype)
 
 
+def _decode_scores(q, k_cache, cache_positions, pos, window, softcap):
+    """(scores (B, Hkv, G, 1, C) in f32, masked; valid (B, C))."""
+    d = q.shape[-1]
+    qg = _group_q(q, k_cache.shape[2])                     # (B,1,Hkv,G,D)
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache).to(torch.float32) \
+        * scale
+    s = _softcap(s, softcap)
+    rel = pos[:, None] - cache_positions                   # (B, C)
+    valid = (cache_positions >= 0) & (rel >= 0)
+    if window and window > 0:
+        valid &= rel < window
+    return torch.where(valid[:, None, None, None, :], s, NEG_INF), valid
+
+
 def decode_attention(q, k_cache, v_cache, cache_positions, pos, *,
                      window: int, softcap: float):
     """Single-step decode: q (B, 1, H, D) against a cache (B, C, Hkv, D).
@@ -154,26 +196,54 @@ def decode_attention(q, k_cache, v_cache, cache_positions, pos, *,
     the cache is read once, never head-repeated.
     """
     b, _, h, d = q.shape
-    hkv = k_cache.shape[2]
-    qg = _group_q(q, hkv)                                  # (B,1,Hkv,G,D)
-    scale = 1.0 / math.sqrt(d)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache).to(torch.float32) \
-        * scale
-    s = _softcap(s, softcap)
-    rel = pos[:, None] - cache_positions                   # (B, C)
-    valid = (cache_positions >= 0) & (rel >= 0)
-    if window and window > 0:
-        valid &= rel < window
-    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    s, _ = _decode_scores(q, k_cache, cache_positions, pos, window, softcap)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache)
     return out.reshape(b, 1, h, d)
+
+
+def merge_partials(m, l, acc, grp):
+    """The softmax-weighted values over every rank's slots from each
+    rank's row maxima ``m``, sums ``l`` and unnormalised values ``acc``
+    (f32): the maxima's maximum over ``model``, then the sums of the
+    rescaled sums and values (one sum for both)."""
+    mx = grp.pmax(m)
+    c = torch.exp(m - mx)
+    both = grp.psum(torch.cat([acc * c[..., None], (l * c)[..., None]],
+                              dim=-1))
+    return both[..., :-1] / both[..., -1:]
+
+
+def decode_attention_slots(q, k_cache, v_cache, cache_positions, pos, grp,
+                           *, window: int, softcap: float):
+    """``decode_attention`` over a cache whose slots are split over
+    ``model``: each rank attends over its own slots (their positions
+    ``cache_positions``, (B, C/M)) and the parts merge by log-sum-exp
+    (:func:`merge_partials`).  A rank with no valid slot contributes
+    nothing (its maxima are −1e30, its terms 0)."""
+    b, _, h, d = q.shape
+    s, valid = _decode_scores(q, k_cache, cache_positions, pos, window,
+                              softcap)
+    m = torch.amax(s, dim=-1)                              # (B,Hkv,G,1)
+    p = torch.where(valid[:, None, None, None, :],
+                    torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bhgqk,bkhd->bhgqd", p, v_cache.to(torch.float32))
+    out = merge_partials(m, p.sum(-1), acc, grp)           # (B,Hkv,G,1,D)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, d).to(q.dtype)
 
 
 class KVCache(NamedTuple):
     k: torch.Tensor            # (B, C, Hkv, Dh)
     v: torch.Tensor            # (B, C, Hkv, Dh)
     positions: torch.Tensor    # (B, C) int32; −1 = empty
+
+
+class SlotKVCache(KVCache):
+    """This rank's block of a KV cache whose slots are split over
+    ``model`` (``cache_partition_specs``): slots [i·C, (i + 1)·C) of the
+    M·C at coordinate i; ``positions`` is this block's (B, C) where the
+    placement splits it too, else the whole (B, M·C)."""
+    __slots__ = ()
 
 
 def init_kv_cache(batch: int, capacity: int, n_kv: int, head_dim: int,
@@ -201,10 +271,49 @@ def cache_update(cache: KVCache, k_new, v_new, pos) -> KVCache:
     return cache
 
 
-def attention_output(params, attn_out):
-    """(B, S, H, Dh) → (B, S, D)."""
+def cache_update_slots(cache: SlotKVCache, k_new, v_new, pos, grp):
+    """``cache_update`` on this rank's block of a slot-split cache: the
+    rank that owns slot pos % capacity writes the step, the others
+    rewrite what they hold (shapes do not depend on the data)."""
+    cl = cache.k.shape[1]
+    cap, lo = cl * grp.size, grp.index * cl
+    slot = (pos % cap).long()
+    own = (slot >= lo) & (slot < lo + cl)
+    local = torch.clamp(slot - lo, 0, cl - 1)
+    bidx = torch.arange(cache.k.shape[0], device=cache.k.device)
+    for t, new in ((cache.k, k_new), (cache.v, v_new)):
+        t[bidx, local] = torch.where(own[:, None, None], new[:, 0],
+                                     t[bidx, local])
+    p = pos.to(cache.positions.dtype)
+    if cache.positions.shape[1] == cl:
+        cache.positions[bidx, local] = torch.where(
+            own, p, cache.positions[bidx, local])
+    else:
+        cache.positions[bidx, slot] = p
+    return cache
+
+
+def slot_positions(cache: SlotKVCache, grp):
+    """The positions (B, C) of this rank's block of slots."""
+    cl = cache.k.shape[1]
+    if cache.positions.shape[1] == cl:
+        return cache.positions
+    return cache.positions[:, grp.index * cl:(grp.index + 1) * cl]
+
+
+def attention_output(params, attn_out, cfg):
+    """(B, S, H, Dh) → (B, S, D).  Under tensor parallelism:
+    on the head path the rank's heads through its rows of ``wo``, summed
+    over ``model``; on the contracting path every head through its
+    columns, all-gathered."""
     b, s, h, d = attn_out.shape
-    return attn_out.reshape(b, s, h * d) @ params["wo"]
+    o = attn_out.reshape(b, s, h * d)
+    grp, mode = _mode(cfg)
+    if mode == "heads":
+        return grp.reduce(partial_matmul(o, params["wo"]), o.dtype)
+    if mode == "contract":
+        return grp.gather_last(grp.enter(o) @ params["wo"])
+    return o @ params["wo"]
 
 
 def attention_block(params, x, cfg, *, impl: str, positions,
@@ -229,7 +338,7 @@ def attention_block(params, x, cfg, *, impl: str, positions,
         o = flash_attention(q, k, v, **kwargs)
     else:
         raise ValueError(impl)
-    return attention_output(params, o), k, v
+    return attention_output(params, o, cfg), k, v
 
 
 def init_attention(gen, cfg, dtype):

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from repro_torch.models.layers import normal
+from repro_torch.sharding.tensor_parallel import model_group, partial_matmul
 
 
 def _act(name: str, x):
@@ -20,11 +21,22 @@ def _act(name: str, x):
 
 
 def mlp_apply(params, x, cfg):
+    """x (B, S, D) → (B, S, D).  Under tensor parallelism
+    (``sharding/tensor_parallel.py``) the rank holds its columns of d_ff
+    in ``w1``/``w3`` and its rows in ``w2``, and the partial products
+    are summed over ``model`` in f32."""
+    grp = model_group(cfg)
+    if grp is not None and grp.layout.mlp:
+        x = grp.enter(x)
+    else:
+        grp = None
     h = x @ params["w1"]
     if cfg.gated_mlp:
         h = _act(cfg.activation, h) * (x @ params["w3"])
     else:
         h = _act(cfg.activation, h)
+    if grp is not None:
+        return grp.reduce(partial_matmul(h, params["w2"]), h.dtype)
     return h @ params["w2"]
 
 

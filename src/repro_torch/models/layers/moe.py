@@ -39,6 +39,13 @@ the reference's function of the global batch.
     the expert products cost each rank what the whole batch's cost one
     device, as they do in the reference's single global dispatch.
 
+Tensor parallel (``sharding/tensor_parallel.py``): where E divides the
+``model`` axis each rank holds E/M experts; every rank routes the same
+replicated tokens into the same buffer, runs its own experts, and the
+combined outputs are summed over ``model``: capacity, drops and the aux
+loss are the single-device ones.  Otherwise d_ff is split inside every
+expert and the expert products are summed over ``model``.
+
 Ties: ``jax.lax.top_k`` puts the lower expert index first among equal
 probabilities; ``torch.topk`` documents no order for ties, so the port
 takes the first k of a stable descending sort, which does.
@@ -52,6 +59,7 @@ from repro_torch.models.layers import normal
 from repro_torch.models.layers.mlp import _act
 from repro_torch.sharding.flags import get_flags
 from repro_torch.sharding.partitioning import batch_group
+from repro_torch.sharding.tensor_parallel import model_group
 
 
 def expert_capacity(tk: int, e: int, capacity_factor: float) -> int:
@@ -130,6 +138,14 @@ def moe_apply(params, x, cfg):
     t = b * s
     xt = x.reshape(t, d)
     probs, top_w, top_e = route(params, xt, cfg)
+    tpg = model_group(cfg)
+    mode = tpg.layout.moe if tpg is not None else None
+    if mode == "experts":
+        _check_routing(tpg, top_e)
+        # the dispatch and the combine feed only this rank's experts:
+        # their gradients are summed over model (the router's and the
+        # aux loss's are whole on every rank)
+        xt, top_w = tpg.enter(xt), tpg.enter(top_w)
     flat_e = top_e.reshape(-1)                              # (T·k,)
     tk = t * topk
     grp = batch_group()
@@ -156,18 +172,19 @@ def moe_apply(params, x, cfg):
             before = every[:grp.index].sum(0)
         parts = [_dispatch_group(xt, flat_e, e, cap, topk, before)]
         buf, counts = parts[0][0], parts[0][4]
-    h = torch.bmm(buf, params["w1"])
-    if m.gated:
-        h = _act(cfg.activation, h) * torch.bmm(buf, params["w3"])
-    else:
-        h = _act(cfg.activation, h)
-    out_buf = torch.bmm(h, params["w2"])
+    out_buf = _experts(params, buf, cfg, tpg, mode)
     out_g = out_buf.reshape(e, g, cap, d).transpose(0, 1)
+    # expert parallel: this rank's experts' part of every token, summed
+    # over model in f32
+    cdt = torch.float32 if mode == "experts" else x.dtype
     out = torch.cat([_combine_group(ob, p[1], p[2], p[3], e, cap, topk,
-                                    x.dtype)
+                                    cdt)
                      for ob, p in zip(out_g, parts)])   # (T, k, D)
-    out = out * top_w[..., None].to(x.dtype)
-    out = torch.sum(out, dim=1).reshape(b, s, d)
+    out = out * top_w[..., None].to(cdt)
+    out = torch.sum(out, dim=1)
+    if mode == "experts":
+        out = tpg.reduce(out, x.dtype)
+    out = out.reshape(b, s, d)
 
     # load-balance auxiliary loss (Switch-style), over the global batch
     if grp is None:
@@ -178,6 +195,47 @@ def moe_apply(params, x, cfg):
     dispatch_frac = counts.to(torch.float32) / (tk * ranks)
     aux = e * torch.sum(me * dispatch_frac) * m.aux_loss_weight
     return out, aux
+
+
+def _experts(params, buf, cfg, tpg, mode):
+    """The expert products of the dispatch buffer (E, C, D).  Under
+    tensor parallelism: ``experts``, this rank's block of experts, the
+    other blocks zero; ``dff``, every expert on the rank's columns of
+    d_ff, the partial products summed over ``model`` in f32."""
+    e = buf.shape[0]
+    lo = el = 0
+    if mode == "experts":
+        el = params["w1"].shape[0]
+        lo = tpg.index * el
+        buf = buf[lo:lo + el]
+    elif mode == "dff":
+        buf = tpg.enter(buf)
+    h = torch.bmm(buf, params["w1"])
+    if cfg.moe.gated:
+        h = _act(cfg.activation, h) * torch.bmm(buf, params["w3"])
+    else:
+        h = _act(cfg.activation, h)
+    if mode == "dff":
+        return tpg.reduce(torch.bmm(h.float(), params["w2"].float()),
+                          h.dtype)
+    out = torch.bmm(h, params["w2"])
+    if mode == "experts":
+        rest = tuple(out.shape[1:])
+        out = torch.cat([out.new_zeros((lo,) + rest), out,
+                         out.new_zeros((e - lo - el,) + rest)])
+    return out
+
+
+def _check_routing(tpg, top_e) -> None:
+    """Raise unless every rank of ``model`` routed the tokens alike (the
+    expert-parallel layer's premise), checked on the first call in a
+    context (not on ``meta`` tensors)."""
+    if top_e.device.type == "meta" or not tpg.once("moe-routing"):
+        return
+    first = tpg.mesh.broadcast(top_e.contiguous(), "model", 0)
+    if not torch.equal(first, top_e):
+        raise RuntimeError(f"model rank {tpg.index} routes other experts "
+                           "than rank 0")
 
 
 def dispatch_counts(params, x, cfg):

@@ -27,7 +27,12 @@ sharding constraints with explicit collectives where the batch's rows
 meet: ``loss``'s token count and the MoE's dispatch and aux loss.
 With ``cfg.remat`` the training loss checkpoints each layer
 (``torch.utils.checkpoint``), the counterpart of the reference's
-per-sub-layer ``jax.checkpoint``.
+per-sub-layer ``jax.checkpoint``.  Under tensor parallelism
+(``sharding/tensor_parallel.py``) the parameters are a rank's shards:
+attention, the MLP and the MoE run their split products with sums or
+gathers over ``model``, the embedding is a masked lookup summed over
+it, the loss a vocab-parallel cross-entropy, the served logits gathered,
+and the decode cache is the rank's block of KV heads or of slots.
 
 Attention: on the card every prefill self-attention, the encoder's
 bidirectional attention and every cross-attention (prefill and decode)
@@ -77,14 +82,18 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import MetaGenerator, normal
 from repro_torch.models.layers.attention import (
     KVCache,
+    SlotKVCache,
     attention_block,
     attention_output,
     cache_update,
+    cache_update_slots,
     decode_attention,
+    decode_attention_slots,
     full_attention,
     init_attention,
     init_kv_cache,
     qkv_project,
+    slot_positions,
 )
 from repro_torch.models.layers.mlp import init_mlp, mlp_apply
 from repro_torch.models.layers.moe import init_moe, moe_apply
@@ -101,7 +110,8 @@ from repro_torch.models.layers.xlstm import (
     init_xlstm_state,
     xlstm_block_apply,
 )
-from repro_torch.sharding.partitioning import batch_group
+from repro_torch.sharding.partitioning import batch_group, captured_context
+from repro_torch.sharding.tensor_parallel import kv_layout, model_group
 from repro_torch.tree import tree_map
 
 # The temporal-mixing kinds of ``block_pattern`` the port runs.
@@ -154,10 +164,13 @@ def _window(kind: str, a) -> int:
     return a.window if kind == "attn" else (a.window or 2048)
 
 
-def _fill_cache(cache: KVCache, k, v) -> KVCache:
+def _fill_cache(cache: KVCache, k, v, grp=None) -> KVCache:
     """Prefill's cache write: a linear cache takes the whole prompt; a
     ring cache (capacity < S) the last ``capacity`` positions, each at
-    slot pos % capacity."""
+    slot pos % capacity.  A ``SlotKVCache`` (``grp``: its model group)
+    takes only this rank's block of the slots."""
+    if isinstance(cache, SlotKVCache):
+        return _fill_slots(cache, k, v, grp)
     cap, s, b = cache.k.shape[1], k.shape[1], k.shape[0]
     dev = k.device
     if cap >= s:
@@ -173,6 +186,34 @@ def _fill_cache(cache: KVCache, k, v) -> KVCache:
         v[:, -cap:].to(cache.v.dtype)[:, order],
         tpos[order][None].expand(b, cap).contiguous(),
     )
+
+
+def _fill_slots(cache: SlotKVCache, k, v, grp) -> SlotKVCache:
+    """``_fill_cache`` on this rank's block [lo, lo + C) of the M·C
+    slots: the whole cache's layout, cut."""
+    cl, s, b = cache.k.shape[1], k.shape[1], k.shape[0]
+    cap, lo = cl * grp.size, grp.index * cl
+    dev = k.device
+    whole_pos = cache.positions.shape[1] != cl
+    if cap >= s:
+        n = max(0, min(cl, s - lo))
+        cache.k[:, :n] = k[:, lo:lo + n].to(cache.k.dtype)
+        cache.v[:, :n] = v[:, lo:lo + n].to(cache.v.dtype)
+        if whole_pos:
+            cache.positions[:, :s] = torch.arange(s, dtype=torch.int32,
+                                                  device=dev)
+        else:
+            cache.positions[:, :n] = torch.arange(lo, lo + n,
+                                                  dtype=torch.int32,
+                                                  device=dev)
+        return cache
+    tpos = torch.arange(s - cap, s, dtype=torch.int32, device=dev)
+    order = torch.argsort(tpos % cap)
+    mine = order[lo:lo + cl]
+    positions = tpos[order if whole_pos else mine][None].expand(b, -1)
+    return SlotKVCache(k[:, -cap:].to(cache.k.dtype)[:, mine],
+                       v[:, -cap:].to(cache.v.dtype)[:, mine],
+                       positions.contiguous())
 
 
 def _apply_mixer(kind, p, x, cfg, *, impl, positions, cache, pos, decode):
@@ -195,16 +236,23 @@ def _apply_mixer(kind, p, x, cfg, *, impl, positions, cache, pos, decode):
                                   positions=positions,
                                   window_override=window)
         if cache is not None:
-            cache = _fill_cache(cache, k, v)
+            cache = _fill_cache(cache, k, v, model_group(cfg))
         return y, cache
     q, k, v = qkv_project(p["attn"], x, cfg)
     q = apply_rope(q, pos[:, None], a.rope_theta, cfg.rope_scaling)
     k = apply_rope(k, pos[:, None], a.rope_theta, cfg.rope_scaling)
-    cache = cache_update(cache, k.to(cache.k.dtype), v.to(cache.v.dtype),
-                         pos)
-    o = decode_attention(q, cache.k, cache.v, cache.positions, pos,
-                         window=window, softcap=a.softcap)
-    return attention_output(p["attn"], o), cache
+    k, v = k.to(cache.k.dtype), v.to(cache.v.dtype)
+    if isinstance(cache, SlotKVCache):
+        grp = model_group(cfg)
+        cache = cache_update_slots(cache, k, v, pos, grp)
+        o = decode_attention_slots(q, cache.k, cache.v,
+                                   slot_positions(cache, grp), pos, grp,
+                                   window=window, softcap=a.softcap)
+    else:
+        cache = cache_update(cache, k, v, pos)
+        o = decode_attention(q, cache.k, cache.v, cache.positions, pos,
+                             window=window, softcap=a.softcap)
+    return attention_output(p["attn"], o, cfg), cache
 
 
 def _attend(impl):
@@ -227,7 +275,7 @@ def _apply_cross_attn(p, x, enc_out, cfg, impl="kernel"):
     k = (enc_out @ p["xattn"]["wk"]).reshape(b, se, a.n_kv_heads, a.head_dim)
     v = (enc_out @ p["xattn"]["wv"]).reshape(b, se, a.n_kv_heads, a.head_dim)
     o = _attend(impl)(q, k, v, causal=False, window=0, softcap=0.0)
-    return attention_output(p["xattn"], o)
+    return attention_output(p["xattn"], o, cfg)
 
 
 def _apply_block(kind, p, x, cfg, *, impl, positions, cache, pos, decode,
@@ -326,23 +374,71 @@ class Model:
             k = apply_rope(k, positions, a.rope_theta, cfg.rope_scaling)
             o = _attend(impl)(q, k, v, causal=False, window=0,
                               softcap=0.0)
-            x = x + attention_output(p["enc_attn"], o)
+            x = x + attention_output(p["enc_attn"], o, cfg)
             h = apply_norm(cfg.norm, p.get("norm2"), x)
             x = x + mlp_apply(p["mlp"], h, cfg)
         return apply_norm(cfg.norm, params.get("enc_final_norm"), x)
 
     # ---- embedding / unembedding ------------------------------------------
+    def _vocab_group(self):
+        """The model group where the context splits the vocabulary over
+        ``model``, else None."""
+        grp = model_group(self.cfg)
+        return grp if grp is not None and grp.layout.vocab else None
+
     def _embed_tokens(self, params, tokens):
+        """The tokens' embeddings; with the vocabulary split over
+        ``model``, each rank looks up the tokens in its block of rows
+        (the others zero) and the rows are summed over the axis."""
         embed = params["embed"]
         if tokens.device != embed.device:
             raise ValueError(f"tokens on {tokens.device}, parameters on "
                              f"{embed.device}")
-        return embed[tokens.long()].to(dtype_of(self.cfg.dtype))
+        adt = dtype_of(self.cfg.dtype)
+        grp = self._vocab_group()
+        if grp is None:
+            return embed[tokens.long()].to(adt)
+        n = embed.shape[0]
+        t = tokens.long() - grp.index * n
+        inside = (t >= 0) & (t < n)
+        rows = embed[torch.clamp(t, 0, n - 1)] * inside[..., None].to(
+            embed.dtype)
+        return grp.reduce(rows.float(), adt)
 
-    def _logits(self, params, x):
+    def _logits(self, params, x, whole: bool = True):
+        """x (B, S, D) → logits (B, S, V).  With the vocabulary split over
+        ``model`` each rank computes its block of columns; ``whole``
+        gathers them (serving, no gradient), else the block is returned
+        (the loss's vocab-parallel cross-entropy)."""
         cfg = self.cfg
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        return x @ head.to(x.dtype)
+        grp = self._vocab_group()
+        if grp is None:
+            return x @ head.to(x.dtype)
+        local = grp.enter(x) @ head.to(x.dtype)
+        return grp.cat_last(local) if whole else local
+
+    def _nll(self, params, x, labels):
+        """The next-token NLL (B, S) in f32 over the padded vocab:
+        logsumexp − the gold logit; with the vocabulary split over
+        ``model``, vocab-parallel (the row maxima, the sums of
+        exponentials and the gold logits reduced over the axis), the
+        logits never gathered."""
+        grp = self._vocab_group()
+        lf = self._logits(params, x, whole=False).to(torch.float32)
+        if grp is None:
+            lse = torch.logsumexp(lf, dim=-1)
+            gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+            return lse - gold
+        n = lf.shape[-1]
+        mx = grp.pmax(torch.amax(lf, dim=-1))
+        se = grp.reduce(torch.sum(torch.exp(lf - mx[..., None]), dim=-1),
+                        torch.float32)
+        t = labels - grp.index * n
+        inside = (t >= 0) & (t < n)
+        gold = torch.gather(lf, -1, torch.clamp(t, 0, n - 1)[..., None])
+        gold = grp.reduce(gold[..., 0] * inside, torch.float32)
+        return mx + torch.log(se) - gold
 
     def _inputs(self, params, batch, impl="kernel"):
         """The input embeddings, with the projected image prefix in front
@@ -369,12 +465,16 @@ class Model:
         positions = torch.arange(x.shape[1], device=x.device)
         caches = []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        # a checkpointed layer's recompute runs on autograd's thread
+        enter = captured_context()
         for i, p in enumerate(params["layers"]):
             def block(x, p=p, kind=self.kind(i),
                       c=cache[i] if cache is not None else None):
-                return _apply_block(kind, p, x, cfg, impl=impl,
-                                    positions=positions, cache=c, pos=None,
-                                    decode=False, enc_out=enc_out)
+                with enter():
+                    return _apply_block(kind, p, x, cfg, impl=impl,
+                                        positions=positions, cache=c,
+                                        pos=None, decode=False,
+                                        enc_out=enc_out)
 
             if remat and cache is None:
                 x, nc, a = checkpoint(block, x, use_reentrant=False)
@@ -409,15 +509,11 @@ class Model:
         x, enc_out = self._inputs(params, batch, impl)
         x, _, aux = self._backbone(params, x, impl=impl, enc_out=enc_out,
                                    remat=cfg.remat)
-        logits = self._logits(params, x[:, n_prefix:])
         labels = torch.roll(tokens.long(), -1, dims=1)
         lmask = torch.ones(labels.shape, dtype=torch.float32,
                            device=labels.device)
         lmask[:, -1] = 0.0
-        lf = logits.to(torch.float32)
-        lse = torch.logsumexp(lf, dim=-1)
-        gold = torch.gather(lf, -1, labels[..., None])[..., 0]
-        nll = lse - gold
+        nll = self._nll(params, x[:, n_prefix:], labels)
         count = torch.sum(lmask)
         grp = batch_group()
         if grp is not None:
@@ -470,6 +566,7 @@ class Model:
         cfg = self.cfg
         a = cfg.attn
         adt = dtype_of(cfg.dtype)
+        grp = model_group(cfg)
 
         def one(kind):
             if kind == "rglru":
@@ -478,8 +575,21 @@ class Model:
                 return init_xlstm_state(kind, batch, cfg, adt, device)
             window = _window(kind, a)
             cap = min(capacity, window) if window else capacity
-            return init_kv_cache(batch, cap, a.n_kv_heads, a.head_dim, adt,
-                                 device)
+            if grp is None:
+                return init_kv_cache(batch, cap, a.n_kv_heads, a.head_dim,
+                                     adt, device)
+            mode, pos_split = kv_layout(cfg, cap, grp.size, grp.rows_split)
+            if mode == "heads":
+                return init_kv_cache(batch, cap, a.n_kv_heads // grp.size,
+                                     a.head_dim, adt, device)
+            if mode is None:
+                return init_kv_cache(batch, cap, a.n_kv_heads, a.head_dim,
+                                     adt, device)
+            c = init_kv_cache(batch, cap // grp.size, a.n_kv_heads,
+                              a.head_dim, adt, device)
+            positions = c.positions if pos_split else torch.full(
+                (batch, cap), -1, dtype=torch.int32, device=device)
+            return SlotKVCache(c.k, c.v, positions)
 
         cache = {"layers": [one(self.kind(i)) for i in range(cfg.n_layers)],
                  "step_offset": torch.zeros((batch,), dtype=torch.int32,

@@ -11,6 +11,14 @@ gradient instead of being lost (Karimireddy et al. 2019):
 On one device nothing crosses a slow axis; the port applies the scheme
 to the accumulated gradient as the reference's train step does, so a
 run with compression follows the same trajectory.
+
+Where a rank holds only a part of a leaf (its ZeRO-1 part over the batch
+axes, its shard over ``model``, or both), :func:`compress_parts` gives
+the part the whole leaf's threshold or scale: each holder's top-k
+magnitudes (the k largest of the whole are among them) or its largest
+magnitude, gathered over the axes that split the leaf.  The result is
+the single-device one on the same whole gradient, bit for bit; the
+error feedback lives with the part.
 """
 
 from __future__ import annotations
@@ -47,6 +55,78 @@ def _int8_leaf(g, ef):
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     deq = q.to(torch.float32) * scale
     return Int8Leaf(q, scale), g - deq
+
+
+class Holders:
+    """The mesh axes over which the parts of one leaf differ (each an
+    axis name or the batch axes' tuple, ``launch/mesh.py::Mesh``); none
+    for a leaf the rank holds whole."""
+
+    def __init__(self, mesh=None, axes=()):
+        self.mesh, self.axes = mesh, tuple(axes)
+
+    def all_gather(self, x):
+        """(P·n,): every holder's (n,) ``x``."""
+        for a in self.axes:
+            x = self.mesh.all_gather(x, a).reshape(-1)
+        return x
+
+    def pmax(self, x):
+        for a in self.axes:
+            x = self.mesh.pmax(x, a)
+        return x
+
+
+def _topk_part(g, numel: int, holders: Holders, ratio: float):
+    """``_topk_leaf`` on a part ``g`` (error feedback added) of a leaf of
+    ``numel`` entries."""
+    k = max(1, int(numel * ratio))
+    mag = torch.abs(g.reshape(-1))
+    n = min(k, mag.numel())
+    vals = torch.topk(mag, n).values
+    if n < k:                       # a short part: pad below every |g|
+        vals = torch.cat([vals, vals.new_full((k - n,), -1.0)])
+    thresh = torch.topk(holders.all_gather(vals), k).values[-1]
+    sent = g * (torch.abs(g) >= thresh)
+    return sent, g - sent
+
+
+def _int8_part(g, holders: Holders):
+    """``_int8_leaf`` (dequantized) on a part ``g`` (error feedback
+    added): the scale from the largest |g| over the holders."""
+    mx = (torch.amax(torch.abs(g)) if g.numel()
+          else g.new_zeros(()))
+    scale = torch.clamp(holders.pmax(mx), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    deq = q.to(torch.float32) * scale
+    return deq, g - deq
+
+
+def compress_parts(grads: list, error_fb: list, units: list, scheme: str,
+                   *, topk_ratio: float = 0.05):
+    """Compress and decompress a rank's parts of the reference's leaves.
+    ``grads`` and ``error_fb`` are flat lists of tensors; ``units`` lists
+    (indices, numel, holders) per reference leaf: the indices of the
+    tensors that hold this rank's part of it (in the reference's stacked
+    order; some may be empty), the whole leaf's entry count, and its
+    :class:`Holders`.  Returns (the f32 gradients that the compressed
+    form decodes to, the new error feedback), as lists."""
+    sent: list = [None] * len(grads)
+    fb: list = [None] * len(grads)
+    for idx, numel, holders in units:
+        local = torch.cat([(grads[i].to(torch.float32) + error_fb[i])
+                           .reshape(-1) for i in idx])
+        if scheme == "topk":
+            s, e = _topk_part(local, numel, holders, topk_ratio)
+        elif scheme == "int8":
+            s, e = _int8_part(local, holders)
+        else:
+            raise ValueError(scheme)
+        sizes = [grads[i].numel() for i in idx]
+        for i, a, b in zip(idx, s.split(sizes), e.split(sizes)):
+            sent[i] = a.reshape(grads[i].shape)
+            fb[i] = b.reshape(grads[i].shape)
+    return sent, fb
 
 
 def compress_gradients(grads, error_fb, scheme: str, *,

@@ -36,9 +36,11 @@ the same.  The port's dry run (``launch/dryrun.py``) uses these
 placements as the reference's does: for one device's argument bytes on
 the production mesh, and ``zero1_specs`` for the ZeRO-1 train step
 (``train/step.py``, through ``cache_specs.zero1_layout``), which cuts
-the optimizer's state over the batch axes.  The parameters themselves
-stay replicated in the port's training, as the reference's
-``train_loop`` keeps them (below): it runs no tensor parallelism.
+the optimizer's state over the batch axes.  Under tensor parallelism
+(``make_train_step(..., tensor_parallel=True)``, the dry run) a rank
+holds its shards of the parameters by their ``model`` entries
+(``tensor_parallel.shard_params``); ``train_loop`` keeps them
+replicated, as the reference's loop does.
 
 **Activations.**  The reference constrains activations to the batch
 axes ``('pod', 'data')`` (``('data',)`` on one pod) at block boundaries
@@ -68,21 +70,44 @@ _ACT_CTX: contextvars.ContextVar = contextvars.ContextVar(
 
 
 @contextlib.contextmanager
-def activation_sharding_ctx(batch_axes, *, mesh=None):
+def activation_sharding_ctx(batch_axes, *, mesh=None,
+                            tensor_parallel: bool = False):
     """Make the model code data-parallel over ``batch_axes`` of ``mesh``.
 
     Inside the context, with a ``mesh`` (``launch/mesh.py::Mesh``) whose
     batch axes hold more than one rank, the model's batch-coupled
     quantities are reduced over the batch axes' group
-    (:func:`batch_group`).  The reference's model-axis and sequence
-    arguments have no counterpart: the port shards no activation over
-    the model axis.
+    (:func:`batch_group`).  With ``tensor_parallel`` and a mesh whose
+    ``model`` axis holds more than one rank, the model code runs on the
+    rank's parameter shards (``sharding/tensor_parallel.py``); without
+    it the parameters are whole on every rank and ``model`` shards
+    nothing.  The reference's sequence argument has no counterpart: the
+    port shards no activation over the model axis.
     """
-    tok = _ACT_CTX.set({"batch": tuple(batch_axes), "mesh": mesh})
+    tok = _ACT_CTX.set({"batch": tuple(batch_axes), "mesh": mesh,
+                        "tp": bool(tensor_parallel)})
     try:
         yield
     finally:
         _ACT_CTX.reset(tok)
+
+
+def captured_context():
+    """A context manager that re-enters the sharding context active now.
+    The backward of a checkpointed layer recomputes its forward on the
+    autograd engine's thread for the device, which does not see the
+    caller's context; the layer runs under this to see it there too."""
+    saved = _ACT_CTX.get()
+
+    @contextlib.contextmanager
+    def enter():
+        tok = _ACT_CTX.set(saved)
+        try:
+            yield
+        finally:
+            _ACT_CTX.reset(tok)
+
+    return enter
 
 
 class BatchGroup:

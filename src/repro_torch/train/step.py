@@ -13,9 +13,11 @@ writing into the old one.
 Compression works per leaf (a top-k threshold, an int8 scale), and the
 reference's leaves are a pattern position's weights stacked over
 super-blocks (and the encoder's over its layers); the port's are one
-layer's.  So the step compresses the gradients in the reference's
-layout (``stack_layers``) and splits the result back: the same leaves,
-the same thresholds and scales.
+layer's.  So the step compresses each reference leaf from its layers'
+gradients together (``reference_units``,
+``optim.compression.compress_parts``): the same leaves, the same
+thresholds and scales.  The one function serves every step below, the
+parts of a leaf on several ranks included.
 
 On a mesh (``make_train_step(..., mesh=)``) the step is data parallel,
 the port's counterpart of the reference's step jitted under
@@ -39,10 +41,9 @@ rank the step is the single-device step, bit for bit.
 
 **ZeRO-1** (``make_train_step(..., mesh=, grad_specs=)``, the
 reference's ``grad_specs``: ``sharding.zero1_specs``' placements of the
-optimizer's state).  The parameters stay whole on every rank (the port
-runs no tensor parallelism: a placement's ``model`` entries are
-ignored), and each rank holds AdamW's master, m and v only for its part
-of every leaf over the batch axes (``sharding.zero1_layout``): a block
+optimizer's state).  Each rank holds AdamW's master, m and v only for
+its part of every leaf over the batch axes (``sharding.zero1_layout``,
+on the shapes of the leaves the rank holds): a block
 along the placed dimension; or, where the reference's stack of layers
 goes over the batch axes, the whole leaf on the member that holds its
 super-block and nothing (an empty tensor) elsewhere; or, where nothing
@@ -65,7 +66,23 @@ step takes the f32 gradients of the rank's rows as above, then:
 
 At world 1 every part is the whole leaf and the step is the
 single-device step, bit for bit.  The first call checks the parameters
-and the step count, the state every rank shares.
+and the step count, the state every rank shares.  Gradient compression
+(``optim.compression.compress_parts``) runs on the parts after the
+reduce-scatter (1.), each with its whole leaf's threshold or scale; the
+error feedback is cut like the master.
+
+**Tensor parallelism** (``make_train_step(..., mesh=,
+tensor_parallel=True)``, with or without ``grad_specs``): the state's
+parameters, master, m, v and error feedback are the rank's shards over
+``model`` by the parameters' placements
+(``shard_train_state(..., param_specs=)``), and the loss runs under the
+tensor-parallel context (``sharding/tensor_parallel.py``).  The
+gradients of split leaves stay with their shards; those of replicated
+leaves come out equal on every ``model`` rank; the sums over the batch
+axes are as above.  The global norm sums the squares of the split
+leaves over ``model`` once and counts the replicated leaves once, and
+compression takes a split leaf's threshold or scale over its shards.
+Where ``model`` holds one rank every path is the one above.
 """
 
 from __future__ import annotations
@@ -79,15 +96,24 @@ import torch
 from repro_torch.models.transformer import dtype_of
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.compression import (
-    compress_gradients,
-    decompress_gradients,
+    Holders,
+    compress_parts,
     init_error_feedback,
 )
 from repro_torch.optim.schedule import cosine_schedule
 from repro_torch.sharding.cache_specs import zero1_layout
+from repro_torch.sharding.flags import get_flags, set_flags
 from repro_torch.sharding.partitioning import (
     activation_sharding_ctx,
     batch_axes_for_mesh,
+    param_partition_specs,
+)
+from repro_torch.sharding.tensor_parallel import (
+    MODEL,
+    gather_params,
+    model_dims,
+    shard_params,
+    tp_gap,
 )
 from repro_torch.tree import (
     tree_leaves,
@@ -146,19 +172,6 @@ def stack_layers(tree, period: int):
     return out
 
 
-def unstack_layers(tree, period: int, n_layers: int, n_enc: int = 0):
-    """The inverse of :func:`stack_layers`."""
-    out = {k: v for k, v in tree.items() if k not in ("layers",
-                                                      "enc_layers")}
-    out["layers"] = [tree_map(lambda x: x[i // period],
-                              tree["layers"][i % period])
-                     for i in range(n_layers)]
-    if "enc_layers" in tree:
-        out["enc_layers"] = [tree_map(lambda x: x[i], tree["enc_layers"])
-                             for i in range(n_enc)]
-    return out
-
-
 def loss_and_grads(model, params, batch):
     """(loss, metrics, gradients) of ``model.loss`` at ``params``; the
     gradients have the parameters' structure and dtypes (a leaf the loss
@@ -213,26 +226,85 @@ def state_checksum(state) -> torch.Tensor:
     return acc
 
 
-def check_same_state(state, mesh) -> None:
+def check_same_state(state, mesh, axes=None) -> None:
     """Raise unless every rank of ``mesh`` holds the same ``state``: each
-    axis broadcasts its first member's checksum and every member
-    compares its own.  On ``meta`` tensors (a ``ShapeMesh``'s dry run)
-    the broadcasts run and nothing is compared, which ``mesh.notes``
-    records."""
+    axis (of ``axes``, default every axis) broadcasts its first member's
+    checksum and every member compares its own.  On ``meta`` tensors (a
+    ``ShapeMesh``'s dry run) the broadcasts run and nothing is compared,
+    which ``mesh.notes`` records."""
     mine = state_checksum(state)
+    axes = mesh.axis_names if axes is None else axes
     if mine.device.type == "meta":
-        for axis in mesh.axis_names:
+        for axis in axes:
             mesh.broadcast(mine, axis, 0)
         mesh.notes.append("the first call's state check broadcast its "
                           "checksums and compared nothing (meta tensors)")
         return
-    for axis in mesh.axis_names:
+    for axis in axes:
         first = mesh.broadcast(mine, axis, 0)
         if not torch.equal(first, mine):
             raise RuntimeError(
                 f"rank {mesh.rank} starts from another state than the "
                 f"first rank of axis {axis!r}: checksum "
                 f"{mine.tolist()} against {first.tolist()}")
+
+
+def check_tp_state(trees: list, dims: list, mesh) -> None:
+    """``check_same_state`` under tensor parallelism: ``trees`` (each of
+    the parameters' structure, or a tensor every rank shares) the same
+    over every batch axis, and their leaves that no placement splits
+    (``dims``: per parameter leaf, its ``model`` dimension or None) the
+    same over ``model``."""
+    check_same_state(trees, mesh, [a for a in mesh.axis_names
+                                   if a != MODEL])
+    whole = [x for t in trees for x, d in zip(
+        tree_leaves(t), dims if isinstance(t, (dict, list)) else [None])
+        if d is None]
+    check_same_state(whole, mesh, (MODEL,))
+
+
+def tp_global_norm(grads: list, dims: list, mesh) -> torch.Tensor:
+    """√(Σ‖g‖²) of the whole gradient from the rank's shards: the split
+    leaves' squares summed over ``model``, the replicated leaves' (the
+    same on every rank) counted once."""
+    sq = [torch.sum(torch.square(g.to(torch.float32))) for g in grads]
+    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    split = sum((x for x, d in zip(sq, dims) if d is not None), zero)
+    whole = sum((x for x, d in zip(sq, dims) if d is None), zero)
+    return torch.sqrt(mesh.psum(split, MODEL) + whole)
+
+
+def reference_units(model, params, mesh=None, dims=None, parts=None):
+    """Per reference leaf of ``model``'s parameter tree ``params`` (a
+    pattern position's layers stacked over super-blocks, the encoder's
+    layers, or a leaf alone), the (indices, numel, holders) that
+    ``optim.compression.compress_parts`` takes; its holders are the axes
+    of ``mesh`` that split it: ``model`` where ``dims`` names a
+    dimension, the ZeRO-1 part's axes (``parts``: ``Zero1Part`` per
+    leaf) where it has any.  ``numel`` counts the whole leaf, whatever
+    this rank holds of it."""
+    period = model.cfg.pattern_period
+    whole_shapes = [tuple(x.shape) for x in tree_leaves(model.param_specs())]
+    units: dict = {}
+    for i, (path, _) in enumerate(tree_leaves_with_path(params)):
+        if path[0] == "layers":
+            key = ("layers", path[1] % period) + path[2:]
+        elif path[0] == "enc_layers":
+            key = ("enc_layers",) + path[2:]
+        else:
+            key = path
+        units.setdefault(key, []).append(i)
+    out = []
+    for idx in units.values():
+        axes = []
+        if dims is not None and dims[idx[0]] is not None:
+            axes.append(MODEL)
+        if parts is not None and parts[idx[0]].axes:
+            ax = parts[idx[0]].axes
+            axes.append(ax[0] if len(ax) == 1 else ax)
+        numel = sum(math.prod(whole_shapes[i]) for i in idx)
+        out.append((idx, numel, Holders(mesh, axes)))
+    return out
 
 
 class Zero1Plan:
@@ -246,8 +318,11 @@ class Zero1Plan:
     are cut in buckets of whole units of at most ``BUCKET_ELEMS``
     elements (a larger unit goes alone)."""
 
-    def __init__(self, params, grad_specs, mesh, cfg):
+    def __init__(self, params, grad_specs, mesh, cfg, dims=None):
         self.mesh = mesh
+        # per leaf: the dimension a placement splits over model (tensor
+        # parallelism: the leaves are the rank's shards), else None
+        self.dims = dims
         axes = batch_axes_for_mesh(mesh)
         self.axes = tuple(a for a in axes if a in mesh.shape)
         self.parts = tree_leaves(zero1_layout(grad_specs, params, mesh,
@@ -378,59 +453,93 @@ class Zero1Plan:
         """√(Σ‖g‖²) of the whole gradient from this rank's ``parts``: the
         sums of squares grouped by how many members of the batch axes
         hold a part, each group summed over the batch axes and divided
-        by that count; the parts every member holds are added here."""
+        by that count; the parts every member holds are added here.  A
+        group of parts of leaves split over ``model`` (``dims``) is also
+        summed over ``model``: each model rank holds another part."""
         mesh = self.mesh
         size = mesh.size(self.axes)
+        dims = self.dims or [None] * len(parts)
         sums: dict = {}
-        for x, p in zip(parts, self.parts):
-            held = size // mesh.size(p.axes) if p.axes else size
+        for x, p, d in zip(parts, self.parts, dims):
+            held = (size // mesh.size(p.axes) if p.axes else size,
+                    d is not None)
             sq = torch.sum(torch.square(x.to(torch.float32)))
             sums[held] = sums[held] + sq if held in sums else sq
-        total = sums.pop(size, None)
+        total = sums.pop((size, False), None)
         if sums:
             held = sorted(sums)
             summed = mesh.psum(torch.stack([sums[h] for h in held]),
                                self.axes)
-            for j, h in enumerate(held):
+            split = [j for j, h in enumerate(held) if h[1]]
+            if split:
+                # a part of a leaf split over model: the model ranks'
+                # parts differ, and each is counted
+                summed = summed.clone()
+                summed[split] = mesh.psum(summed[split].contiguous(), MODEL)
+            for j, (h, _) in enumerate(held):
                 part = summed[j] / h
                 total = part if total is None else total + part
         return torch.sqrt(total)
 
 
-def shard_train_state(state: TrainState, mesh, grad_specs,
-                      cfg) -> TrainState:
-    """This rank's ZeRO-1 state from a replicated ``state``: the
-    parameters and step whole, master, m and v cut to its parts."""
-    plan = Zero1Plan(state.params, grad_specs, mesh, cfg)
+def _map_state(state: TrainState, fn, params=True) -> TrainState:
+    """``state`` with ``fn`` applied to the master, m, v, the error
+    feedback (where there is any) and, with ``params``, the
+    parameters."""
     opt = state.opt
-
-    def cut(tree):
-        return tree_unflatten(tree, plan.pieces(tree_leaves(tree)))
-
-    return TrainState(params=state.params,
-                      opt=AdamWState(step=opt.step, master=cut(opt.master),
-                                     m=cut(opt.m), v=cut(opt.v)),
-                      error_fb=state.error_fb)
+    ef = state.error_fb
+    return TrainState(params=fn(state.params) if params else state.params,
+                      opt=AdamWState(step=opt.step, master=fn(opt.master),
+                                     m=fn(opt.m), v=fn(opt.v)),
+                      error_fb=fn(ef) if tree_leaves(ef) else ef)
 
 
-def gather_train_state(state: TrainState, mesh, grad_specs,
-                       cfg) -> TrainState:
-    """The replicated state from every rank's ZeRO-1 ``state`` (a
-    collective: every member of the mesh calls it)."""
+def shard_train_state(state: TrainState, mesh, grad_specs=None, cfg=None,
+                      *, param_specs=None) -> TrainState:
+    """This rank's state from a replicated ``state``.  ``param_specs``
+    (tensor parallelism: the parameters' placements) cuts every tree to
+    the rank's shards over ``model``; ``grad_specs`` (ZeRO-1) then cuts
+    master, m, v and the error feedback to its parts over the batch
+    axes, the parameters and step staying as they are."""
+    if param_specs is not None:
+        state = _map_state(state, lambda t: shard_params(t, param_specs,
+                                                         mesh))
+    if grad_specs is None:
+        return state
     plan = Zero1Plan(state.params, grad_specs, mesh, cfg)
-    opt = state.opt
-
-    def whole(tree):
-        return tree_unflatten(state.params,
-                              plan.all_gather(tree_leaves(tree)))
-
-    return TrainState(params=state.params,
-                      opt=AdamWState(step=opt.step, master=whole(opt.master),
-                                     m=whole(opt.m), v=whole(opt.v)),
-                      error_fb=state.error_fb)
+    return _map_state(state, lambda t: tree_unflatten(
+        t, plan.pieces(tree_leaves(t))), params=False)
 
 
-def make_train_step(model, tcfg, *, mesh=None, grad_specs=None):
+def gather_train_state(state: TrainState, mesh, grad_specs=None, cfg=None,
+                       *, param_specs=None) -> TrainState:
+    """The replicated state from every rank's ``state``
+    (:func:`shard_train_state`'s inverse; a collective: every member of
+    the mesh calls it)."""
+    if grad_specs is not None:
+        plan = Zero1Plan(state.params, grad_specs, mesh, cfg)
+        state = _map_state(state, lambda t: tree_unflatten(
+            state.params, plan.all_gather(tree_leaves(t))), params=False)
+    if param_specs is not None:
+        state = _map_state(state, lambda t: gather_params(t, param_specs,
+                                                          mesh))
+    return state
+
+
+def tp_param_specs(model, mesh):
+    """The parameters' placements on ``mesh`` that tensor parallelism
+    follows: the reference's, without ``fsdp`` (the port shards no
+    parameter over the batch axes)."""
+    flags = get_flags()
+    try:
+        set_flags(fsdp=False)
+        return param_partition_specs(model.param_specs(), model.cfg, mesh)
+    finally:
+        set_flags(fsdp=flags.fsdp)
+
+
+def make_train_step(model, tcfg, *, mesh=None, grad_specs=None,
+                    tensor_parallel: bool = False):
     """``train_step(state, batch) -> (state, metrics)``; metrics are f32
     scalar tensors ``loss``, ``lm_loss``, ``aux_loss``, ``grad_norm``
     and ``lr``.  ``batch`` is a dict of tensors on the parameters'
@@ -444,21 +553,30 @@ def make_train_step(model, tcfg, *, mesh=None, grad_specs=None):
     rank's ZeRO-1 state (``shard_train_state``), and the step's
     ``reduce_scatter_seconds`` and ``all_gather_seconds`` list each
     call's host seconds in those collectives (``allreduce_seconds`` the
-    replicated leaves' and the metrics' all-reduce).  It takes no
-    gradient compression."""
-    if grad_specs is not None:
+    replicated leaves' and the metrics' all-reduce).
+
+    ``tensor_parallel`` (with a mesh) makes the step tensor parallel over
+    ``model`` (the module docstring): ``state`` is the rank's shards
+    (``shard_train_state(..., param_specs=tp_param_specs(model,
+    mesh))``).  Where ``model`` holds one rank it changes nothing."""
+    if grad_specs is not None and mesh is None:
+        raise ValueError("grad_specs (ZeRO-1) needs a mesh")
+    dims = None
+    if tensor_parallel:
         if mesh is None:
-            raise ValueError("grad_specs (ZeRO-1) needs a mesh")
-        if tcfg.grad_compression != "none":
-            raise ValueError(
-                f"grad_compression={tcfg.grad_compression!r} with "
-                "grad_specs: compression under ZeRO-1 is not ported")
-        return _make_zero1_step(model, tcfg, mesh, grad_specs)
+            raise ValueError("tensor_parallel needs a mesh")
+        gap = tp_gap(model.cfg)
+        if gap is not None:
+            raise ValueError(f"{model.cfg.name}: the port's tensor "
+                             f"parallelism does not cover {gap}")
+        if mesh.size(MODEL) > 1:
+            dims = model_dims(model.param_specs(),
+                              tp_param_specs(model, mesh))
+    if grad_specs is not None:
+        return _make_zero1_step(model, tcfg, mesh, grad_specs, dims)
     cfg = model.cfg
     pdt = dtype_of(cfg.param_dtype)
     m = tcfg.microbatches
-    period = cfg.pattern_period
-    n_enc = cfg.encoder.n_layers if cfg.is_encdec else 0
     axes = batch_axes_for_mesh(mesh) if mesh is not None else None
     ranks = mesh.size(axes) if mesh is not None else 1
     checked = [mesh is None]
@@ -466,7 +584,8 @@ def make_train_step(model, tcfg, *, mesh=None, grad_specs=None):
     def context():
         if mesh is None:
             return contextlib.nullcontext()
-        return activation_sharding_ctx(axes, mesh=mesh)
+        return activation_sharding_ctx(axes, mesh=mesh,
+                                       tensor_parallel=dims is not None)
 
     def all_reduce(grads, metrics, loss):
         names = sorted(metrics)
@@ -480,7 +599,12 @@ def make_train_step(model, tcfg, *, mesh=None, grad_specs=None):
 
     def train_step(state: TrainState, batch):
         if not checked[0]:
-            check_same_state(state, mesh)
+            if dims is None:
+                check_same_state(state, mesh)
+            else:
+                check_tp_state([state.params, state.opt.master,
+                                state.opt.m, state.opt.v, state.error_fb,
+                                state.opt.step], dims, mesh)
             checked[0] = True
         lr = cosine_schedule(state.opt.step, base_lr=tcfg.learning_rate,
                              warmup_steps=tcfg.warmup_steps,
@@ -492,16 +616,16 @@ def make_train_step(model, tcfg, *, mesh=None, grad_specs=None):
 
         error_fb = state.error_fb
         if tcfg.grad_compression != "none":
-            comp, error_fb = compress_gradients(
-                stack_layers(grads, period), stack_layers(error_fb, period),
-                tcfg.grad_compression)
-            grads = unstack_layers(
-                decompress_gradients(comp, tcfg.grad_compression),
-                period, cfg.n_layers, n_enc)
-            error_fb = unstack_layers(error_fb, period, cfg.n_layers, n_enc)
+            gl, el = compress_parts(
+                tree_leaves(grads), tree_leaves(error_fb),
+                units(state.params), tcfg.grad_compression)
+            grads = tree_unflatten(grads, gl)
+            error_fb = tree_unflatten(error_fb, el)
 
+        gnorm = (None if dims is None
+                 else tp_global_norm(tree_leaves(grads), dims, mesh))
         params, opt, om = adamw_update(grads, state.opt, lr, tcfg,
-                                       param_dtype=pdt)
+                                       param_dtype=pdt, gnorm=gnorm)
         metrics = {**metrics, **om, "loss": loss, "lr": lr}
         return TrainState(params=params, opt=opt, error_fb=error_fb), metrics
 
@@ -526,12 +650,19 @@ def make_train_step(model, tcfg, *, mesh=None, grad_specs=None):
         loss, metrics, grads = loss_and_grads(model, state.params, batch)
         return loss, metrics, tree_map(lambda g: g.to(torch.float32), grads)
 
+    def units(params):
+        """``reference_units`` of the rank's shards (memoized)."""
+        if not unit_cache:
+            unit_cache.append(reference_units(model, params, mesh, dims))
+        return unit_cache[0]
+
+    unit_cache: list = []
     train_step.allreduce_seconds = []
     train_step.accumulate = accumulate
     return train_step
 
 
-def _make_zero1_step(model, tcfg, mesh, grad_specs):
+def _make_zero1_step(model, tcfg, mesh, grad_specs, dims=None):
     """The ZeRO-1 train step (``make_train_step``'s docstring): its two
     halves are ``train_step.accumulate(state, batch)``, the loss, metrics
     and f32 gradients of the rank's rows, and ``train_step.update(state,
@@ -545,14 +676,22 @@ def _make_zero1_step(model, tcfg, mesh, grad_specs):
     plans: list = []                # built on the first call
 
     def accumulate(state: TrainState, batch):
-        with activation_sharding_ctx(axes, mesh=mesh):
+        with activation_sharding_ctx(axes, mesh=mesh,
+                                     tensor_parallel=dims is not None):
             return plain(state, batch)
 
     def update(state: TrainState, accumulated: list):
         if not plans:
-            check_same_state((state.params, state.opt.step), mesh)
-            plans.append(Zero1Plan(state.params, grad_specs, mesh, cfg))
-        plan = plans[0]
+            if dims is None:
+                check_same_state((state.params, state.opt.step), mesh)
+            else:
+                check_tp_state([state.params, state.opt.step], dims, mesh)
+            plan = Zero1Plan(state.params, grad_specs, mesh, cfg, dims)
+            units = (reference_units(model, state.params, mesh, dims,
+                                     plan.parts)
+                     if tcfg.grad_compression != "none" else None)
+            plans.append((plan, units))
+        plan, units = plans[0]
         loss, metrics, grads = accumulated
         accumulated.clear()
         lr = cosine_schedule(state.opt.step, base_lr=tcfg.learning_rate,
@@ -566,6 +705,11 @@ def _make_zero1_step(model, tcfg, mesh, grad_specs):
         vals, t_ar = synced_seconds(dev, lambda: mesh.psum(
             torch.stack([loss] + [metrics[k] for k in names]), axes))
         metrics, loss = dict(zip(names, vals[1:])), vals[0]
+        error_fb = state.error_fb
+        if tcfg.grad_compression != "none":
+            parts, fb = compress_parts(parts, tree_leaves(error_fb), units,
+                                       tcfg.grad_compression)
+            error_fb = tree_unflatten(error_fb, fb)
         parts = tree_unflatten(state.params, parts)
         gn = plan.global_norm(tree_leaves(parts))
         new_parts, opt, om = adamw_update(parts, state.opt, lr, tcfg,
@@ -578,7 +722,7 @@ def _make_zero1_step(model, tcfg, mesh, grad_specs):
         train_step.all_gather_seconds.append(t_ag)
         params = tree_unflatten(state.params, leaves)
         metrics = {**metrics, **om, "loss": loss, "lr": lr}
-        return TrainState(params=params, opt=opt, error_fb=()), metrics
+        return TrainState(params=params, opt=opt, error_fb=error_fb), metrics
 
     def train_step(state: TrainState, batch):
         return update(state, list(accumulate(state, batch)))
